@@ -1,0 +1,17 @@
+"""cnn_sr_tpu_torch — the SRCNN super-resolution system on PyTorch and CUDA.
+
+The port of ``cnn_sr_tpu`` (JAX/Pallas on a TPU) to an NVIDIA H100. It
+imports torch and numpy, never JAX, and keeps the JAX package's module
+names and public layouts: NHWC activations, HWIO ``(f, f, k, n)``
+weights, uint8 (H, W, 4) RGBA in and uint8 (H, W, 3) RGB out.
+
+Package layout:
+  utils/     config + parameters-file codecs, the numpy → torch bridge
+  models/    the layer-list SRCNN model (plain f32 forward, nn.Module)
+  ops/       color ops, image IO, the fused conv-stack kernel
+  csrc/      CUDA sources of the hand-written kernels
+  api.py     luma upscale of one image
+  cli.py     the forward-mode command line
+"""
+
+__version__ = "0.1.0"

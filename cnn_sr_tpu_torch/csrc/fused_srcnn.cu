@@ -1,0 +1,239 @@
+// Fused 3-layer SRCNN forward: y = conv3(relu(conv2(relu(conv1(x) + b1)) + b2)) + b3
+//
+// Replaces the TPU kernel cnn_sr_tpu/ops/pallas_fused/kernel.py:_fused_tail_single
+// (the one pl.pallas_call, kernel.py:730) and the branches it runs for a
+// 3-layer luma stack: conv1 from the raw plane (plane.py:plane_first_layer)
+// or as a 1x1 matmul over im2col patches (kernel.py:463-497, also the f==1
+// middle of 9-1-5); conv2 as the quad-parity direct conv
+// (wino_kernel.py:wino_layer, quad branch) or the all-phase Z middle
+// (kernel.py:546-667); conv3 as the parity exit (wino_kernel.py:wino_mm_exit
+// with _xt_extract and the parity recombine) or the packed-dx FMA loop
+// (kernel.py:672-718). On this card those TPU layouts (parity planes, lane
+// rolls, identity-dot transposes) have no purpose: what is kept is the
+// math and what the TPU kernel keeps out of device memory.
+//
+// All three convolutions are VALID stride-1 cross-correlations over NHWC
+// activations with HWIO (f, f, k, n) weights; the output is
+// (N, H - s, W - s, n_out) with s = (f1 - 1) + (f2 - 1) + (f3 - 1).
+//
+// What bounds it: f32 FMAs on the CUDA cores (no tensor cores in this f32
+// version), shared-memory capacity, and the latency of the memory that
+// feeds the FMAs. The flagship 9-5-5 (n1 = 64, n2 = 32) spends 51,200 of
+// its 57,184 MACs per output pixel in conv2, whose weights (204,800 bytes)
+// do not fit in what L1 keeps beside the tiles.
+//
+// What the design does about it:
+// * One thread block owns one output tile of one image (blockIdx.x/y =
+//   tile column/row, blockIdx.z = image). Dynamic shared memory holds the
+//   input window with its s-pixel halo, the conv1 tile and the conv2 tile,
+//   all channel-major, so only the output is written to device memory. At
+//   a 16x16 output tile the flagship's tiles take 4,096 + 147,456 + 51,200
+//   = 202,752 bytes: one block per SM. The halo is recomputed per tile
+//   (2.25x on conv1, 1.56x on conv2 at 16x16).
+// * The rest of the block's shared memory (29,696 bytes for the flagship)
+//   carries each layer's weights, read from global memory once per chunk
+//   of input channels and then read by every thread from shared memory.
+//   Read from global memory inside the FMA loop, they came from L2: 43.5
+//   against 22.4 ms per flagship 1080p frame (NVIDIA H100 80GB HBM3, 700 W).
+// * Each thread computes PX output rows of one column for NB output
+//   channels at once, so every activation read feeds NB FMAs and every
+//   weight read feeds PX FMAs. Neighbouring threads take neighbouring
+//   columns: their activation reads hit consecutive banks, and their
+//   weight reads are one warp-uniform address (a broadcast). 512 threads
+//   of NB = 8 give 16 warps per SM to hide shared-memory latency: 20.1 ms
+//   against 22.4 ms for 256 threads of NB = 16 (same card and limit).
+// * Ragged right and bottom edges: input outside the image reads as 0,
+//   and only in-image outputs are stored.
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kThreads = 512;
+
+// One layer: VALID cross-correlation of the channel-major shared tile
+// in[k][ih][iw] with HWIO weights w (f, f, k, n) plus bias b, into an
+// (oh, ow, n) result with oh = ih - f + 1, ow = iw - f + 1.
+// TO_GLOBAL = false: stored channel-major into shared out[n][oh][ow].
+// TO_GLOBAL = true: stored NHWC into out (one image of (gh, gw, n)) at
+// offset (gy0, gx0), where inside that image.
+// The weights pass through the shared buffer wbuf (wbuf_floats, at least
+// f * f * n) in chunks of input channels, laid out [c][tap][n].
+// VEC (float4 weight reads) needs n % NB == 0 and NB % 4 == 0.
+template <int NB, int PX, bool VEC, bool RELU, bool TO_GLOBAL>
+__device__ void conv_stage(const float* in, int k, int ih, int iw,
+                           const float* __restrict__ w, const float* __restrict__ b, int f,
+                           int n, float* wbuf, int wbuf_floats, float* out, int oh, int ow,
+                           int gy0, int gx0, int gh, int gw) {
+  const int taps = f * f;
+  const int ck = min(k, wbuf_floats / (taps * n));
+  const int groups = (n + NB - 1) / NB;
+  const int rblocks = (oh + PX - 1) / PX;
+  const int items = groups * rblocks * ow;
+  const int plane = ih * iw;
+  for (int it0 = 0; it0 < items; it0 += blockDim.x) {
+    const bool active = it0 + static_cast<int>(threadIdx.x) < items;
+    const int it = min(it0 + static_cast<int>(threadIdx.x), items - 1);
+    const int x = it % ow;
+    const int t = it / ow;
+    const int rb = t % rblocks;
+    const int n0 = (t / rblocks) * NB;
+    const int n_left = n - n0;
+
+    // rows past the tile's last one repeat it (computed, never stored),
+    // which keeps every shared-memory read inside the tile
+    int base[PX];
+#pragma unroll
+    for (int q = 0; q < PX; ++q) base[q] = min(rb * PX + q, oh - 1) * iw + x;
+
+    float acc[PX][NB];
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+      const float bj = j < n_left ? __ldg(b + n0 + j) : 0.f;
+#pragma unroll
+      for (int q = 0; q < PX; ++q) acc[q][j] = bj;
+    }
+
+    for (int c0 = 0; c0 < k; c0 += ck) {
+      const int cn = min(ck, k - c0);
+      __syncthreads();  // every thread is done with the previous chunk
+      for (int i = threadIdx.x; i < cn * taps * n; i += blockDim.x) {
+        const int tap = (i / n) % taps, cc = i / (n * taps);
+        wbuf[i] = __ldg(w + (static_cast<size_t>(tap) * k + c0 + cc) * n + i % n);
+      }
+      __syncthreads();
+      if (!active) continue;
+      for (int cc = 0; cc < cn; ++cc) {
+        const float* inc = in + (c0 + cc) * plane;
+        const float* wc = wbuf + cc * taps * n + n0;
+        for (int dy = 0; dy < f; ++dy) {
+          for (int dx = 0; dx < f; ++dx) {
+            const float* wt = wc + (dy * f + dx) * n;
+            float wv[NB];
+            if constexpr (VEC) {
+#pragma unroll
+              for (int j = 0; j < NB; j += 4) {
+                const float4 v = *reinterpret_cast<const float4*>(wt + j);
+                wv[j] = v.x;
+                wv[j + 1] = v.y;
+                wv[j + 2] = v.z;
+                wv[j + 3] = v.w;
+              }
+            } else {
+#pragma unroll
+              for (int j = 0; j < NB; ++j) wv[j] = j < n_left ? wt[j] : 0.f;
+            }
+            const int off = dy * iw + dx;
+#pragma unroll
+            for (int q = 0; q < PX; ++q) {
+              const float a = inc[base[q] + off];
+#pragma unroll
+              for (int j = 0; j < NB; ++j) acc[q][j] = fmaf(a, wv[j], acc[q][j]);
+            }
+          }
+        }
+      }
+    }
+    if (!active) continue;
+
+#pragma unroll
+    for (int q = 0; q < PX; ++q) {
+      const int row = rb * PX + q;
+      if (row >= oh) break;
+      if constexpr (TO_GLOBAL) {
+        const int gy = gy0 + row, gx = gx0 + x;
+        if (gy >= gh || gx >= gw) continue;
+        float* dst = out + (static_cast<size_t>(gy) * gw + gx) * n + n0;
+#pragma unroll
+        for (int j = 0; j < NB; ++j)
+          if (j < n_left) dst[j] = RELU ? fmaxf(acc[q][j], 0.f) : acc[q][j];
+      } else {
+#pragma unroll
+        for (int j = 0; j < NB; ++j)
+          if (j < n_left)
+            out[(n0 + j) * oh * ow + row * ow + x] = RELU ? fmaxf(acc[q][j], 0.f) : acc[q][j];
+      }
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+    fused_srcnn_kernel(const float* __restrict__ x, const float* __restrict__ w1,
+                       const float* __restrict__ b1, const float* __restrict__ w2,
+                       const float* __restrict__ b2, const float* __restrict__ w3,
+                       const float* __restrict__ b3, float* __restrict__ y, int H, int W,
+                       int C, int f1, int n1, int f2, int n2, int f3, int n3, int tile_h,
+                       int tile_w, int wbuf_floats) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int OH = H - (f1 - 1) - (f2 - 1) - (f3 - 1);
+  const int OW = W - (f1 - 1) - (f2 - 1) - (f3 - 1);
+  const int oy0 = blockIdx.y * tile_h;
+  const int ox0 = blockIdx.x * tile_w;
+  const size_t img = blockIdx.z;
+
+  const int a2h = tile_h + f3 - 1, a2w = tile_w + f3 - 1;
+  const int a1h = a2h + f2 - 1, a1w = a2w + f2 - 1;
+  const int ih = a1h + f1 - 1, iw = a1w + f1 - 1;
+  // [weight chunk | input window | conv1 tile | conv2 tile]; the chunk
+  // comes first so that its float4 reads are 16-byte aligned
+  float* wbuf = smem;
+  float* s_in = wbuf + wbuf_floats;
+  float* s_a1 = s_in + C * ih * iw;
+  float* s_a2 = s_a1 + n1 * a1h * a1w;
+
+  // input window, NHWC global -> channel-major shared; zero outside the image
+  const float* xi = x + img * H * W * C;
+  const int total = ih * iw * C;
+  for (int i = threadIdx.x; i < total; i += blockDim.x) {
+    const int c = i % C;
+    const int p = i / C;
+    const int gy = oy0 + p / iw, gx = ox0 + p % iw;
+    s_in[c * ih * iw + p] =
+        (gy < H && gx < W) ? __ldg(xi + (static_cast<size_t>(gy) * W + gx) * C + c) : 0.f;
+  }
+  // (the first chunk load in conv_stage synchronises before any read)
+  // vector weight reads where the width allows them (block-uniform branch)
+  if (n1 % 8 == 0)
+    conv_stage<8, 4, true, true, false>(s_in, C, ih, iw, w1, b1, f1, n1, wbuf, wbuf_floats,
+                                         s_a1, a1h, a1w, 0, 0, 0, 0);
+  else
+    conv_stage<8, 4, false, true, false>(s_in, C, ih, iw, w1, b1, f1, n1, wbuf, wbuf_floats,
+                                          s_a1, a1h, a1w, 0, 0, 0, 0);
+  if (n2 % 8 == 0)
+    conv_stage<8, 4, true, true, false>(s_a1, n1, a1h, a1w, w2, b2, f2, n2, wbuf,
+                                         wbuf_floats, s_a2, a2h, a2w, 0, 0, 0, 0);
+  else
+    conv_stage<8, 4, false, true, false>(s_a1, n1, a1h, a1w, w2, b2, f2, n2, wbuf,
+                                          wbuf_floats, s_a2, a2h, a2w, 0, 0, 0, 0);
+  conv_stage<4, 1, false, false, true>(s_a2, n2, a2h, a2w, w3, b3, f3, n3, wbuf, wbuf_floats,
+                                       y + img * OH * OW * n3, tile_h, tile_w, oy0, ox0, OH,
+                                       OW);
+}
+
+}  // namespace
+
+// Launches the kernel on `stream` and returns cudaGetLastError(). The caller
+// checks the envelope (3 layers, C <= 4, n3 <= 4, shared bytes within the
+// per-block limit) and allocates y.
+extern "C" int fused_srcnn_forward(const float* x, const float* w1, const float* b1,
+                                   const float* w2, const float* b2, const float* w3,
+                                   const float* b3, float* y, int N, int H, int W, int C,
+                                   int f1, int n1, int f2, int n2, int f3, int n3,
+                                   int tile_h, int tile_w, int wbuf_floats, int smem_bytes,
+                                   void* stream) {
+  const int s = (f1 - 1) + (f2 - 1) + (f3 - 1);
+  const int OH = H - s, OW = W - s;
+  cudaError_t err = cudaFuncSetAttribute(
+      fused_srcnn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((OW + tile_w - 1) / tile_w, (OH + tile_h - 1) / tile_h, N);
+  fused_srcnn_kernel<<<grid, kThreads, smem_bytes, static_cast<cudaStream_t>(stream)>>>(
+      x, w1, b1, w2, b2, w3, b3, y, H, W, C, f1, n1, f2, n2, f3, n3, tile_h, tile_w,
+      wbuf_floats);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" const char* fused_srcnn_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}

@@ -1,0 +1,12 @@
+from .config import Config, LayerSpec, ParametersDistribution, read_config
+from .params_io import load_parameters_file, params_to_torch, random_parameters
+
+__all__ = [
+    "Config",
+    "LayerSpec",
+    "ParametersDistribution",
+    "read_config",
+    "load_parameters_file",
+    "params_to_torch",
+    "random_parameters",
+]

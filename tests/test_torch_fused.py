@@ -1,0 +1,145 @@
+"""The port's fused conv stack (``cnn_sr_tpu_torch.ops.fused``).
+
+On the CPU, ``fused_forward`` is its plain version, held here against the
+JAX package's Pallas kernel in interpret mode. The CUDA kernel runs only
+on a card: those tests carry the ``cuda`` marker and skip without one.
+A machine with a card may have no JAX, so this module imports JAX only
+inside the test that needs it; there the card tests run with
+
+    python -m pytest tests/test_torch_fused.py -m cuda --noconftest
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from cnn_sr_tpu_torch.ops.fused import build, entry, reference
+from cnn_sr_tpu_torch.ops.fused import fused_forward
+from cnn_sr_tpu_torch.utils.params_io import params_to_torch
+
+
+def _params(specs, seed):
+    rng = np.random.default_rng(seed)
+    return [{"w": (rng.standard_normal((f, f, k, n)) * 0.1).astype(np.float32),
+             "b": (rng.standard_normal((n,)) * 0.05).astype(np.float32)}
+            for f, k, n in specs]
+
+
+def _x(shape, seed):
+    return np.random.default_rng(seed).uniform(-0.5, 0.5, shape).astype(np.float32)
+
+
+NARROW_955 = [(9, 1, 8), (5, 8, 8), (5, 8, 1)]
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+def test_cpu_matches_jax_pallas_interpret():
+    import jax.numpy as jnp
+
+    from cnn_sr_tpu.ops.pallas_fused import fused_forward as jfused_forward
+
+    params = _params(NARROW_955, 0)
+    x = _x((1, 40, 140, 1), 1)
+    want = np.asarray(jfused_forward(params, x, tile_h=16, tile_w=128,
+                                     dtype=jnp.float32))
+    before = entry.LAUNCHES
+    got = fused_forward(params_to_torch(params, "cpu"), torch.from_numpy(x))
+    assert entry.LAUNCHES == before  # the CPU path launches no kernel
+    assert tuple(got.shape) == want.shape == (1, 24, 124, 1)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("specs,shape,match", [
+    ([(9, 1, 8), (5, 8, 1)], (1, 30, 30, 1), "3-layer"),
+    ([(9, 1, 8), (5, 8, 8), (1, 8, 8), (5, 8, 1)], (1, 30, 30, 1), "3-layer"),
+    ([(3, 3, 8), (3, 8, 8), (3, 8, 5)], (1, 30, 30, 3), "n_out <= 4"),
+    ([(3, 5, 8), (3, 8, 8), (3, 8, 1)], (1, 30, 30, 5), "c_in <= 4"),
+    ([(9, 1, 128), (5, 128, 64), (5, 64, 1)], (1, 30, 30, 1), "shared bytes"),
+], ids=["2-layer", "4-layer", "n_out", "c_in", "smem"])
+def test_outside_envelope_raises_on_every_device(specs, shape, match):
+    """The envelope is the kernel's, on the CPU too: a stack the card
+    cannot run is refused, never served by the plain version instead."""
+    params = params_to_torch(_params(specs, 2), "cpu")
+    with pytest.raises(NotImplementedError, match=match):
+        fused_forward(params, torch.from_numpy(_x(shape, 3)))
+
+
+def test_device_without_kernel_raises():
+    params = [{k: v.to("meta") for k, v in layer.items()}
+              for layer in params_to_torch(_params(NARROW_955, 4), "cpu")]
+    with pytest.raises(NotImplementedError, match="no kernel for device meta"):
+        fused_forward(params, torch.empty((1, 40, 40, 1), device="meta"))
+
+
+def test_malformed_input_raises():
+    params = params_to_torch(_params(NARROW_955, 5), "cpu")
+    x = torch.from_numpy(_x((1, 40, 48, 1), 6))
+    with pytest.raises(ValueError, match="float32"):
+        fused_forward(params, x.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_forward(params, x.transpose(1, 2))
+    with pytest.raises(ValueError, match="receptive field"):
+        fused_forward(params, x[:, :16].contiguous())
+    with pytest.raises(ValueError, match="do not chain"):
+        fused_forward(params[::-1], x)
+
+
+def test_smem_sizing_matches_the_design():
+    # flagship 9-5-5 at a 16x16 tile: 32²·1 + 24²·64 + 20²·32 floats
+    assert entry.tile_bytes(1, [(9, 64), (5, 32), (5, 1)]) == 202_752
+    assert entry.tile_bytes(1, [(9, 64), (1, 32), (5, 1)]) == 4 * (
+        28 * 28 + 20 * 20 * 64 + 20 * 20 * 32)
+    # the rest of the block's shared memory carries conv2's weights, 9 of
+    # its 64 input channels (5·5·32 floats each) at a time
+    chunk, total = entry.smem_plan(1, [(9, 1, 64), (5, 64, 32), (5, 32, 1)])
+    assert total == entry.SMEM_LIMIT and chunk // (5 * 5 * 32) == 9
+    # 9-1-5: all of conv2's weights fit at once; no more than they need
+    chunk, total = entry.smem_plan(1, [(9, 1, 64), (1, 64, 32), (5, 32, 1)])
+    assert chunk == 9 * 9 * 64 and total < entry.SMEM_LIMIT
+
+
+def test_build_names_library_by_source_hash_and_needs_nvcc(monkeypatch, tmp_path):
+    path = build.library_path()
+    assert path.parent == build.BUILD_DIR and path == build.library_path()
+    assert "compute_90a,code=sm_90a" in " ".join(build.NVCC_FLAGS)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setattr(build.os.path, "isfile",
+                        lambda p: False if p.endswith("nvcc") else True)
+    with pytest.raises(build.KernelBuildError, match="nvcc not found"):
+        build.find_nvcc()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("specs,shape", [
+    (NARROW_955, (1, 40, 140, 1)),
+    ([(9, 1, 64), (5, 64, 32), (5, 32, 1)], (2, 97, 131, 1)),
+    ([(9, 1, 64), (1, 64, 32), (5, 32, 1)], (1, 80, 272, 1)),
+    ([(3, 3, 16), (3, 16, 8), (3, 8, 3)], (1, 45, 70, 3)),
+    ([(9, 1, 12), (1, 12, 4), (5, 4, 1)], (1, 48, 64, 1)),
+], ids=["narrow_9-5-5", "flagship_ragged", "9-1-5", "rgb_3layer", "odd_widths"])
+def test_kernel_matches_plain_on_card(cuda_device, specs, shape):
+    # f32 sums of up to 1,600 terms in another order than cuDNN's
+    params = params_to_torch(_params(specs, 7), cuda_device)
+    x = torch.from_numpy(_x(shape, 8)).to(cuda_device)
+    before = entry.LAUNCHES
+    y = fused_forward(params, x)
+    ref = reference.fused_forward(params, x)
+    torch.cuda.synchronize()
+    assert entry.LAUNCHES == before + 1
+    torch.testing.assert_close(y, ref, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_outside_envelope_raises_without_launch(cuda_device):
+    params = params_to_torch(_params([(9, 1, 8), (5, 8, 8), (5, 8, 5)], 9), cuda_device)
+    before = entry.LAUNCHES
+    with pytest.raises(NotImplementedError):
+        fused_forward(params, torch.zeros((1, 40, 40, 1), device=cuda_device))
+    assert entry.LAUNCHES == before
