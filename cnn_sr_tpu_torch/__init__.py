@@ -8,9 +8,9 @@ weights, uint8 (H, W, 4) RGBA in and uint8 (H, W, 3) RGB out.
 Package layout:
   utils/     config + parameters-file codecs, the numpy → torch bridge
   models/    the layer-list SRCNN model (plain f32 forward, nn.Module)
-  ops/       color ops, image IO, the fused conv-stack kernel
+  ops/       color ops, image IO, the conv-stack kernels (fused, chain)
   csrc/      CUDA sources of the hand-written kernels
-  api.py     luma upscale of one image
+  api.py     luma or RGB upscale of one image
   cli.py     the forward-mode command line
 """
 

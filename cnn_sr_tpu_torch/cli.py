@@ -3,10 +3,12 @@
     python cnn_torch.py [dry] -c cfg.json -i <image|dir> [-o <out>]
                         [--seed N] [--device cuda|cpu]
 
-Decode → luma pipeline → net → swap-luma → encode, for one image or for
-every image of a directory (written as ``<stem>_sr.png``). ``dry`` runs
-without writing. The ``train`` and ``profile`` modes and the JAX CLI's
-TPU options are not ported yet (ROADMAP.md Queue 1).
+Decode → luma or RGB pipeline (by the config's ``channels``) → net →
+swap → encode, for one image or for every image of a directory (written
+as ``<stem>_sr.png``). ``dry`` runs without writing. ``--device cuda``
+(the default) runs the CUDA kernels and fails without a card; ``cpu``
+runs their plain version. The ``train`` and ``profile`` modes and the
+JAX CLI's TPU options are not ported yet (ROADMAP.md Queue 1).
 """
 
 from __future__ import annotations
@@ -32,7 +34,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="seed of the random weights when the config names no "
                    "parameters file")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
-                   help="cuda runs the fused kernel; cpu its plain version")
+                   help="cuda runs the CUDA kernels; cpu their plain version")
     return p
 
 

@@ -47,115 +47,11 @@
 
 #include <cuda_runtime.h>
 
+#include "conv_stage.cuh"
+
 namespace {
 
 constexpr int kThreads = 512;
-
-// One layer: VALID cross-correlation of the channel-major shared tile
-// in[k][ih][iw] with HWIO weights w (f, f, k, n) plus bias b, into an
-// (oh, ow, n) result with oh = ih - f + 1, ow = iw - f + 1.
-// TO_GLOBAL = false: stored channel-major into shared out[n][oh][ow].
-// TO_GLOBAL = true: stored NHWC into out (one image of (gh, gw, n)) at
-// offset (gy0, gx0), where inside that image.
-// The weights pass through the shared buffer wbuf (wbuf_floats, at least
-// f * f * n) in chunks of input channels, laid out [c][tap][n].
-// VEC (float4 weight reads) needs n % NB == 0 and NB % 4 == 0.
-template <int NB, int PX, bool VEC, bool RELU, bool TO_GLOBAL>
-__device__ void conv_stage(const float* in, int k, int ih, int iw,
-                           const float* __restrict__ w, const float* __restrict__ b, int f,
-                           int n, float* wbuf, int wbuf_floats, float* out, int oh, int ow,
-                           int gy0, int gx0, int gh, int gw) {
-  const int taps = f * f;
-  const int ck = min(k, wbuf_floats / (taps * n));
-  const int groups = (n + NB - 1) / NB;
-  const int rblocks = (oh + PX - 1) / PX;
-  const int items = groups * rblocks * ow;
-  const int plane = ih * iw;
-  for (int it0 = 0; it0 < items; it0 += blockDim.x) {
-    const bool active = it0 + static_cast<int>(threadIdx.x) < items;
-    const int it = min(it0 + static_cast<int>(threadIdx.x), items - 1);
-    const int x = it % ow;
-    const int t = it / ow;
-    const int rb = t % rblocks;
-    const int n0 = (t / rblocks) * NB;
-    const int n_left = n - n0;
-
-    // rows past the tile's last one repeat it (computed, never stored),
-    // which keeps every shared-memory read inside the tile
-    int base[PX];
-#pragma unroll
-    for (int q = 0; q < PX; ++q) base[q] = min(rb * PX + q, oh - 1) * iw + x;
-
-    float acc[PX][NB];
-#pragma unroll
-    for (int j = 0; j < NB; ++j) {
-      const float bj = j < n_left ? __ldg(b + n0 + j) : 0.f;
-#pragma unroll
-      for (int q = 0; q < PX; ++q) acc[q][j] = bj;
-    }
-
-    for (int c0 = 0; c0 < k; c0 += ck) {
-      const int cn = min(ck, k - c0);
-      __syncthreads();  // every thread is done with the previous chunk
-      for (int i = threadIdx.x; i < cn * taps * n; i += blockDim.x) {
-        const int tap = (i / n) % taps, cc = i / (n * taps);
-        wbuf[i] = __ldg(w + (static_cast<size_t>(tap) * k + c0 + cc) * n + i % n);
-      }
-      __syncthreads();
-      if (!active) continue;
-      for (int cc = 0; cc < cn; ++cc) {
-        const float* inc = in + (c0 + cc) * plane;
-        const float* wc = wbuf + cc * taps * n + n0;
-        for (int dy = 0; dy < f; ++dy) {
-          for (int dx = 0; dx < f; ++dx) {
-            const float* wt = wc + (dy * f + dx) * n;
-            float wv[NB];
-            if constexpr (VEC) {
-#pragma unroll
-              for (int j = 0; j < NB; j += 4) {
-                const float4 v = *reinterpret_cast<const float4*>(wt + j);
-                wv[j] = v.x;
-                wv[j + 1] = v.y;
-                wv[j + 2] = v.z;
-                wv[j + 3] = v.w;
-              }
-            } else {
-#pragma unroll
-              for (int j = 0; j < NB; ++j) wv[j] = j < n_left ? wt[j] : 0.f;
-            }
-            const int off = dy * iw + dx;
-#pragma unroll
-            for (int q = 0; q < PX; ++q) {
-              const float a = inc[base[q] + off];
-#pragma unroll
-              for (int j = 0; j < NB; ++j) acc[q][j] = fmaf(a, wv[j], acc[q][j]);
-            }
-          }
-        }
-      }
-    }
-    if (!active) continue;
-
-#pragma unroll
-    for (int q = 0; q < PX; ++q) {
-      const int row = rb * PX + q;
-      if (row >= oh) break;
-      if constexpr (TO_GLOBAL) {
-        const int gy = gy0 + row, gx = gx0 + x;
-        if (gy >= gh || gx >= gw) continue;
-        float* dst = out + (static_cast<size_t>(gy) * gw + gx) * n + n0;
-#pragma unroll
-        for (int j = 0; j < NB; ++j)
-          if (j < n_left) dst[j] = RELU ? fmaxf(acc[q][j], 0.f) : acc[q][j];
-      } else {
-#pragma unroll
-        for (int j = 0; j < NB; ++j)
-          if (j < n_left)
-            out[(n0 + j) * oh * ow + row * ow + x] = RELU ? fmaxf(acc[q][j], 0.f) : acc[q][j];
-      }
-    }
-  }
-}
 
 __global__ void __launch_bounds__(kThreads)
     fused_srcnn_kernel(const float* __restrict__ x, const float* __restrict__ w1,
@@ -234,6 +130,6 @@ extern "C" int fused_srcnn_forward(const float* x, const float* w1, const float*
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" const char* fused_srcnn_error_string(int err) {
+extern "C" const char* cnn_sr_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

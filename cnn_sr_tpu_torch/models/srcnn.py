@@ -20,14 +20,16 @@ from torch import nn
 def strict_f32():
     """Full-f32 convolutions and matmuls on CUDA. cuDNN runs f32
     convolutions in TF32 by default (about three decimal digits), which the
-    JAX package rules out by pinning ``Precision.HIGHEST``."""
-    prev = torch.backends.cuda.matmul.allow_tf32
+    JAX package rules out by pinning ``Precision.HIGHEST``. Only the TF32
+    flags change: cuDNN stays enabled (``torch.backends.cudnn.flags``
+    would also disable it, through its ``enabled=False`` default)."""
+    prev = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     try:
-        with torch.backends.cudnn.flags(allow_tf32=False):
-            yield
+        yield
     finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev
 
 
 def conv_layer(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -49,8 +51,9 @@ def forward(params, x: torch.Tensor) -> torch.Tensor:
 
 class SRCNN(nn.Module):
     """Inference model holding one layer list; ``forward`` runs the whole
-    stack through the fused kernel (``ops.fused.fused_forward``). The
-    tensors are buffers, shared with the list it was built from."""
+    stack through ``ops.fused.fused_forward`` (the fused kernel or the
+    layer chain, by shape). The tensors are buffers, shared with the list
+    it was built from."""
 
     def __init__(self, params):
         super().__init__()

@@ -1,4 +1,4 @@
-from .color import extract_luma, subtract_mean, swap_luma
+from .color import extract_luma, subtract_mean, swap_luma, swap_rgb
 from .fused import fused_forward
 from .image import load_image, write_image
 
@@ -6,6 +6,7 @@ __all__ = [
     "extract_luma",
     "subtract_mean",
     "swap_luma",
+    "swap_rgb",
     "fused_forward",
     "load_image",
     "write_image",

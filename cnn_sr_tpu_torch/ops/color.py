@@ -1,8 +1,8 @@
-"""Color-space ops: luma extraction, mean subtraction, luma swap.
+"""Color-space ops: luma extraction, mean subtraction, luma and RGB swap.
 
 Counterpart of ``cnn_sr_tpu/ops/color.py`` (rank-3 forms; the uint32
-``*_packed`` forms and ``swap_rgb`` wait). Each function keeps the JAX
-expression order, so that the CPU results match it byte for byte:
+``*_packed`` forms wait). Each function keeps the JAX expression order, so
+that the CPU results match it byte for byte:
 
 * ``extract_luma``  — Rec.601 ``0.299·R + 0.587·G + 0.114·B`` from uint8
   RGBA, optionally /255 (extract_luma.cl:5-21);
@@ -11,7 +11,9 @@ expression order, so that the CPU results match it byte for byte:
 * ``swap_luma``     — recombine the net's luma with the original chroma
   through the fixed YCbCr matrices, clamp to 0..255, truncate to uint8;
   the window offset comes from the width alone and the border passes
-  the original through (swap_luma.cl:19-69).
+  the original through (swap_luma.cl:19-69);
+* ``swap_rgb``      — the RGB model's counterpart: paste the net's 0..1 RGB,
+  clamped to 0..255 and truncated to uint8, into the original.
 
 All take and return tensors on any device; images are uint8 (H, W, C≥3).
 """
@@ -75,3 +77,19 @@ def swap_luma(original_rgb: torch.Tensor, new_luma: torch.Tensor) -> torch.Tenso
     cols = torch.arange(w, device=original_rgb.device)[None, :]
     inside = (rows >= pad) & (rows < pad + lh) & (cols >= pad) & (cols < pad + lw)
     return torch.where(inside[..., None], combined, original_rgb[..., :3])
+
+
+def swap_rgb(original_rgb: torch.Tensor, new_rgb: torch.Tensor) -> torch.Tensor:
+    """uint8 (H, W, C>=3) image + float RGB (lh, lw, 3) in 0..1 → uint8
+    (H, W, 3): ``trunc(clip(new·255, 0, 255))`` pasted at offset
+    ``(W − lw) // 2`` on both axes; the border copies the original."""
+    h, w = original_rgb.shape[0], original_rgb.shape[1]
+    lh, lw = new_rgb.shape[0], new_rgb.shape[1]
+    pad = (w - lw) // 2
+    out = torch.trunc(torch.clamp(new_rgb * 255.0, 0.0, 255.0)).to(torch.uint8)
+    canvas = original_rgb[..., :3].clone()
+    # the write start clamps like lax.dynamic_update_slice
+    r0 = min(max(pad, 0), h - lh)
+    c0 = min(max(pad, 0), w - lw)
+    canvas[r0:r0 + lh, c0:c0 + lw] = out
+    return canvas

@@ -1,4 +1,5 @@
-"""The fused SRCNN conv stack: CUDA kernel, its plain version, its build."""
+"""The SRCNN conv stack on the card: the fused 3-layer kernel, the layer
+chain, their routing, their plain version and their build."""
 
 from .entry import fused_forward
 

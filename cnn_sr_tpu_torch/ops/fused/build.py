@@ -1,11 +1,13 @@
-"""Build and load the fused kernel's shared library.
+"""Build and load the CUDA kernels' shared library.
 
 The CUDA sources under ``cnn_sr_tpu_torch/csrc/`` compile with ``nvcc`` into
 a plain C shared library (no PyTorch headers, so the build takes seconds)
-that ``ctypes`` loads. The build happens at first use, into
-``build/cnn_sr_tpu_torch/`` at the checkout's root, under a name keyed on
-a hash of the sources and flags, so an edited source rebuilds and an
-unchanged one is reused.
+that ``ctypes`` loads. Each ``.cu`` file compiles in its own ``nvcc``
+process, all started together, and one more links the objects. The build
+happens at first use, into ``build/cnn_sr_tpu_torch/`` at the checkout's
+root, under a name keyed on a hash of every file in ``csrc/`` (the ``.cu``
+sources and the ``.cuh`` headers they share) and the flags, so an edited
+source or header rebuilds and an unchanged tree is reused.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "cnn_sr_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 
 class KernelBuildError(RuntimeError):
@@ -48,37 +50,60 @@ def find_nvcc() -> str:
 
 
 def _sources():
+    """The translation units: every ``.cu`` file (headers are included)."""
     return sorted(CSRC.glob("*.cu"))
+
+
+def _hashed_files():
+    return sorted(p for p in CSRC.iterdir() if p.suffix in (".cu", ".cuh"))
 
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in _hashed_files():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libcnn_sr_kernels_{h.hexdigest()[:16]}.so"
 
 
-def build() -> dict:
-    """Compile the sources unless the library for their hash exists.
-    Returns ``{"path", "seconds", "log"}``; ``log`` is the compiler's
-    ptxas report (registers, shared memory, spills), empty on reuse."""
-    path = library_path()
-    if path.is_file():
-        return {"path": str(path), "seconds": 0.0, "log": ""}
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
-    t0 = time.perf_counter()
+def _run(cmd) -> subprocess.CompletedProcess:
     proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
     if proc.returncode != 0:
-        os.unlink(tmp)
         raise KernelBuildError(
             f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}")
-    os.replace(tmp, path)  # atomic: a concurrent build sees all or nothing
-    return {"path": str(path), "seconds": seconds, "log": proc.stderr}
+    return proc
+
+
+def build() -> dict:
+    """Compile the sources unless the library for their hash exists.
+    Returns ``{"path", "seconds", "logs"}``; ``logs`` maps each source's
+    name to its ptxas report (registers, shared memory, spills), and is
+    empty on reuse."""
+    path = library_path()
+    if path.is_file():
+        return {"path": str(path), "seconds": 0.0, "logs": {}}
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = find_nvcc()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        jobs = {}
+        for src in _sources():
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", os.path.join(tmp, src.stem + ".o"), str(src)]
+            jobs[src.name] = (cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        logs, failed = {}, []
+        for name, (cmd, proc) in jobs.items():
+            _, err = proc.communicate()
+            logs[name] = err
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{err}")
+        if failed:
+            raise KernelBuildError("\n".join(failed))
+        lib = os.path.join(tmp, "lib.so")
+        _run([nvcc, "-shared", "-o", lib,
+              *(os.path.join(tmp, src.stem + ".o") for src in _sources())])
+        os.replace(lib, path)  # atomic: a concurrent build sees all or nothing
+    return {"path": str(path), "seconds": time.perf_counter() - t0, "logs": logs}
 
 
 @functools.lru_cache(maxsize=None)
@@ -89,6 +114,8 @@ def load_library() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.fused_srcnn_forward.argtypes = [p] * 8 + [i] * 14 + [p]
     lib.fused_srcnn_forward.restype = i
-    lib.fused_srcnn_error_string.argtypes = [i]
-    lib.fused_srcnn_error_string.restype = ctypes.c_char_p
+    lib.conv_layer_forward.argtypes = [p] * 4 + [i] * 11 + [p]
+    lib.conv_layer_forward.restype = i
+    lib.cnn_sr_error_string.argtypes = [i]
+    lib.cnn_sr_error_string.restype = ctypes.c_char_p
     return lib

@@ -1,20 +1,32 @@
-"""``fused_forward``: the whole SRCNN conv stack in one kernel launch.
+"""``fused_forward``: the SRCNN conv stack on the card, routed by shape.
 
 Counterpart of ``cnn_sr_tpu/ops/pallas_fused/entry.py:fused_forward``.
-A CPU tensor takes the plain version (``reference.fused_forward``); a
-CUDA tensor always takes the hand-written kernel in
-``csrc/fused_srcnn.cu``, or raises. There is no fallback from one to the
-other.
+Two hand-written kernels share the work, chosen by ``route``, a pure
+function of the shapes:
+
+* ``csrc/fused_srcnn.cu``, the whole stack in one launch, for 3-layer
+  stacks with c_in <= 4 and n_out <= 4 whose tiles fit one block's shared
+  memory (the luma models: flagship 9-5-5, 9-1-5);
+* ``csrc/conv_layer.cu`` through ``chain.chain_forward``, one launch per
+  layer, for every other well-formed stack (the 7-layer RGB model).
+
+A stack with a layer whose input window does not fit in shared memory
+raises NotImplementedError on every device, before any launch. A CPU
+tensor takes the plain version (``reference.fused_forward``) on either
+route; a CUDA tensor always takes a kernel, or raises. There is no
+fallback from one to the other.
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
-from . import reference
+from . import chain, reference
 
-# kernel launches in this process; the smoke run reads it to show that the
-# main path went through the kernel
+# fused-kernel launches in this process (``chain.LAUNCHES`` counts the
+# chain's); the smoke run reads both to show which kernels the main path ran
 LAUNCHES = 0
 
 TILE_H = TILE_W = 16
@@ -33,31 +45,79 @@ def tile_bytes(c: int, dims) -> int:
     return 4 * (c * win[0] * win[1] + n1 * a1[0] * a1[1] + n2 * a2[0] * a2[1])
 
 
-def smem_plan(c: int, layers):
-    """``(weight_chunk_floats, total_bytes)`` for ``layers`` = ((f, k, n),
-    ...): the shared memory left beside the tiles, up to the block limit,
-    holds the weights a chunk of input channels at a time (the whole layer
-    where it fits). Raises NotImplementedError when not even one input
-    channel's weights of a layer fit."""
-    tiles = tile_bytes(c, [(f, n) for f, _, n in layers])
+def _weight_chunk(used: int, layers):
+    """Floats of weights that fit in the shared memory beside ``used``
+    bytes, up to the largest layer's whole set (a multiple of 4, for
+    float4 reads); None when not even one input channel's weights of a
+    layer fit. ``layers`` = ((f, k, n), ...)."""
     need = max(f * f * n for f, _, n in layers)  # one input channel
     full = max(f * f * k * n for f, k, n in layers)
-    chunk = min((SMEM_LIMIT - tiles) // 16 * 4, -(-full // 4) * 4)
-    if chunk < need:
+    chunk = min((SMEM_LIMIT - used) // 16 * 4, -(-full // 4) * 4)
+    return chunk if chunk >= need else None
+
+
+def smem_plan(c: int, layers):
+    """The fused kernel's ``(weight_chunk_floats, total_bytes)`` for
+    ``layers`` = ((f, k, n), ...): the shared memory left beside the
+    tiles, up to the block limit, holds the weights a chunk of input
+    channels at a time (the whole layer where it fits). None when not
+    even one input channel's weights of a layer fit."""
+    tiles = tile_bytes(c, [(f, n) for f, _, n in layers])
+    chunk = _weight_chunk(tiles, layers)
+    return None if chunk is None else (chunk, tiles + 4 * chunk)
+
+
+class LayerPlan(NamedTuple):
+    """One chain launch: the output tile of a block, the floats of its
+    weight chunk and its dynamic shared bytes (window plus chunk)."""
+    tile_h: int
+    tile_w: int
+    chunk: int
+    smem: int
+
+
+def window_bytes(f: int, k: int) -> int:
+    """Shared bytes of a chain block's input window: the output tile plus
+    its (f − 1) halo, all k channels, f32."""
+    return 4 * k * (TILE_H + f - 1) * (TILE_W + f - 1)
+
+
+def layer_plan(f: int, k: int, n: int) -> LayerPlan:
+    """The chain's plan for one f×f layer from k to n channels: the rest
+    of the block's shared memory beside the window carries the weights,
+    a chunk of input channels at a time. Raises NotImplementedError when
+    the window and one input channel's weights do not fit."""
+    win = window_bytes(f, k)
+    chunk = _weight_chunk(win, [(f, k, n)])
+    if chunk is None:
         raise NotImplementedError(
-            f"a {TILE_H}x{TILE_W} tile of this stack needs {tiles} shared "
-            f"bytes plus {4 * need} for weights (> {SMEM_LIMIT}); wide "
-            f"stacks need the tensor-core kernel ({_ROADMAP} #1)")
-    return chunk, tiles + 4 * chunk
+            f"a {TILE_H}x{TILE_W} tile of an f={f} layer over {k} channels needs "
+            f"{win} shared bytes for its window plus {4 * f * f * n} for weights "
+            f"(> {SMEM_LIMIT}); such layers need the tensor-core kernel "
+            f"({_ROADMAP} #1)")
+    return LayerPlan(TILE_H, TILE_W, chunk, win + 4 * chunk)
+
+
+def route(c: int, layers):
+    """``("fused", (chunk, smem))`` for a stack the fused kernel takes,
+    else ``("chain", [LayerPlan, ...])``; ``layers`` = ((f, k, n), ...)
+    and ``c`` the input channels. Raises NotImplementedError for a stack
+    neither kernel takes."""
+    if len(layers) == 3 and c <= 4 and layers[-1][2] <= 4:
+        plan = smem_plan(c, layers)
+        if plan is not None:
+            return "fused", plan
+    return "chain", [layer_plan(*layer) for layer in layers]
 
 
 def _check(params, x):
     """Raise ValueError for malformed input and NotImplementedError for a
-    well-formed stack outside the kernel's envelope, on every device, so
-    the CPU and CUDA paths take the same stacks. Returns the kernel's
-    shared-memory plan."""
+    well-formed stack that no kernel takes, on every device, so the CPU
+    and CUDA paths take the same stacks. Returns ``route``'s answer."""
     if x.dim() != 4 or x.shape[0] == 0:
         raise ValueError(f"x must be (N, H, W, C), got shape {tuple(x.shape)}")
+    if not params:
+        raise ValueError("the stack has no layers")
     tensors = [x] + [t for layer in params for t in (layer["w"], layer["b"])]
     for t in tensors:
         if t.device != x.device or t.dtype != torch.float32 or not t.is_contiguous():
@@ -78,17 +138,9 @@ def _check(params, x):
     if x.shape[1] <= shrink or x.shape[2] <= shrink:
         raise ValueError(f"input {x.shape[2]}x{x.shape[1]} is not larger than "
                          f"the stack's receptive field ({shrink}+1 px)")
-    if len(params) != 3:
-        raise NotImplementedError(
-            f"the CUDA kernel runs 3-layer stacks; {len(params)} layers need "
-            f"the L-layer chain ({_ROADMAP} #4)")
-    if x.shape[3] > 4 or k > 4:
-        raise NotImplementedError(
-            f"the CUDA kernel takes c_in <= 4 and n_out <= 4; got "
-            f"c_in={x.shape[3]}, n_out={k} ({_ROADMAP} #4)")
     if x.shape[0] > 65535:
         raise NotImplementedError("more than 65535 images in one launch")
-    return smem_plan(x.shape[3], [tuple(l["w"].shape[1:]) for l in params])
+    return route(x.shape[3], [tuple(l["w"].shape[1:]) for l in params])
 
 
 def fused_forward(params, x: torch.Tensor) -> torch.Tensor:
@@ -96,11 +148,14 @@ def fused_forward(params, x: torch.Tensor) -> torch.Tensor:
     every layer but the last. ``params`` is ``[{"w": (f, f, k, n),
     "b": (n,)}, ...]`` (HWIO), on the same device as ``x``."""
     global LAUNCHES
-    chunk, smem = _check(params, x)
+    kind, plan = _check(params, x)
     if x.device.type == "cpu":
         return reference.fused_forward(params, x)
     if x.device.type != "cuda":
         raise NotImplementedError(f"no kernel for device {x.device}")
+    if kind == "chain":
+        return chain.chain_forward(params, x, plan)
+    chunk, smem = plan
     dims = [(layer["w"].shape[0], layer["w"].shape[3]) for layer in params]
     n, h, w, c = x.shape
     from .build import load_library
@@ -120,6 +175,6 @@ def fused_forward(params, x: torch.Tensor) -> torch.Tensor:
             TILE_H, TILE_W, chunk, smem, stream)
     if err:
         raise RuntimeError("fused_srcnn launch failed: "
-                           + lib.fused_srcnn_error_string(err).decode())
+                           + lib.cnn_sr_error_string(err).decode())
     LAUNCHES += 1
     return y

@@ -80,13 +80,54 @@ def test_golden_upscale():
 
 
 def test_upscale_rejects_what_is_not_ported():
-    rgb_cfg = read_config(os.path.join(ROOT, "configs", "waifu2x_7layer_rgb.json"))
-    with pytest.raises(NotImplementedError, match="RGB"):
-        api.upscale_image(rgb_cfg, [], np.zeros((64, 64, 4), np.uint8))
     cfg = parse_config(NARROW)
     params = params_to_torch(random_parameters(cfg.layer_specs(), cfg.distributions, 0), "cpu")
     with pytest.raises(ValueError, match="receptive field"):
         api.upscale_image(cfg, params, np.zeros((16, 64, 4), np.uint8))
+
+
+RGB_PRETRAINED = os.path.join(ROOT, "configs", "waifu2x_7layer_rgb_pretrained.json")
+# a narrow 7-layer RGB model, f=3 throughout like configs/waifu2x_7layer_rgb.json;
+# He-scaled random weights keep the activations O(1) through the stack
+NARROW_RGB = {
+    "channels": 3,
+    "layers": [{"n": n, "f": 3} for n in (8, 8, 16, 16, 16, 16, 3)],
+    "momentum": 0.9, "weight_decay_parameter": 0.0,
+    "learning_rates": [1e-4] * 7,
+    "parameters_distribution": {"mean_w": 0.0, "mean_b": 0.0,
+                                "std_deviation_w": 0.15, "std_deviation_b": 0.02},
+}
+
+
+@pytest.mark.parametrize("zero_mean_target", [True, False])
+def test_rgb_upscale_matches_jax_pallas_f32(zero_mean_target):
+    raw = {**NARROW_RGB, "zero_mean_target": zero_mean_target}
+    jcfg = jparse_config(raw)
+    params = random_parameters(jcfg.layer_specs(), jcfg.distributions, seed=7)
+    rgba = np.random.default_rng(8).integers(0, 256, (40, 140, 4), dtype=np.uint8)
+    want = japi.upscale_image(jcfg, params, rgba, use_pallas=True, pallas_precision="f32")
+    got = api.upscale_image(parse_config(raw), params_to_torch(params, "cpu"), rgba)
+    assert got.shape == want.shape == (40, 140, 3) and got.dtype == np.uint8
+    assert _max_diff(got, want) <= 1
+    assert (got != rgba[..., :3]).any()
+
+
+def test_rgb_pretrained_on_demo_crop():
+    """The in-repo 7-layer RGB checkpoint at its full widths against the
+    JAX package's XLA f32 path (``use_pallas=False``)."""
+    cfg, jcfg = read_config(RGB_PRETRAINED), jread_config(RGB_PRETRAINED)
+    assert cfg.channels == 3 and cfg.zero_mean_target
+    params, _ = init_params(cfg)
+    with Image.open(os.path.join(ROOT, "docs", "demo", "rgb_demo_small.png")) as im:
+        rgba = np.asarray(im.convert("RGBA"))[150:214, 120:200].copy()
+    want = japi.upscale_image(jcfg, params, rgba)  # XLA f32 HIGHEST
+    got = api.upscale_image(cfg, params_to_torch(params, "cpu"), rgba)
+    assert got.shape == want.shape == (64, 80, 3)
+    assert _max_diff(got, want) <= 1
+    assert (got != rgba[..., :3]).any()
+    # the border (7 px, the stack's half shrink) passes through
+    np.testing.assert_array_equal(got[:7], rgba[:7, :, :3])
+    np.testing.assert_array_equal(got[:, -7:], rgba[:, -7:, :3])
 
 
 def _write_config(tmp_path, raw, name="cfg.json"):
@@ -108,6 +149,18 @@ def test_cli_cpu_writes_what_the_api_returns(tmp_path):
     cfg = read_config(cfg_path)
     params = params_to_torch(random_parameters(cfg.layer_specs(), cfg.distributions, 3), "cpu")
     want = api.upscale_image(cfg, params, rgba)
+    np.testing.assert_array_equal(np.asarray(Image.open(out).convert("RGB")), want)
+
+
+def test_cli_rgb_config_writes_what_the_api_returns(tmp_path):
+    rgba = np.random.default_rng(11).integers(0, 256, (30, 41, 4), dtype=np.uint8)
+    Image.fromarray(rgba, "RGBA").save(tmp_path / "in.png")
+    out = tmp_path / "out.png"
+    rc = cli.main(["-c", RGB_PRETRAINED, "-i", str(tmp_path / "in.png"), "-o", str(out),
+                   "--device", "cpu"])
+    assert rc == 0
+    cfg = read_config(RGB_PRETRAINED)
+    want = api.upscale_image(cfg, params_to_torch(init_params(cfg)[0], "cpu"), rgba)
     np.testing.assert_array_equal(np.asarray(Image.open(out).convert("RGB")), want)
 
 

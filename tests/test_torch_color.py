@@ -56,6 +56,33 @@ def test_swap_luma_bit_equal(shape):
     np.testing.assert_array_equal(got[:, -(s // 2):], img[:, -(s // 2):, :3])
 
 
+@pytest.mark.parametrize("shape", SHAPES)
+def test_swap_rgb_bit_equal(shape):
+    img = _image(shape, 6)
+    s = 14  # the 7-layer RGB model's valid-conv shrink
+    # values below 0 and above 1 exercise the clamp; the rest the truncation
+    new = np.random.default_rng(7).uniform(-0.2, 1.2, (shape[0] - s, shape[1] - s, 3))
+    new = new.astype(np.float32)
+    got = tcolor.swap_rgb(torch.from_numpy(img), torch.from_numpy(new)).numpy()
+    want = np.asarray(jcolor.swap_rgb(img, new))
+    assert got.dtype == np.uint8 and got.shape == shape[:2] + (3,)
+    np.testing.assert_array_equal(got, want)
+    assert (new < 0).any() and (new > 1).any()
+    # border passthrough
+    np.testing.assert_array_equal(got[: s // 2], img[: s // 2, :, :3])
+    np.testing.assert_array_equal(got[:, -(s // 2):], img[:, -(s // 2):, :3])
+
+
+def test_swap_rgb_width_derived_pad():
+    """An RGB window whose height shrink differs from its width shrink:
+    the offset comes from the width on both axes, and the write start
+    clamps like lax.dynamic_update_slice."""
+    img = _image((30, 40, 4), 8)
+    new = np.random.default_rng(9).uniform(0, 1, (28, 30, 3)).astype(np.float32)
+    got = tcolor.swap_rgb(torch.from_numpy(img), torch.from_numpy(new)).numpy()
+    np.testing.assert_array_equal(got, np.asarray(jcolor.swap_rgb(img, new)))
+
+
 def test_swap_luma_width_derived_pad():
     """A luma window whose height shrink differs from its width shrink:
     the offset comes from the width on both axes (swap_luma.cl:24), and

@@ -1,4 +1,5 @@
-"""The port's fused conv stack (``cnn_sr_tpu_torch.ops.fused``).
+"""The port's fused conv stack (``cnn_sr_tpu_torch.ops.fused``); the layer
+chain beside it is in ``test_torch_chain.py``.
 
 On the CPU, ``fused_forward`` is its plain version, held here against the
 JAX package's Pallas kernel in interpret mode. The CUDA kernel runs only
@@ -13,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from cnn_sr_tpu_torch.ops.fused import build, entry, reference
+from cnn_sr_tpu_torch.ops.fused import build, chain, entry, reference
 from cnn_sr_tpu_torch.ops.fused import fused_forward
 from cnn_sr_tpu_torch.utils.params_io import params_to_torch
 
@@ -55,19 +56,33 @@ def test_cpu_matches_jax_pallas_interpret():
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("specs,shape,match", [
-    ([(9, 1, 8), (5, 8, 1)], (1, 30, 30, 1), "3-layer"),
-    ([(9, 1, 8), (5, 8, 8), (1, 8, 8), (5, 8, 1)], (1, 30, 30, 1), "3-layer"),
-    ([(3, 3, 8), (3, 8, 8), (3, 8, 5)], (1, 30, 30, 3), "n_out <= 4"),
-    ([(3, 5, 8), (3, 8, 8), (3, 8, 1)], (1, 30, 30, 5), "c_in <= 4"),
-    ([(9, 1, 128), (5, 128, 64), (5, 64, 1)], (1, 30, 30, 1), "shared bytes"),
-], ids=["2-layer", "4-layer", "n_out", "c_in", "smem"])
-def test_outside_envelope_raises_on_every_device(specs, shape, match):
-    """The envelope is the kernel's, on the CPU too: a stack the card
-    cannot run is refused, never served by the plain version instead."""
-    params = params_to_torch(_params(specs, 2), "cpu")
-    with pytest.raises(NotImplementedError, match=match):
-        fused_forward(params, torch.from_numpy(_x(shape, 3)))
+@pytest.mark.parametrize("specs,shape,refusal", [
+    ([(9, 1, 8), (5, 8, 1)], (1, 30, 30, 1), None),
+    ([(9, 1, 8), (5, 8, 8), (1, 8, 8), (5, 8, 1)], (1, 30, 30, 1), None),
+    ([(3, 3, 8), (3, 8, 8), (3, 8, 5)], (1, 30, 30, 3), None),
+    ([(3, 5, 8), (3, 8, 8), (3, 8, 1)], (1, 30, 30, 5), None),
+    ([(9, 1, 128), (5, 128, 64), (5, 64, 1)], (1, 30, 30, 1), None),
+    ([(3, 1, 128), (9, 128, 8), (3, 8, 1)], (1, 40, 40, 1), "shared bytes"),
+], ids=["2-layer", "4-layer", "n_out", "c_in", "smem", "f9_k128"])
+def test_outside_envelope_raises_on_every_device(specs, shape, refusal):
+    """Outside the fused kernel's envelope. A stack the layer chain takes
+    is routed to it and matches the JAX package's XLA forward; a stack
+    with a layer that fits no block's shared memory is refused on every
+    device, never served by the plain version instead."""
+    from cnn_sr_tpu.models import forward as jforward
+
+    params = _params(specs, 2)
+    x = _x(shape, 3)
+    if refusal:
+        for dev in ("cpu", "meta"):
+            with pytest.raises(NotImplementedError, match=refusal):
+                fused_forward(params_to_torch(params, dev),
+                              torch.from_numpy(x).to(dev))
+        return
+    assert entry.route(shape[3], specs)[0] == "chain"
+    got = fused_forward(params_to_torch(params, "cpu"), torch.from_numpy(x))
+    np.testing.assert_allclose(got.numpy(), np.asarray(jforward(params, x)),
+                               rtol=1e-5, atol=1e-5)
 
 
 def test_device_without_kernel_raises():
@@ -116,6 +131,23 @@ def test_build_names_library_by_source_hash_and_needs_nvcc(monkeypatch, tmp_path
         build.find_nvcc()
 
 
+def test_library_hash_covers_headers(monkeypatch, tmp_path):
+    """Both kernels include ``conv_stage.cuh``: an edited header must
+    rebuild, though only the ``.cu`` files are compiled."""
+    assert [p.name for p in build._sources()] == ["conv_layer.cu", "fused_srcnn.cu"]
+    assert "conv_stage.cuh" in [p.name for p in build._hashed_files()]
+    (tmp_path / "k.cu").write_text('#include "s.cuh"\n')
+    (tmp_path / "s.cuh").write_text("// one\n")
+    (tmp_path / "notes.txt").write_text("one")
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    assert build._sources() == [tmp_path / "k.cu"]
+    before = build.library_path()
+    (tmp_path / "notes.txt").write_text("two")
+    assert build.library_path() == before
+    (tmp_path / "s.cuh").write_text("// two\n")
+    assert build.library_path() != before
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("specs,shape", [
     (NARROW_955, (1, 40, 140, 1)),
@@ -138,8 +170,8 @@ def test_kernel_matches_plain_on_card(cuda_device, specs, shape):
 
 @pytest.mark.cuda
 def test_cuda_outside_envelope_raises_without_launch(cuda_device):
-    params = params_to_torch(_params([(9, 1, 8), (5, 8, 8), (5, 8, 5)], 9), cuda_device)
-    before = entry.LAUNCHES
+    params = params_to_torch(_params([(3, 1, 128), (9, 128, 8), (3, 8, 1)], 9), cuda_device)
+    before = (entry.LAUNCHES, chain.LAUNCHES)
     with pytest.raises(NotImplementedError):
         fused_forward(params, torch.zeros((1, 40, 40, 1), device=cuda_device))
-    assert entry.LAUNCHES == before
+    assert (entry.LAUNCHES, chain.LAUNCHES) == before

@@ -13,6 +13,7 @@ from cnn_sr_tpu.models import forward as jforward
 from cnn_sr_tpu.utils import config as jconfig
 from cnn_sr_tpu.utils import params_io as jparams
 from cnn_sr_tpu_torch.models import SRCNN, forward
+from cnn_sr_tpu_torch.models.srcnn import strict_f32
 from cnn_sr_tpu_torch.utils import config as tconfig
 from cnn_sr_tpu_torch.utils import params_io as tparams
 
@@ -44,6 +45,19 @@ def test_forward_matches_jax(name):
     got = forward(tparams.params_to_torch(params, "cpu"), torch.from_numpy(x))
     assert tuple(got.shape) == want.shape
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+def test_strict_f32_turns_off_tf32_and_keeps_cudnn():
+    """The plain version runs cuDNN in full f32: TF32 off for convolutions
+    and matmuls, cuDNN itself still enabled, the flags restored after."""
+    before = (torch.backends.cudnn.enabled, torch.backends.cudnn.allow_tf32,
+              torch.backends.cuda.matmul.allow_tf32)
+    with strict_f32():
+        assert torch.backends.cudnn.enabled == before[0]
+        assert not torch.backends.cudnn.allow_tf32
+        assert not torch.backends.cuda.matmul.allow_tf32
+    assert (torch.backends.cudnn.enabled, torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32) == before
 
 
 def test_srcnn_module_is_the_fused_stack():
