@@ -3,35 +3,60 @@
 
     python3 chip_smoke.py
 
-Builds both CUDA kernels from ``cnn_sr_tpu_torch/csrc`` (``fused_srcnn.cu``,
+Builds the CUDA kernels from ``cnn_sr_tpu_torch/csrc`` (``fused_srcnn.cu``,
 the 3-layer luma stack in one launch, and ``conv_layer.cu``, the layer
-chain, one launch per layer), holds each against its plain PyTorch version
-on the card, then drives the port's two main paths through
-``api.upscale_image``: three 1920x1080 requests of the in-repo flagship
-SRCNN 9-5-5 checkpoint and three of the in-repo 7-layer RGB checkpoint.
-Phases, one line each:
+chain, one launch per layer, each in f32 and in the bf16 stream), holds
+each against its plain PyTorch version on the card, then drives the
+port's three main paths: three 1920x1080 requests of the in-repo
+flagship SRCNN 9-5-5 checkpoint and three of the in-repo 7-layer RGB
+checkpoint through ``api.upscale_image`` in f32, and one round of the
+HTTP server's ``DeviceWorker`` serving both checkpoints in bf16. Phases,
+one line each:
 
 1. device: card name and power limit, torch and CUDA versions;
-2. build: each kernel's ptxas report;
-3. kernel vs plain: the fused kernel at the flagship (pretrained) and
-   9-1-5 (random, seed 0) stacks; the chain at the RGB (pretrained) stack,
-   a ragged batch of two and the wide 9-5-5 (random). Max |kernel − plain|
-   ≤ 1e-4 absolute and ≤ 1e-4 of the output's largest magnitude, because
-   the f32 sums (up to 1,600 terms a layer in the fused kernel, 1,152 a
-   layer over seven layers in the chain) are taken in another order;
-4. flagship main path: three requests, each exactly one fused launch and
-   no chain launch; 5. RGB main path: three requests, each exactly seven
-   chain launches and no fused launch. Both: output (1080, 1920, 3)
-   uint8, border equal to the input's RGB, within ±1 uint8 of the same
-   pipeline with the plain version on the card, the requests agree, the
-   net changed the image; peak device memory of a request;
-6. times (CUDA events, turns plain/kernel/kernel/plain) of each kernel,
-   its plain version and the library's convolutions at the main paths'
-   1080p shapes, and the chain's time per layer beside the library's.
+2. build: each source's ptxas report;
+3. kernel vs plain, f32: the fused kernel at the flagship (pretrained)
+   and 9-1-5 (random, seed 0) stacks; the chain at the RGB (pretrained)
+   stack, a ragged batch of two and the wide 9-5-5 (random). Max
+   |kernel − plain| ≤ 1e-4 absolute and ≤ 1e-4 of the output's largest
+   magnitude, because the f32 sums (up to 1,600 terms a layer in the
+   fused kernel, 1,152 a layer over seven layers in the chain) are taken
+   in another order; and bf16: the fused kernel at the flagship, a
+   ragged batch of two and the 9-1-5; the chain at the RGB stack, a
+   ragged batch and a 4-layer stack with an f=9 layer over 128 channels
+   (which f32 refuses). Max |kernel − plain| ≤ 2^-7 of the output's
+   largest magnitude: the products are exact in both, but a sum taken in
+   another order can round an activation to the neighbouring bf16 value;
+4. flagship main path: three requests, each exactly one fused f32 launch
+   and no other; 5. RGB main path: three requests, each exactly seven
+   chain f32 launches and no other. Both: output (1080, 1920, 3) uint8,
+   border equal to the input's RGB, within ±1 uint8 of the same pipeline
+   with the plain version on the card, the requests agree, the net
+   changed the image; peak device memory of a request;
+6. serve main path, bf16: a ``DeviceWorker`` with slots ``default``
+   (flagship) and ``rgb`` (RGB), ``bucket=64``, ``max_batch=8``; four
+   1080p flagship frames (one batch, one fused bf16 launch), two 1080p
+   RGB frames (one batch, seven chain bf16 launches) and one 1000x700
+   flagship frame (a bucketed single, padded to 1024x704) queued before
+   it starts, then five sequential single 1080p flagship jobs. Each
+   result: shape, border, within ±1 (luma) or ±2 (RGB) of the plain bf16
+   pipeline with 99.9% of its bytes within ±1, within JAX's bf16 gates
+   (4 luma, 6 RGB) of the f32 kernel pipeline; exact launch counts;
+   ``ok`` 12, ``batched_jobs`` 6, ``errors`` 0; latencies, frames per
+   second batched against single, peak device memory; then three single
+   1080p requests of each checkpoint through ``api.upscale_image`` in
+   bf16 (one fused bf16 or seven chain bf16 launches each, within ±1 or
+   ±2 uint8 of the plain bf16 pipeline), for their latency and memory;
+7. times (CUDA events, turns plain/kernel/kernel/plain) of each kernel in
+   f32 and in bf16, its plain version and the library's convolutions (f32
+   with TF32 off, or bf16 on channels-last tensors: cuDNN on the tensor
+   cores) at the main paths' 1080p shapes, and the chain's time per layer
+   beside the library's, in both precisions.
 
-Then one JSON line of kernels, the ``nvidia-smi`` line, and as the last line
-``{"ok": true, "device": {...}}``. Any failed check raises, so the script
-exits nonzero and prints no result; so does a machine without CUDA.
+Then one JSON line of the four kernels, the ``nvidia-smi`` line, and as
+the last line ``{"ok": true, "device": {...}}``. Any failed check raises,
+so the script exits nonzero and prints no result; so does a machine
+without CUDA.
 """
 
 from __future__ import annotations
@@ -40,6 +65,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -48,7 +74,7 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
-from cnn_sr_tpu_torch import api  # noqa: E402
+from cnn_sr_tpu_torch import api, serve  # noqa: E402
 from cnn_sr_tpu_torch.models.srcnn import strict_f32  # noqa: E402
 from cnn_sr_tpu_torch.ops.fused import build, chain, entry, reference  # noqa: E402
 from cnn_sr_tpu_torch.utils.config import read_config  # noqa: E402
@@ -62,9 +88,11 @@ FLAGSHIP = os.path.join(ROOT, "configs", "srcnn_9-5-5_pretrained.json")
 C915 = os.path.join(ROOT, "configs", "srcnn_9-1-5.json")
 RGB7 = os.path.join(ROOT, "configs", "waifu2x_7layer_rgb_pretrained.json")
 ATOL = 1e-4
+BF16_REL = 2.0 ** -7
 SEED = 0
-# published peaks of one H100 SXM: f32 outside the tensor cores, HBM3
-PEAK_F32_FLOPS = 67e12
+# published peaks of one H100 SXM: f32 outside the tensor cores, bf16 on
+# the tensor cores (dense), HBM3
+PEAK_FLOPS = {"f32": 67e12, "bf16": 989e12}
 PEAK_BYTES = 3.35e12
 
 
@@ -93,41 +121,48 @@ def make_image(h: int, w: int, seed: int) -> np.ndarray:
 
 
 def reset_counts() -> None:
-    entry.LAUNCHES = 0
-    chain.LAUNCHES = 0
+    entry.LAUNCHES = entry.LAUNCHES_BF16 = 0
+    chain.LAUNCHES = chain.LAUNCHES_BF16 = 0
 
 
 def counts():
-    return entry.LAUNCHES, chain.LAUNCHES
+    """Launches of (fused f32, chain f32, fused bf16, chain bf16)."""
+    return entry.LAUNCHES, chain.LAUNCHES, entry.LAUNCHES_BF16, chain.LAUNCHES_BF16
 
 
-def kernel_vs_plain(name, params, shape, seed, launches) -> float:
+def kernel_vs_plain(name, params, shape, seed, launches, precision="f32") -> float:
     """Run ``params`` on a seeded input through ``entry.fused_forward`` and
-    its plain version; ``launches`` is the (fused, chain) launches the
-    call must make, which proves the route."""
+    its plain version in ``precision``; ``launches`` is the (fused f32,
+    chain f32, fused bf16, chain bf16) launches the call must make, which
+    proves the route."""
     x = torch.from_numpy(
         np.random.default_rng(seed).uniform(-0.5, 0.5, shape).astype(np.float32)).cuda()
     before = counts()
-    y = entry.fused_forward(params, x)
-    ref = reference.fused_forward(params, x)
+    y = entry.fused_forward(params, x, precision)
+    ref = reference.fused_forward(params, x, precision)
     torch.cuda.synchronize()
     made = tuple(a - b for a, b in zip(counts(), before))
-    check(made == launches, f"{name}: launches (fused, chain) {made}, expected {launches}")
+    check(made == launches, f"{name}: launches {made}, expected {launches}")
     check(y.shape == ref.shape, f"{name}: shape {tuple(y.shape)} vs {tuple(ref.shape)}")
     check(bool(torch.isfinite(y).all()), f"{name}: non-finite output")
     err = float((y - ref).abs().max())
     scale = float(ref.abs().max())
-    print(f"[kernel] {name} {shape}: max_abs_err {err:.3e}, "
+    print(f"[kernel] {name} {precision} {shape}: max_abs_err {err:.3e}, "
           f"max |plain| {scale:.3e}, rel {err / max(scale, 1e-30):.3e}")
-    check(err <= ATOL, f"{name}: max abs err {err} > {ATOL}")
-    check(err <= ATOL * scale, f"{name}: err {err} > {ATOL} x output scale {scale}")
+    if precision == "bf16":
+        check(err <= BF16_REL * scale,
+              f"{name}: err {err} > 2^-7 x output scale {scale}")
+    else:
+        check(err <= ATOL, f"{name}: max abs err {err} > {ATOL}")
+        check(err <= ATOL * scale, f"{name}: err {err} > {ATOL} x output scale {scale}")
     return err
 
 
-def main_path(name, cfg, params, plain_fn, launches, smi):
-    """Three 1920x1080 requests through ``api.upscale_image``, each making
-    exactly ``launches`` = (fused, chain) launches, checked against the
-    same pipeline with the plain version (``plain_fn``) on the card.
+def main_path(name, cfg, params, plain_fn, launches, smi, precision="f32", tol=1):
+    """Three 1920x1080 requests through ``api.upscale_image`` in
+    ``precision``, each making exactly ``launches`` (see ``counts``),
+    checked within ``tol`` uint8 of the same pipeline with the plain
+    version (``plain_fn``) on the card.
     Returns the path's launch counts, read just after its run."""
     h, w = 1080, 1920
     rgba = make_image(h, w, SEED)
@@ -137,19 +172,16 @@ def main_path(name, cfg, params, plain_fn, launches, smi):
         before = counts()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        outs.append(api.upscale_image(cfg, params, rgba))
+        outs.append(api.upscale_image(cfg, params, rgba, precision=precision))
         req_ms.append((time.perf_counter() - t0) * 1e3)
         peak.append(torch.cuda.max_memory_allocated())
         made = tuple(a - b for a, b in zip(counts(), before))
         check(made == launches,
-              f"{name}: a request made (fused, chain) launches {made}, expected {launches}")
+              f"{name}: a request made launches {made}, expected {launches}")
     total = counts()
 
     plain_out = plain_fn(torch.from_numpy(rgba).cuda()).cpu().numpy()
-    s = cfg.total_padding()
-    pad = s // 2
-    inside = np.zeros((h, w), bool)
-    inside[pad:pad + h - s, pad:pad + w - s] = True
+    inside = ~border_mask(h, w, cfg.total_padding())
     diff = 0
     for out in outs:
         check(out.shape == (h, w, 3) and out.dtype == np.uint8,
@@ -157,14 +189,15 @@ def main_path(name, cfg, params, plain_fn, launches, smi):
         check(np.array_equal(out[~inside], rgba[..., :3][~inside]),
               f"{name}: border differs from the input")
         diff = max(diff, int(np.abs(out.astype(np.int16) - plain_out.astype(np.int16)).max()))
-        check(diff <= 1, f"{name}: output vs plain pipeline: max diff {diff} uint8")
+        check(diff <= tol, f"{name}: output vs plain pipeline: max diff {diff} uint8")
         check(np.array_equal(out, outs[0]), f"{name}: requests disagree")
     check(bool((outs[0][inside] != rgba[..., :3][inside]).any()),
           f"{name}: the net left the image unchanged")
     mpix = h * w / 1e6
-    print(f"[main] {smi} | 3 requests 1920x1080 {name}: "
+    print(f"[main] {smi} | 3 requests 1920x1080 {name} {precision}: "
           + ", ".join(f"{ms:.2f} ms ({mpix / ms * 1e3:.1f} MPix/s)" for ms in req_ms)
-          + f" | launches (fused, chain) {total} | max diff vs plain pipeline {diff} uint8"
+          + f" | launches (fused, chain, fused bf16, chain bf16) {total}"
+          + f" | max diff vs plain pipeline {diff} uint8"
           + " | peak device memory per request "
           + ", ".join(f"{b / 2**20:.1f}" for b in peak) + " MiB")
     return total, rgba
@@ -183,16 +216,19 @@ def time_ms(fn, iters: int = 10) -> float:
     return start.elapsed_time(stop) / iters
 
 
-def library_weights(params):
-    """``(OIHW channels-last weight, bias)`` per layer, for ``library_convs``."""
-    return [(l["w"].permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last),
-             l["b"]) for l in params]
+def library_weights(params, precision="f32"):
+    """``(OIHW channels-last weight, bias)`` per layer in ``precision``'s
+    type, for ``library_convs``."""
+    dt = torch.bfloat16 if precision == "bf16" else torch.float32
+    return [(l["w"].permute(3, 2, 0, 1).to(dt).contiguous(memory_format=torch.channels_last),
+             l["b"].to(dt)) for l in params]
 
 
 def library_convs(params, x: torch.Tensor) -> torch.Tensor:
-    """The same layers as PyTorch's own convolutions (cuDNN, f32, TF32
-    off) on channels-last tensors, ReLU in place; timed as the yardstick,
-    never used by the port. ``params`` from ``library_weights``."""
+    """The same layers as PyTorch's own convolutions on channels-last
+    tensors, ReLU in place: cuDNN in f32 with TF32 off, or in bf16 on the
+    tensor cores for a bf16 ``x``; timed as the yardstick, never used by
+    the port. ``params`` from ``library_weights``."""
     y = x.permute(0, 3, 1, 2)
     with strict_f32():
         for i, (w, b) in enumerate(params):
@@ -202,58 +238,218 @@ def library_convs(params, x: torch.Tensor) -> torch.Tensor:
     return y
 
 
-def bound_ms(params, shape) -> tuple:
-    """The least time of the stack's layers on this card: the larger of
-    their f32 operations over the f32 peak and their bytes (each layer's
-    input, weights and output once) over the memory rate."""
+def bound_ms(params, shape, precision="f32", first=True, last=True) -> tuple:
+    """The least time of the stack on this card: the larger of its
+    operations over the peak of ``precision`` and its bytes over the
+    memory rate. The bytes are the stack's input, weights, biases and
+    output, each once, at their stored sizes: f32; in bf16, bf16 weights
+    and f32 biases, and an input and output of f32 where the stack
+    starts (``first``) or ends (``last``) the stream, else bf16."""
     n, h, w, c = shape
-    flops = moved = 0
+    flops = 0
+    wb = 2 if precision == "bf16" else 4
+    moved = (4 if precision == "f32" or first else 2) * n * h * w * c
     for layer in params:
         f, _, k, m = layer["w"].shape
-        oh, ow = h - f + 1, w - f + 1
-        flops += 2 * n * oh * ow * f * f * k * m
-        moved += 4 * (n * h * w * k + f * f * k * m + m + n * oh * ow * m)
-        h, w = oh, ow
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS * 1e3, moved / PEAK_BYTES * 1e3
+        h, w = h - f + 1, w - f + 1
+        flops += 2 * n * h * w * f * f * k * m
+        moved += wb * f * f * k * m + 4 * m
+    moved += (4 if precision == "f32" or last else 2) * n * h * w * m
+    t_ops, t_bytes = flops / PEAK_FLOPS[precision] * 1e3, moved / PEAK_BYTES * 1e3
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
-def time_stack(name, params, x, smi) -> dict:
-    """Kernel, plain and library times of one stack on ``x``, in turns:
-    plain, kernel, kernel, plain, library, library."""
-    kern = lambda: entry.fused_forward(params, x)  # noqa: E731
-    plain = lambda: reference.fused_forward(params, x)  # noqa: E731
-    lib_params = library_weights(params)
-    lib = lambda: library_convs(lib_params, x)  # noqa: E731
+def time_stack(name, params, x, smi, precision="f32") -> dict:
+    """Kernel, plain and library times of one stack on ``x`` in
+    ``precision``, in turns: plain, kernel, kernel, plain, library,
+    library."""
+    kern = lambda: entry.fused_forward(params, x, precision)  # noqa: E731
+    plain = lambda: reference.fused_forward(params, x, precision)  # noqa: E731
+    lib_params = library_weights(params, precision)
+    x_lib = x.to(torch.bfloat16) if precision == "bf16" else x
+    lib = lambda: library_convs(lib_params, x_lib)  # noqa: E731
     y, ref, yl = kern(), plain(), lib()
     torch.cuda.synchronize()
     err = float((y - ref).abs().max())
-    check(err <= ATOL, f"{name} at {tuple(x.shape)}: kernel vs plain {err}")
-    check(float((yl.permute(0, 2, 3, 1) - ref).abs().max()) <= ATOL,
-          f"{name}: library convolutions disagree with the plain version")
+    lib_err = float((yl.permute(0, 2, 3, 1).float() - ref).abs().max())
+    scale = float(ref.abs().max())
+    if precision == "bf16":
+        check(err <= BF16_REL * scale, f"{name} at {tuple(x.shape)}: kernel vs plain {err}")
+        # the library's bf16 convolutions take the input rounded to bf16,
+        # not the int8 plane, and round every output: a yardstick of time
+        check(bool(torch.isfinite(yl).all()), f"{name}: library convolutions not finite")
+    else:
+        check(err <= ATOL, f"{name} at {tuple(x.shape)}: kernel vs plain {err}")
+        check(lib_err <= ATOL, f"{name}: library convolutions disagree with the plain version")
     p1, k1, k2, p2, l1, l2 = (time_ms(plain), time_ms(kern), time_ms(kern), time_ms(plain),
                               time_ms(lib), time_ms(lib))
-    bound, bound_by = bound_ms(params, tuple(x.shape))
-    print(f"[time] {smi} | {name} {tuple(x.shape)}: kernel {k1:.3f}/{k2:.3f} ms, "
-          f"plain (cuDNN f32, TF32 off) {p1:.3f}/{p2:.3f} ms, library convolutions "
-          f"{l1:.3f}/{l2:.3f} ms, bound {bound:.3f} ms ({bound_by})")
+    bound, bound_by = bound_ms(params, tuple(x.shape), precision)
+    plain_what = ("cuDNN f32 over bf16-rounded values, TF32 off" if precision == "bf16"
+                  else "cuDNN f32, TF32 off")
+    print(f"[time] {smi} | {name} {precision} {tuple(x.shape)}: kernel {k1:.3f}/{k2:.3f} ms, "
+          f"plain ({plain_what}) {p1:.3f}/{p2:.3f} ms, library convolutions "
+          f"({'bf16' if precision == 'bf16' else 'f32'}) {l1:.3f}/{l2:.3f} ms "
+          f"(max |library - plain| {lib_err:.3e}), bound {bound:.3f} ms ({bound_by})")
     return {"err": err, "ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
             "library_ms": (l1 + l2) / 2, "bound_ms": bound, "bound_by": bound_by}
 
 
-def layer_times(params, x, smi) -> None:
-    """The chain's time per layer on the stack's own activations, beside
-    the library's convolution of that layer (CUDA events)."""
-    parts = []
-    for i, layer in enumerate(params):
-        lib_layer = library_weights([layer])
-        k_ms = time_ms(lambda: entry.fused_forward([layer], x))
-        l_ms = time_ms(lambda: library_convs(lib_layer, x))
-        bound, bound_by = bound_ms([layer], tuple(x.shape))
-        _, _, k, n = layer["w"].shape
-        parts.append(f"L{i + 1} {k}->{n} {k_ms:.3f}/{l_ms:.3f}/{bound:.3f} ({bound_by})")
-        x = reference.fused_forward([layer], x).relu_()
-    print(f"[layers] {smi} | chain/library/bound ms per layer: " + ", ".join(parts))
+def layer_times(params, x, smi, precision="f32") -> None:
+    """The chain's time per layer in ``precision`` on the stack's own
+    activations (``chain.layer_forward``; in bf16 the first layer
+    quantises the f32 input, the last writes f32, the others read and
+    write bf16), beside the library's convolution of that layer on the
+    same activations (CUDA events)."""
+    bf16 = precision == "bf16"
+    lib = build.load_library()
+    stream = torch.cuda.current_stream().cuda_stream
+    weights = entry.bf16_weights(params) if bf16 else [l["w"] for l in params]
+    parts, src = [], x
+    last = len(params) - 1
+    for i, (layer, wt) in enumerate(zip(params, weights)):
+        f, _, k, n = layer["w"].shape
+        plan = entry.layer_plan(f, k, n, entry.ELEM_BYTES[precision])
+        nb, h, w, _ = src.shape
+        dst = torch.empty((nb, h - f + 1, w - f + 1, n), device=src.device,
+                          dtype=torch.bfloat16 if bf16 and i != last else torch.float32)
+        k_ms = time_ms(lambda: chain.layer_forward(lib, src, wt, layer["b"], dst, plan,
+                                                   i == 0, i == last, bf16, stream))
+        lib_layer = library_weights([layer], precision)
+        src_lib = src.to(torch.bfloat16) if bf16 else src
+        l_ms = time_ms(lambda: library_convs(lib_layer, src_lib))
+        bound, bound_by = bound_ms([layer], tuple(src.shape), precision, i == 0, i == last)
+        parts.append(f"L{i + 1} {k}->{n} {k_ms:.3f}/{l_ms:.3f}/{bound:.4f} ({bound_by})")
+        src = dst
+    print(f"[layers] {smi} | {precision} chain/library ({precision})/bound ms per layer: "
+          + ", ".join(parts))
+
+
+def border_mask(h: int, w: int, s: int) -> np.ndarray:
+    """True outside the valid-conv window that the swap writes."""
+    pad = s // 2
+    inside = np.zeros((h, w), bool)
+    inside[pad:pad + h - s, pad:pad + w - s] = True
+    return ~inside
+
+
+def serve_path(cfg, params, cfg_rgb, params_rgb, smi) -> tuple:
+    """The serving main path in bf16: one ``serve.DeviceWorker`` with the
+    slots ``default`` (flagship) and ``rgb`` (RGB 7-layer), ``bucket=64``,
+    ``max_batch=8``. Four 1080p flagship frames, two 1080p RGB frames and
+    one 1000x700 flagship frame are queued before the worker starts, so
+    that its first round groups them: two ``upscale_batch`` calls and one
+    bucketed single. Then five single 1080p flagship jobs, one at a time.
+    Returns the path's launch counts, read just after its run."""
+    h, w = 1080, 1920
+    luma_frames = [make_image(h, w, SEED + 10 + i) for i in range(4)]
+    rgb_frames = [make_image(h, w, SEED + 20 + i) for i in range(2)]
+    odd = make_image(700, 1000, SEED + 30)
+    singles = [make_image(h, w, SEED + 40 + i) for i in range(5)]
+    # untimed, uncounted: the first calls at these shapes grow the allocator
+    api.upscale_batch(cfg, params, np.stack(luma_frames), precision="bf16")
+    api.upscale_batch(cfg_rgb, params_rgb, np.stack(rgb_frames), precision="bf16")
+    api.upscale_image(cfg, params, singles[0], bucket=64, precision="bf16")
+    torch.cuda.synchronize()
+
+    slots = {"default": {"cfg": cfg, "params": params},
+             "rgb": {"cfg": cfg_rgb, "params": params_rgb}}
+    worker = serve.DeviceWorker(slots, precision="bf16", bucket=64, max_batch=8)
+    jobs = ([serve._Job("default", f) for f in luma_frames]
+            + [serve._Job("rgb", f) for f in rgb_frames] + [serve._Job("default", odd)])
+    for job in jobs:
+        worker.submit(job)
+    done_at = [0.0] * len(jobs)
+
+    def stamp(i):
+        jobs[i].done.wait(600)
+        done_at[i] = time.perf_counter()
+
+    waiters = [threading.Thread(target=stamp, args=(i,)) for i in range(len(jobs))]
+    for t in waiters:
+        t.start()
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    worker.start()
+    for t in waiters:
+        t.join()
+    single_jobs, single_ms = [], []
+    for rgba in singles:
+        job = serve._Job("default", rgba)
+        t1 = time.perf_counter()
+        worker.submit(job)
+        check(job.done.wait(600), "serve: a single job timed out")
+        single_ms.append((time.perf_counter() - t1) * 1e3)
+        single_jobs.append(job)
+    worker.stop()
+    worker.join(60)
+    torch.cuda.synchronize()
+    total = counts()
+    peak = torch.cuda.max_memory_allocated()
+    stats = worker.snapshot()
+
+    # the worker launched on its thread's current stream: the same one as here
+    seen = []
+    probe = threading.Thread(target=lambda: seen.append(torch.cuda.current_stream().cuda_stream))
+    probe.start()
+    probe.join()
+    check(seen == [torch.cuda.current_stream().cuda_stream], f"serve: worker stream {seen}")
+    check(not worker.is_alive(), "serve: the worker did not stop")
+    check(total == (0, 0, 7, 7),
+          f"serve: launches (fused, chain, fused bf16, chain bf16) {total}, expected "
+          "(0, 0, 7, 7): one fused batch of 4, one bucketed single, 5 singles; 7 chain layers")
+    check(stats["ok"] == 12 and stats["batched_jobs"] == 6 and stats["errors"] == 0,
+          f"serve: stats {stats}")
+
+    def plain_pipeline(c, p, img, bucketed):
+        net = lambda x: reference.fused_forward(p, x, "bf16")  # noqa: E731
+        if bucketed:
+            return api._upscale_bucketed(c, net, img, 64)
+        if c.channels == 3:
+            return api._upscale_rgb(net, img, add_mean=c.zero_mean_target)
+        return api._upscale_luma(net, img, add_mean=c.zero_mean_target,
+                                 squared_mean=c.subtract_squared_mean)
+
+    cases = ([(j, cfg, params, False) for j in jobs[:4]]
+             + [(j, cfg_rgb, params_rgb, False) for j in jobs[4:6]]
+             + [(jobs[6], cfg, params, True)] + [(j, cfg, params, True) for j in single_jobs])
+    worst_plain = worst_f32 = 0
+    worst_share = 1.0
+    for job, c, p, bucketed in cases:
+        check(job.error is None, f"serve: job failed: {job.error!r}")
+        out, rgba = job.result, job.rgba
+        hh, ww = rgba.shape[:2]
+        name = f"serve {'rgb' if c.channels == 3 else 'flagship'} {ww}x{hh}"
+        check(out.shape == (hh, ww, 3) and out.dtype == np.uint8, f"{name}: {out.shape}")
+        border = border_mask(hh, ww, c.total_padding())
+        check(np.array_equal(out[border], rgba[..., :3][border]), f"{name}: border differs")
+        plain = plain_pipeline(c, p, torch.from_numpy(rgba).cuda(), bucketed).cpu().numpy()
+        d = np.abs(out.astype(np.int16) - plain.astype(np.int16))
+        share = float((d <= 1).mean())
+        check(int(d.max()) <= (2 if c.channels == 3 else 1) and share >= 0.999,
+              f"{name}: vs plain bf16 pipeline max {int(d.max())}, within ±1 {share}")
+        f32 = api.upscale_image(c, p, rgba)
+        d32 = int(np.abs(out.astype(np.int16) - f32.astype(np.int16)).max())
+        check(d32 <= (6 if c.channels == 3 else 4), f"{name}: vs the f32 kernels {d32} uint8")
+        worst_plain, worst_f32 = max(worst_plain, int(d.max())), max(worst_f32, d32)
+        worst_share = min(worst_share, share)
+
+    ms = [(t - t0) * 1e3 for t in done_at]
+    batch_fps = 4 / (ms[0] / 1e3)
+    single_fps = len(single_ms) / (sum(single_ms) / 1e3)
+    print(f"[serve] {smi} | bf16, bucket 64, max_batch 8 | first round done at (ms): "
+          f"4 flagship 1080p (one batch) " + ", ".join(f"{v:.2f}" for v in ms[:4])
+          + f"; 2 RGB 1080p (one batch) " + ", ".join(f"{v:.2f}" for v in ms[4:6])
+          + f"; flagship 1000x700 (bucketed single) {ms[6]:.2f} | 5 single flagship 1080p: "
+          + ", ".join(f"{v:.2f}" for v in single_ms)
+          + f" ms | flagship frames/s batched {batch_fps:.2f} vs single {single_fps:.2f}"
+          + f" | launches (fused, chain, fused bf16, chain bf16) {total}"
+          + f" | stats ok {stats['ok']} batched_jobs {stats['batched_jobs']} errors "
+          f"{stats['errors']} rounds {stats['rounds']} max_batch_seen {stats['max_batch_seen']}"
+          + f" | vs plain bf16 pipeline max {worst_plain} uint8 (within ±1: "
+          f"{worst_share * 100:.4f}% or more), vs f32 kernels max {worst_f32} uint8"
+          + f" | worker stream {seen[0]} | peak device memory {peak / 2**20:.1f} MiB")
+    return total
 
 
 def main() -> int:
@@ -282,35 +478,69 @@ def main() -> int:
     cfg_rgb = read_config(RGB7)
     check(cfg_rgb.channels == 3 and len(cfg_rgb.layer_specs()) == 7, "RGB config")
     params_rgb = params_to_torch(init_params(cfg_rgb)[0], dev)
-    # the wide 9-5-5 (n1 = 128, n2 = 64) does not fit the fused kernel's tiles
     rng = np.random.default_rng(SEED)
-    wide = [{"w": torch.from_numpy((rng.standard_normal((f, f, k, n)) * (2 / (f * f * k)) ** 0.5)
-                                   .astype(np.float32)).to(dev),
-             "b": torch.from_numpy((rng.standard_normal(n) * 0.05).astype(np.float32)).to(dev)}
-            for f, k, n in [(9, 1, 128), (5, 128, 64), (5, 64, 1)]]
+
+    def he(specs):
+        return [{"w": torch.from_numpy((rng.standard_normal((f, f, k, n))
+                                        * (2 / (f * f * k)) ** 0.5).astype(np.float32)).to(dev),
+                 "b": torch.from_numpy((rng.standard_normal(n) * 0.05).astype(np.float32)).to(dev)}
+                for f, k, n in specs]
+
+    # the wide 9-5-5 (n1 = 128, n2 = 64) does not fit the fused kernel's f32 tiles
+    wide = he([(9, 1, 128), (5, 128, 64), (5, 64, 1)])
+    # an f=9 layer over 128 channels: a 294,912-byte f32 window, refused;
+    # 147,456 bytes in bf16
+    wide_f9 = he([(3, 1, 128), (9, 128, 16), (3, 16, 8), (3, 8, 1)])
 
     fused_errs = [
-        kernel_vs_plain("flagship 9-5-5", params, (1, 80, 272, 1), SEED, (1, 0)),
-        kernel_vs_plain("flagship 9-5-5 ragged", params, (2, 97, 131, 1), SEED + 1, (1, 0)),
-        kernel_vs_plain("9-1-5", params915, (1, 80, 272, 1), SEED + 2, (1, 0))]
+        kernel_vs_plain("flagship 9-5-5", params, (1, 80, 272, 1), SEED, (1, 0, 0, 0)),
+        kernel_vs_plain("flagship 9-5-5 ragged", params, (2, 97, 131, 1), SEED + 1,
+                        (1, 0, 0, 0)),
+        kernel_vs_plain("9-1-5", params915, (1, 80, 272, 1), SEED + 2, (1, 0, 0, 0))]
     chain_errs = [
-        kernel_vs_plain("chain RGB 7-layer", params_rgb, (1, 80, 272, 3), SEED + 3, (0, 7)),
+        kernel_vs_plain("chain RGB 7-layer", params_rgb, (1, 80, 272, 3), SEED + 3,
+                        (0, 7, 0, 0)),
         kernel_vs_plain("chain RGB 7-layer ragged", params_rgb, (2, 97, 131, 3), SEED + 4,
-                        (0, 7)),
-        kernel_vs_plain("chain wide 9-5-5", wide, (1, 80, 272, 1), SEED + 5, (0, 3))]
+                        (0, 7, 0, 0)),
+        kernel_vs_plain("chain wide 9-5-5", wide, (1, 80, 272, 1), SEED + 5, (0, 3, 0, 0))]
+    fused_bf16_errs = [
+        kernel_vs_plain("flagship 9-5-5", params, (1, 80, 272, 1), SEED, (0, 0, 1, 0), "bf16"),
+        kernel_vs_plain("flagship 9-5-5 ragged", params, (2, 97, 131, 1), SEED + 1,
+                        (0, 0, 1, 0), "bf16"),
+        kernel_vs_plain("9-1-5", params915, (1, 80, 272, 1), SEED + 2, (0, 0, 1, 0), "bf16")]
+    chain_bf16_errs = [
+        kernel_vs_plain("chain RGB 7-layer", params_rgb, (1, 80, 272, 3), SEED + 3,
+                        (0, 0, 0, 7), "bf16"),
+        kernel_vs_plain("chain RGB 7-layer ragged", params_rgb, (2, 97, 131, 3), SEED + 4,
+                        (0, 0, 0, 7), "bf16"),
+        kernel_vs_plain("chain f=9 over 128 channels, 4-layer", wide_f9, (1, 80, 272, 1),
+                        SEED + 6, (0, 0, 0, 4), "bf16")]
 
-    # the main paths: three requests each through the public API
+    # the main paths: three requests each through the public API in f32,
+    # and one round of the server in bf16
     flagship_counts, rgba = main_path(
         "flagship 9-5-5", cfg, params,
         lambda img: api._upscale_luma(lambda x: reference.fused_forward(params, x), img,
                                       add_mean=cfg.zero_mean_target,
                                       squared_mean=cfg.subtract_squared_mean),
-        (1, 0), smi)
+        (1, 0, 0, 0), smi)
     rgb_counts, _ = main_path(
         "RGB 7-layer", cfg_rgb, params_rgb,
         lambda img: api._upscale_rgb(lambda x: reference.fused_forward(params_rgb, x), img,
                                      add_mean=cfg_rgb.zero_mean_target),
-        (0, 7), smi)
+        (0, 7, 0, 0), smi)
+    serve_counts = serve_path(cfg, params, cfg_rgb, params_rgb, smi)
+    # single bf16 requests of both checkpoints, beside the f32 ones
+    main_path("flagship 9-5-5", cfg, params,
+              lambda img: api._upscale_luma(
+                  lambda x: reference.fused_forward(params, x, "bf16"), img,
+                  add_mean=cfg.zero_mean_target, squared_mean=cfg.subtract_squared_mean),
+              (0, 0, 1, 0), smi, "bf16")
+    main_path("RGB 7-layer", cfg_rgb, params_rgb,
+              lambda img: api._upscale_rgb(
+                  lambda x: reference.fused_forward(params_rgb, x, "bf16"), img,
+                  add_mean=cfg_rgb.zero_mean_target),
+              (0, 0, 0, 7), smi, "bf16", tol=2)
 
     # each kernel at its main path's 1080p input
     from cnn_sr_tpu_torch.ops.color import extract_luma, subtract_mean
@@ -322,10 +552,16 @@ def main() -> int:
     t_fused = time_stack("fused_srcnn, flagship 9-5-5", params, x_luma, smi)
     t_chain = time_stack("conv_layer chain, RGB 7-layer", params_rgb, x_rgb, smi)
     layer_times(params_rgb, x_rgb, smi)
+    t_fused_bf16 = time_stack("fused_srcnn, flagship 9-5-5", params, x_luma, smi, "bf16")
+    t_chain_bf16 = time_stack("conv_layer chain, RGB 7-layer", params_rgb, x_rgb, smi, "bf16")
+    layer_times(params_rgb, x_rgb, smi, "bf16")
     fused_errs.append(t_fused["err"])
     chain_errs.append(t_chain["err"])
+    fused_bf16_errs.append(t_fused_bf16["err"])
+    chain_bf16_errs.append(t_chain_bf16["err"])
 
     def row(name, source, replaces, launches, errs, t):
+        check(launches > 0, f"{name}: no launch on its main path")
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches, "max_abs_err": max(errs), "ms": t["ms"],
                 "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
@@ -338,6 +574,12 @@ def main() -> int:
         row("conv_layer", "cnn_sr_tpu_torch/csrc/conv_layer.cu",
             "cnn_sr_tpu/ops/pallas_fused/kernel.py:499", rgb_counts[1], chain_errs,
             t_chain),
+        row("fused_srcnn_bf16", "cnn_sr_tpu_torch/csrc/fused_srcnn.cu",
+            "cnn_sr_tpu/ops/pallas_fused/kernel.py:730", serve_counts[2], fused_bf16_errs,
+            t_fused_bf16),
+        row("conv_layer_bf16", "cnn_sr_tpu_torch/csrc/conv_layer.cu",
+            "cnn_sr_tpu/ops/pallas_fused/wino_kernel.py:25", serve_counts[3], chain_bf16_errs,
+            t_chain_bf16),
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -8,10 +8,12 @@ weights, uint8 (H, W, 4) RGBA in and uint8 (H, W, 3) RGB out.
 Package layout:
   utils/     config + parameters-file codecs, the numpy → torch bridge
   models/    the layer-list SRCNN model (plain f32 forward, nn.Module)
-  ops/       color ops, image IO, the conv-stack kernels (fused, chain)
+  ops/       color ops, image IO, bicubic resize, the conv-stack kernels
+             (fused, chain; f32 and bf16)
   csrc/      CUDA sources of the hand-written kernels
-  api.py     luma or RGB upscale of one image
+  api.py     luma or RGB upscale of one image (exact or bucketed) or a batch
   cli.py     the forward-mode command line
+  serve.py   the HTTP upscaling service (python -m cnn_sr_tpu_torch.serve)
 """
 
 __version__ = "0.1.0"

@@ -1,14 +1,19 @@
 """The ``cnn_torch`` command line: forward mode of ``cnn_sr_tpu/cli.py``.
 
     python cnn_torch.py [dry] -c cfg.json -i <image|dir> [-o <out>]
-                        [--seed N] [--device cuda|cpu]
+                        [--seed N] [--device cuda|cpu] [--precision f32|bf16]
+                        [--bucket N] [--scale X]
 
-Decode → luma or RGB pipeline (by the config's ``channels``) → net →
-swap → encode, for one image or for every image of a directory (written
-as ``<stem>_sr.png``). ``dry`` runs without writing. ``--device cuda``
-(the default) runs the CUDA kernels and fails without a card; ``cpu``
-runs their plain version. The ``train`` and ``profile`` modes and the
-JAX CLI's TPU options are not ported yet (ROADMAP.md Queue 1).
+Decode → (bicubic pre-upscale by ``--scale``) → luma or RGB pipeline (by
+the config's ``channels``) → net → swap → encode, for one image or for
+every image of a directory (written as ``<stem>_sr.png``). ``dry`` runs
+without writing. ``--device cuda`` (the default) runs the CUDA kernels
+and fails without a card; ``cpu`` runs their plain version.
+``--precision bf16`` runs the bf16 stream (the JAX CLI's ``--pallas``);
+``--bucket N`` pads shapes to multiples of N, as the JAX CLI's. Not
+ported yet (ROADMAP.md Queue 1): the ``train`` and ``profile`` modes,
+``--spatial-shard``, ``--data-parallel``, ``--packed-io`` and
+``--trace-dir``.
 """
 
 from __future__ import annotations
@@ -35,6 +40,15 @@ def build_parser() -> argparse.ArgumentParser:
                    "parameters file")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="cuda runs the CUDA kernels; cpu their plain version")
+    p.add_argument("--precision", choices=("f32", "bf16"), default="f32",
+                   help="conv-stack precision: f32, or the bf16 stream with the "
+                   "int8 first layer (the JAX CLI's --pallas)")
+    p.add_argument("--bucket", type=int, default=0,
+                   help="pad image shapes up to multiples of this (identical "
+                   "results; 0 = exact shapes)")
+    p.add_argument("--scale", type=float, default=1.0,
+                   help="bicubic upscale of the input on the device by this "
+                   "factor before the net")
     return p
 
 
@@ -49,13 +63,23 @@ def _load_model(args, cfg):
     return params_to_torch(params, torch.device(args.device))
 
 
-def _upscale_file(cfg, params, src: str, dst: Optional[str]) -> None:
+def _upscale_file(args, cfg, params, src: str, dst: Optional[str]) -> None:
     from .api import upscale_image
     from .ops.image import load_image, write_image
 
     rgba = load_image(src)
     t0 = time.perf_counter()
-    out = upscale_image(cfg, params, rgba)
+    if args.scale != 1.0:
+        import numpy as np
+        import torch
+
+        from .ops.resize import upscale_rgba
+
+        img = torch.as_tensor(np.require(rgba, requirements=("C", "W")),
+                              device=params[0]["w"].device)
+        rgba = upscale_rgba(img, args.scale).cpu().numpy()
+        print(f"Pre-scaled by {args.scale}x to {rgba.shape[1]}x{rgba.shape[0]}")
+    out = upscale_image(cfg, params, rgba, bucket=args.bucket, precision=args.precision)
     dt = time.perf_counter() - t0
     print(f"{src}: {rgba.shape[1]}x{rgba.shape[0]} upscaled in {dt * 1e3:.1f} ms")
     if dst:
@@ -72,7 +96,7 @@ def run_forward(args, cfg) -> int:
         return 1
     params = _load_model(args, cfg)
     if not os.path.isdir(args.in_path):
-        _upscale_file(cfg, params, args.in_path, args.out_path)
+        _upscale_file(args, cfg, params, args.in_path, args.out_path)
         return 0
     return _run_forward_dir(args, cfg, params)
 
@@ -89,12 +113,13 @@ def _run_forward_dir(args, cfg, params) -> int:
         dst = None
         if args.out_path:
             dst = os.path.join(args.out_path, f"{os.path.splitext(name)[0]}_sr.png")
-        _upscale_file(cfg, params, os.path.join(args.in_path, name), dst)
+        _upscale_file(args, cfg, params, os.path.join(args.in_path, name), dst)
     return 0
 
 
 _MODE_WORDS = {"train", "dry", "profile"}
-_VALUED_OPTS = {"-c", "--config", "-i", "--in", "-o", "--out", "--seed", "--device"}
+_VALUED_OPTS = {"-c", "--config", "-i", "--in", "-o", "--out", "--seed", "--device",
+                "--precision", "--bucket", "--scale"}
 
 
 def _split_modes(argv: List[str]):

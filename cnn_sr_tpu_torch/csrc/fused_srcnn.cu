@@ -45,7 +45,10 @@
 // * Ragged right and bottom edges: input outside the image reads as 0,
 //   and only in-image outputs are stored.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 #include "conv_stage.cuh"
 
@@ -53,15 +56,19 @@ namespace {
 
 constexpr int kThreads = 512;
 
+// T = float: the f32 kernel. T = __nv_bfloat16: the bf16 stream, whose
+// window load quantises the f32 input to the int8 plane's integers
+// (exact in bf16) and whose w1 comes with the 1/127 scale folded in.
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-    fused_srcnn_kernel(const float* __restrict__ x, const float* __restrict__ w1,
-                       const float* __restrict__ b1, const float* __restrict__ w2,
-                       const float* __restrict__ b2, const float* __restrict__ w3,
+    fused_srcnn_kernel(const float* __restrict__ x, const T* __restrict__ w1,
+                       const float* __restrict__ b1, const T* __restrict__ w2,
+                       const float* __restrict__ b2, const T* __restrict__ w3,
                        const float* __restrict__ b3, float* __restrict__ y, int H, int W,
                        int C, int f1, int n1, int f2, int n2, int f3, int n3, int tile_h,
-                       int tile_w, int wbuf_floats) {
+                       int tile_w, int wbuf_elems) {
   extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
+  T* smem = reinterpret_cast<T*>(smem4);
   const int OH = H - (f1 - 1) - (f2 - 1) - (f3 - 1);
   const int OW = W - (f1 - 1) - (f2 - 1) - (f3 - 1);
   const int oy0 = blockIdx.y * tile_h;
@@ -72,11 +79,11 @@ __global__ void __launch_bounds__(kThreads)
   const int a1h = a2h + f2 - 1, a1w = a2w + f2 - 1;
   const int ih = a1h + f1 - 1, iw = a1w + f1 - 1;
   // [weight chunk | input window | conv1 tile | conv2 tile]; the chunk
-  // comes first so that its float4 reads are 16-byte aligned
-  float* wbuf = smem;
-  float* s_in = wbuf + wbuf_floats;
-  float* s_a1 = s_in + C * ih * iw;
-  float* s_a2 = s_a1 + n1 * a1h * a1w;
+  // comes first so that its 16-byte reads are aligned
+  T* wbuf = smem;
+  T* s_in = wbuf + wbuf_elems;
+  T* s_a1 = s_in + C * ih * iw;
+  T* s_a2 = s_a1 + n1 * a1h * a1w;
 
   // input window, NHWC global -> channel-major shared; zero outside the image
   const float* xi = x + img * H * W * C;
@@ -85,49 +92,95 @@ __global__ void __launch_bounds__(kThreads)
     const int c = i % C;
     const int p = i / C;
     const int gy = oy0 + p / iw, gx = ox0 + p % iw;
-    s_in[c * ih * iw + p] =
-        (gy < H && gx < W) ? __ldg(xi + (static_cast<size_t>(gy) * W + gx) * C + c) : 0.f;
+    float v = (gy < H && gx < W) ? __ldg(xi + (static_cast<size_t>(gy) * W + gx) * C + c) : 0.f;
+    if constexpr (std::is_same_v<T, __nv_bfloat16>)
+      v = rintf(fminf(fmaxf(v, -1.f), 1.f) * 127.f);  // ties to even, as jnp.round
+    s_in[c * ih * iw + p] = from_f32<T>(v);
   }
   // (the first chunk load in conv_stage synchronises before any read)
   // vector weight reads where the width allows them (block-uniform branch)
   if (n1 % 8 == 0)
-    conv_stage<8, 4, true, true, false>(s_in, C, ih, iw, w1, b1, f1, n1, wbuf, wbuf_floats,
-                                         s_a1, a1h, a1w, 0, 0, 0, 0);
+    conv_stage<T, T, 8, 4, true, true, false>(s_in, C, ih, iw, w1, b1, f1, n1, wbuf, wbuf_elems,
+                                              s_a1, a1h, a1w, 0, 0, 0, 0);
   else
-    conv_stage<8, 4, false, true, false>(s_in, C, ih, iw, w1, b1, f1, n1, wbuf, wbuf_floats,
-                                          s_a1, a1h, a1w, 0, 0, 0, 0);
+    conv_stage<T, T, 8, 4, false, true, false>(s_in, C, ih, iw, w1, b1, f1, n1, wbuf,
+                                               wbuf_elems, s_a1, a1h, a1w, 0, 0, 0, 0);
   if (n2 % 8 == 0)
-    conv_stage<8, 4, true, true, false>(s_a1, n1, a1h, a1w, w2, b2, f2, n2, wbuf,
-                                         wbuf_floats, s_a2, a2h, a2w, 0, 0, 0, 0);
+    conv_stage<T, T, 8, 4, true, true, false>(s_a1, n1, a1h, a1w, w2, b2, f2, n2, wbuf,
+                                              wbuf_elems, s_a2, a2h, a2w, 0, 0, 0, 0);
   else
-    conv_stage<8, 4, false, true, false>(s_a1, n1, a1h, a1w, w2, b2, f2, n2, wbuf,
-                                          wbuf_floats, s_a2, a2h, a2w, 0, 0, 0, 0);
-  conv_stage<4, 1, false, false, true>(s_a2, n2, a2h, a2w, w3, b3, f3, n3, wbuf, wbuf_floats,
-                                       y + img * OH * OW * n3, tile_h, tile_w, oy0, ox0, OH,
-                                       OW);
+    conv_stage<T, T, 8, 4, false, true, false>(s_a1, n1, a1h, a1w, w2, b2, f2, n2, wbuf,
+                                               wbuf_elems, s_a2, a2h, a2w, 0, 0, 0, 0);
+  conv_stage<T, float, 4, 1, false, false, true>(s_a2, n2, a2h, a2w, w3, b3, f3, n3, wbuf,
+                                                 wbuf_elems, y + img * OH * OW * n3, tile_h,
+                                                 tile_w, oy0, ox0, OH, OW);
+}
+
+template <typename T>
+int launch(const float* x, const T* w1, const float* b1, const T* w2, const float* b2,
+           const T* w3, const float* b3, float* y, int N, int H, int W, int C, int f1, int n1,
+           int f2, int n2, int f3, int n3, int tile_h, int tile_w, int wbuf_elems,
+           int smem_bytes, cudaStream_t stream) {
+  const int s = (f1 - 1) + (f2 - 1) + (f3 - 1);
+  const int OH = H - s, OW = W - s;
+  auto kernel = fused_srcnn_kernel<T>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((OW + tile_w - 1) / tile_w, (OH + tile_h - 1) / tile_h, N);
+  kernel<<<grid, kThreads, smem_bytes, stream>>>(x, w1, b1, w2, b2, w3, b3, y, H, W, C, f1, n1,
+                                                 f2, n2, f3, n3, tile_h, tile_w, wbuf_elems);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Launches the kernel on `stream` and returns cudaGetLastError(). The caller
-// checks the envelope (3 layers, C <= 4, n3 <= 4, shared bytes within the
-// per-block limit) and allocates y.
+// Launches the f32 kernel on `stream` and returns cudaGetLastError(). The
+// caller checks the envelope (3 layers, C <= 4, n3 <= 4, shared bytes
+// within the per-block limit) and allocates y.
 extern "C" int fused_srcnn_forward(const float* x, const float* w1, const float* b1,
                                    const float* w2, const float* b2, const float* w3,
                                    const float* b3, float* y, int N, int H, int W, int C,
                                    int f1, int n1, int f2, int n2, int f3, int n3,
                                    int tile_h, int tile_w, int wbuf_floats, int smem_bytes,
                                    void* stream) {
-  const int s = (f1 - 1) + (f2 - 1) + (f3 - 1);
-  const int OH = H - s, OW = W - s;
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_srcnn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((OW + tile_w - 1) / tile_w, (OH + tile_h - 1) / tile_h, N);
-  fused_srcnn_kernel<<<grid, kThreads, smem_bytes, static_cast<cudaStream_t>(stream)>>>(
-      x, w1, b1, w2, b2, w3, b3, y, H, W, C, f1, n1, f2, n2, f3, n3, tile_h, tile_w,
-      wbuf_floats);
-  return static_cast<int>(cudaGetLastError());
+  return launch<float>(x, w1, b1, w2, b2, w3, b3, y, N, H, W, C, f1, n1, f2, n2, f3, n3, tile_h,
+                       tile_w, wbuf_floats, smem_bytes, static_cast<cudaStream_t>(stream));
+}
+
+// The bf16 stream with the int8 first layer: replaces the same TPU kernel
+// as run by cnn_sr_tpu/ops/pallas_fused/entry.py:32 fused_forward with
+// dtype=bf16, input_int8=True (the JAX package's default under
+// use_pallas), whose input is quantised by weights.py:123
+// _quantize_planes and whose w1 carries the 1/127 scale (weights.py:283,
+// entry.py:326).
+//
+// What bounds it: the same FMAs as the f32 kernel (116.6 G MAC per
+// flagship 1080p frame), still on the CUDA cores in f32: a bf16 x bf16
+// product is exact in f32, so widening each operand at its shared-memory
+// read gives the stream's numbers exactly, up to the order of the sums.
+// What bf16 buys this design is shared memory: the flagship's tiles take
+// 101,376 bytes instead of 202,752, so the weight buffer beside them
+// holds conv2's whole 102,400 bytes and each layer's weights are read
+// from device memory once per block, in one chunk (the f32 kernel
+// streams conv2's in 8 chunks of 9 input channels). The tensor cores are
+// the redesign of ROADMAP.md Queue 2 #1.
+//
+// x: the f32 centred plane (N, H, W, C), quantised at the window load
+// (round(clip(x, -1, 1) * 127), ties to even, held exactly in bf16), so no
+// int8 array goes through device memory. w1 (folded), w2, w3: bf16 HWIO;
+// biases f32; y: f32 (N, H - s, W - s, n3). Activations between layers
+// are rounded to bf16 (round to nearest even).
+extern "C" int fused_srcnn_forward_bf16(const float* x, const void* w1, const float* b1,
+                                        const void* w2, const float* b2, const void* w3,
+                                        const float* b3, float* y, int N, int H, int W, int C,
+                                        int f1, int n1, int f2, int n2, int f3, int n3,
+                                        int tile_h, int tile_w, int wbuf_elems, int smem_bytes,
+                                        void* stream) {
+  using bf = __nv_bfloat16;
+  return launch<bf>(x, static_cast<const bf*>(w1), b1, static_cast<const bf*>(w2), b2,
+                    static_cast<const bf*>(w3), b3, y, N, H, W, C, f1, n1, f2, n2, f3, n3,
+                    tile_h, tile_w, wbuf_elems, smem_bytes, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* cnn_sr_error_string(int err) {

@@ -52,12 +52,13 @@ def forward(params, x: torch.Tensor) -> torch.Tensor:
 class SRCNN(nn.Module):
     """Inference model holding one layer list; ``forward`` runs the whole
     stack through ``ops.fused.fused_forward`` (the fused kernel or the
-    layer chain, by shape). The tensors are buffers, shared with the list
-    it was built from."""
+    layer chain, by shape) in ``precision`` ("f32" or "bf16"). The tensors
+    are buffers, shared with the list it was built from."""
 
-    def __init__(self, params):
+    def __init__(self, params, precision: str = "f32"):
         super().__init__()
         self.num_layers = len(params)
+        self.precision = precision
         for i, layer in enumerate(params):
             self.register_buffer(f"w{i + 1}", layer["w"])
             self.register_buffer(f"b{i + 1}", layer["b"])
@@ -69,4 +70,4 @@ class SRCNN(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         from ..ops.fused import fused_forward
 
-        return fused_forward(self.layers(), x)
+        return fused_forward(self.layers(), x, self.precision)

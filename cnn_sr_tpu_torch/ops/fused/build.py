@@ -114,8 +114,12 @@ def load_library() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.fused_srcnn_forward.argtypes = [p] * 8 + [i] * 14 + [p]
     lib.fused_srcnn_forward.restype = i
+    lib.fused_srcnn_forward_bf16.argtypes = [p] * 8 + [i] * 14 + [p]
+    lib.fused_srcnn_forward_bf16.restype = i
     lib.conv_layer_forward.argtypes = [p] * 4 + [i] * 11 + [p]
     lib.conv_layer_forward.restype = i
+    lib.conv_layer_forward_bf16.argtypes = [p] * 4 + [i] * 12 + [p]
+    lib.conv_layer_forward_bf16.restype = i
     lib.cnn_sr_error_string.argtypes = [i]
     lib.cnn_sr_error_string.restype = ctypes.c_char_p
     return lib

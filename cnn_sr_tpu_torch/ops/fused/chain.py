@@ -4,8 +4,10 @@ The route ``entry.fused_forward`` takes on the card for every well-formed
 stack outside the fused kernel's envelope (the 7-layer RGB model first).
 ``entry`` checks the shapes and plans each layer (``entry.layer_plan``);
 ``chain_forward`` allocates two intermediates, ping-pongs the layers
-through them and writes the last layer into a fresh output. Its plain
-version is ``reference.fused_forward``, the same as the fused kernel's.
+through them and writes the last layer into a fresh f32 output. In bf16
+the intermediates are bf16, the first layer quantises the f32 input at
+its window load and the last writes f32. Its plain version is
+``reference.fused_forward``, the same as the fused kernel's.
 """
 
 from __future__ import annotations
@@ -14,21 +16,50 @@ import math
 
 import torch
 
-# layer launches in this process, one per layer of each stack; the smoke
-# run reads it to show that the main path went through the kernel
+# layer launches in this process, one per layer of each stack, in f32
+# (``LAUNCHES``) and in bf16 (``LAUNCHES_BF16``); the smoke run reads them
+# to show that the main path went through the kernel
 LAUNCHES = 0
+LAUNCHES_BF16 = 0
 
 
-def chain_forward(params, x: torch.Tensor, plans) -> torch.Tensor:
+def layer_forward(lib, src: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                  dst: torch.Tensor, plan, first: bool, last: bool, bf16: bool,
+                  stream: int) -> None:
+    """Launch one layer of ``src`` (N, H, W, K) into ``dst`` on ``stream``.
+    f32: ReLU unless ``last``. bf16: ``w`` is bf16 (folded when
+    ``first``), ``src`` f32 when ``first`` else bf16, ``dst`` f32 when
+    ``last`` else bf16, ReLU unless ``last``."""
+    global LAUNCHES, LAUNCHES_BF16
+    n, h, wd, _ = src.shape
+    f, _, k, c = w.shape
+    args = (src.data_ptr(), w.data_ptr(), b.data_ptr(), dst.data_ptr(), n, h, wd, k, f, c)
+    tail = (plan.tile_h, plan.tile_w, plan.chunk, plan.smem, stream)
+    if bf16:
+        err = lib.conv_layer_forward_bf16(*args, int(first), int(last), *tail)
+    else:
+        err = lib.conv_layer_forward(*args, int(not last), *tail)
+    if err:
+        raise RuntimeError(f"conv_layer{'_bf16' if bf16 else ''} launch failed: "
+                           + lib.cnn_sr_error_string(err).decode())
+    if bf16:
+        LAUNCHES_BF16 += 1
+    else:
+        LAUNCHES += 1
+
+
+def chain_forward(params, x: torch.Tensor, plans, bf16: bool = False) -> torch.Tensor:
     """Run ``params`` over the CUDA tensor ``x`` (N, H, W, C), layer i
-    with ``plans[i]`` (an ``entry.LayerPlan``), on the current stream.
-    The shapes are the caller's to check (``entry.fused_forward``)."""
-    global LAUNCHES
+    with ``plans[i]`` (an ``entry.LayerPlan``), on the current stream, in
+    f32 or, with ``bf16``, as the bf16 stream. The shapes are the caller's
+    to check (``entry.fused_forward``)."""
     if not x.is_cuda:
         raise NotImplementedError(f"conv_layer.cu runs on CUDA tensors, not {x.device}")
     from .build import load_library
+    from .entry import bf16_weights
 
     lib = load_library()
+    weights = bf16_weights(params) if bf16 else [layer["w"] for layer in params]
     n, h, w, _ = x.shape
     shapes = []
     for layer in params:
@@ -38,22 +69,16 @@ def chain_forward(params, x: torch.Tensor, plans) -> torch.Tensor:
     last = len(params) - 1
     # layer i < last writes bufs[i % 2]; each buffer holds the largest
     # activation it will carry
+    mid = torch.bfloat16 if bf16 else torch.float32
     bufs = [torch.empty(max((math.prod(s) for s in shapes[p:last:2]), default=0),
-                        dtype=torch.float32, device=x.device) for p in (0, 1)]
+                        dtype=mid, device=x.device) for p in (0, 1)]
     y = torch.empty(shapes[last], dtype=torch.float32, device=x.device)
     src = x
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        for i, (layer, shape, plan) in enumerate(zip(params, shapes, plans)):
+        for i, (layer, wt, shape, plan) in enumerate(zip(params, weights, shapes, plans)):
             dst = y if i == last else bufs[i % 2][:math.prod(shape)].view(shape)
-            f, _, k, c = layer["w"].shape
-            err = lib.conv_layer_forward(
-                src.data_ptr(), layer["w"].data_ptr(), layer["b"].data_ptr(),
-                dst.data_ptr(), n, src.shape[1], src.shape[2], k, f, c, int(i != last),
-                plan.tile_h, plan.tile_w, plan.chunk, plan.smem, stream)
-            if err:
-                raise RuntimeError(f"conv_layer launch failed at layer {i + 1}: "
-                                   + lib.cnn_sr_error_string(err).decode())
-            LAUNCHES += 1
+            layer_forward(lib, src, wt, layer["b"], dst, plan, i == 0, i == last, bf16,
+                          stream)
             src = dst
     return y

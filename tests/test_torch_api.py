@@ -198,6 +198,7 @@ def test_port_imports_neither_jax_nor_pil():
         import sys
         import numpy as np
         import cnn_sr_tpu_torch, cnn_sr_tpu_torch.api, cnn_sr_tpu_torch.cli
+        import cnn_sr_tpu_torch.serve, cnn_sr_tpu_torch.ops.resize
         from cnn_sr_tpu_torch.utils.config import read_config
         from cnn_sr_tpu_torch.utils.params_io import init_params, params_to_torch
         cfg = read_config("configs/srcnn_9-1-5.json")
@@ -205,6 +206,13 @@ def test_port_imports_neither_jax_nor_pil():
         rgba = np.random.default_rng(0).integers(0, 256, (30, 34, 4), dtype=np.uint8)
         out = cnn_sr_tpu_torch.api.upscale_image(cfg, params, rgba)
         assert out.shape == (30, 34, 3), out.shape
+        out = cnn_sr_tpu_torch.api.upscale_image(cfg, params, rgba, precision="bf16")
+        assert out.shape == (30, 34, 3), out.shape
+        out = cnn_sr_tpu_torch.api.upscale_image(cfg, params, rgba, bucket=64)
+        assert out.shape == (30, 34, 3), out.shape
+        worker = cnn_sr_tpu_torch.serve.DeviceWorker({"default": {"cfg": cfg,
+                                                                  "params": params}})
+        assert worker.snapshot()["models"] == ["default"]
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "PIL", "cnn_sr_tpu"))
         assert not bad, bad
@@ -212,3 +220,106 @@ def test_port_imports_neither_jax_nor_pil():
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+# ---- shape buckets, batches and the CLI's --precision/--bucket/--scale ----
+
+SMALL = {**GOLDEN_CFG, "n1": 4, "n2": 2, "f1": 3, "f2": 1, "f3": 3}
+SMALL_RGB = {
+    "channels": 3,
+    "layers": [{"n": 6, "f": 3}, {"n": 4, "f": 3}, {"n": 3, "f": 3}],
+    "momentum": 0.9, "weight_decay_parameter": 0.0,
+    "learning_rates": [1e-3] * 3,
+    "parameters_distribution": {"mean_w": 0.0, "mean_b": 0.0,
+                                "std_deviation_w": 0.05, "std_deviation_b": 0.0},
+}
+
+
+@pytest.mark.parametrize("raw,bucket,shapes,f32_tol", [
+    (SMALL, 64, [(30, 37), (64, 64), (41, 70)], 0),
+    ({**SMALL, "subtract_squared_mean": True}, 64, [(30, 37), (41, 70)], 0),
+    (SMALL_RGB, 32, [(25, 31), (40, 40)], 0),
+    ({**NARROW, "zero_mean_target": True}, 64, [(40, 52), (70, 33)], 0),
+    ({**NARROW_RGB, "zero_mean_target": True}, 32, [(40, 52), (33, 70)], 1),
+], ids=["luma", "luma_squared_mean", "rgb", "luma_9-5-5", "rgb_7layer"])
+def test_bucketed_upscale_identical_to_exact(raw, bucket, shapes, f32_tol):
+    """The counterparts of test_api.py:107-154: in f32, bucketing does not
+    change a byte of the port's output, and the port's bucketed output
+    is within ±1 of the JAX package's bucketed output. In bf16 the
+    bucketed output is within ±1 of the exact one. The valid-region mean
+    is an f32 sum under the mask, as JAX takes it, so it can differ from
+    the whole image's mean in its last bit; seven layers deep that moved
+    1 of the 6,930 bytes of the 33x70 RGB image by 1, hence ±1 there."""
+    cfg, jcfg = parse_config(raw), jparse_config(raw)
+    params = random_parameters(jcfg.layer_specs(), jcfg.distributions, seed=4)
+    tparams = params_to_torch(params, "cpu")
+    rng = np.random.default_rng(5)
+    for h, w in shapes:
+        rgba = rng.integers(0, 256, (h, w, 4), dtype=np.uint8)
+        exact = api.upscale_image(cfg, tparams, rgba)
+        bucketed = api.upscale_image(cfg, tparams, rgba, bucket=bucket)
+        if f32_tol:
+            assert _max_diff(bucketed, exact) <= f32_tol
+        else:
+            np.testing.assert_array_equal(bucketed, exact, err_msg=f"shape {h}x{w}")
+        assert _max_diff(bucketed, japi.upscale_image(jcfg, params, rgba, bucket=bucket)) <= 1
+        bf16 = api.upscale_image(cfg, tparams, rgba, bucket=bucket, precision="bf16")
+        assert _max_diff(bf16, api.upscale_image(cfg, tparams, rgba, precision="bf16")) <= 1
+    if raw.get("subtract_squared_mean"):  # the flag is live under the mask
+        plain = api.upscale_image(parse_config(SMALL), tparams, rgba, bucket=bucket)
+        assert (plain != exact).any()
+
+
+@pytest.mark.parametrize("raw,precision", [
+    (SMALL, "f32"), ({**NARROW, "zero_mean_target": True}, "f32"),
+    ({**NARROW, "subtract_squared_mean": True}, "bf16"), (SMALL_RGB, "f32"),
+    ({**NARROW_RGB, "zero_mean_target": True}, "f32"),
+    ({**NARROW_RGB, "zero_mean_target": True}, "bf16"),
+], ids=["luma", "luma_9-5-5", "luma_squared_bf16", "rgb", "rgb_7layer", "rgb_7layer_bf16"])
+def test_upscale_batch_matches_single(raw, precision):
+    """The counterpart of test_api.py:28-37: each image of
+    ``upscale_batch`` equals ``upscale_image`` byte for byte, and (in
+    f32) JAX's ``upscale_batch`` within ±1."""
+    cfg, jcfg = parse_config(raw), jparse_config(raw)
+    params = random_parameters(jcfg.layer_specs(), jcfg.distributions, seed=0)
+    tparams = params_to_torch(params, "cpu")
+    rgbas = np.random.default_rng(1).integers(0, 256, (3, 40, 44, 4), dtype=np.uint8)
+    batched = api.upscale_batch(cfg, tparams, rgbas, precision=precision)
+    assert batched.shape == (3, 40, 44, 3) and batched.dtype == np.uint8
+    for i in range(3):
+        single = api.upscale_image(cfg, tparams, rgbas[i], precision=precision)
+        np.testing.assert_array_equal(batched[i], single)
+    if precision == "f32":
+        assert _max_diff(batched, japi.upscale_batch(jcfg, params, rgbas)) <= 1
+
+
+def test_batch_and_bucket_keep_the_receptive_field_errors():
+    cfg = parse_config(NARROW)  # shrink 16
+    params = params_to_torch(random_parameters(cfg.layer_specs(), cfg.distributions, 2), "cpu")
+    tiny = np.zeros((16, 30, 4), np.uint8)
+    with pytest.raises(ValueError, match="receptive field"):
+        api.upscale_image(cfg, params, tiny, bucket=64)
+    with pytest.raises(ValueError, match="receptive field"):
+        api.upscale_batch(cfg, params, tiny[None])
+    with pytest.raises(ValueError, match="precision"):
+        api.upscale_image(cfg, params, np.zeros((30, 30, 4), np.uint8), precision="f16")
+
+
+def test_cli_precision_bucket_scale_writes_what_the_api_returns(tmp_path):
+    from cnn_sr_tpu_torch.ops.resize import upscale_rgba
+
+    cfg_path = _write_config(tmp_path, {**NARROW, "zero_mean_target": True})
+    rgba = np.random.default_rng(12).integers(0, 256, (20, 23, 4), dtype=np.uint8)
+    Image.fromarray(rgba, "RGBA").save(tmp_path / "in.png")
+    out = tmp_path / "out.png"
+    rc = cli.main(["-c", cfg_path, "-i", str(tmp_path / "in.png"), "-o", str(out),
+                   "--seed", "3", "--device", "cpu", "--precision", "bf16",
+                   "--bucket", "64", "--scale", "2"])
+    assert rc == 0
+    cfg = read_config(cfg_path)
+    params = params_to_torch(random_parameters(cfg.layer_specs(), cfg.distributions, 3), "cpu")
+    big = upscale_rgba(torch.from_numpy(rgba), 2.0).numpy()
+    want = api.upscale_image(cfg, params, big, bucket=64, precision="bf16")
+    got = np.asarray(Image.open(out).convert("RGB"))
+    assert got.shape == (40, 46, 3)
+    np.testing.assert_array_equal(got, want)
