@@ -5,13 +5,14 @@
 
 Builds the CUDA kernels from ``cnn_sr_tpu_torch/csrc`` (``fused_srcnn.cu``,
 the 3-layer luma stack in one launch, and ``conv_layer.cu``, the layer
-chain, one launch per layer, each in f32 and in the bf16 stream), holds
-each against its plain PyTorch version on the card, then drives the
-port's three main paths: three 1920x1080 requests of the in-repo
-flagship SRCNN 9-5-5 checkpoint and three of the in-repo 7-layer RGB
-checkpoint through ``api.upscale_image`` in f32, and one round of the
-HTTP server's ``DeviceWorker`` serving both checkpoints in bf16. Phases,
-one line each:
+chain, one launch per layer, each in f32 and in the bf16 stream; and the
+probes' ``winograd.cu`` and ``parity_copy.cu``), holds each against its
+plain PyTorch version on the card, then drives the port's main paths:
+three 1920x1080 requests of the in-repo flagship SRCNN 9-5-5 checkpoint
+and three of the in-repo 7-layer RGB checkpoint through
+``api.upscale_image`` in f32, one round of the HTTP server's
+``DeviceWorker`` serving both checkpoints in bf16, and the entry points
+of the two probes (``cnn_sr_tpu_torch.probes``). Phases, one line each:
 
 1. device: card name and power limit, torch and CUDA versions;
 2. build: each source's ptxas report;
@@ -51,9 +52,24 @@ one line each:
    f32 and in bf16, its plain version and the library's convolutions (f32
    with TF32 off, or bf16 on channels-last tensors: cuDNN on the tensor
    cores) at the main paths' 1080p shapes, and the chain's time per layer
-   beside the library's, in both precisions.
+   beside the library's, in both precisions;
+8. probe main path: ``strided_store.main`` and ``winograd.main(["--check"])``
+   (every Winograd mode and ``repack`` within 1e-2 of a float64 direct
+   conv), with the probe kernels' counts set to 0 just before and read
+   just after; then the kernels against their plain versions: the strided
+   roundtrip and the parity layouts bit-equal, the input transform
+   bit-equal, ``winograd_f2x3`` in its three modes (three pairs, 24x256
+   outputs, and again at 1080p) and ``repack`` within 2^-7 of the
+   output's magnitude with ≥ 99.9% of the elements bit-equal; and times
+   at the RGB model's 1080p L5/L6 shapes (64→128, 128→128, and 128→64 at
+   L6's shape) of each of ``winograd.layer_variants``: each Winograd
+   mode, the shipped direct kernel (``sep``), ``repack``, the parity pack
+   and split, beside their plain versions, cuDNN bf16 (conv + ReLU on
+   channels-last tensors) or ``.contiguous()`` of the strided view, and
+   each one's own bound (``winograd_bound`` for the Winograd modes, with
+   the direct form's beside it).
 
-Then one JSON line of the four kernels, the ``nvidia-smi`` line, and as
+Then one JSON line of the six kernels, the ``nvidia-smi`` line, and as
 the last line ``{"ok": true, "device": {...}}``. Any failed check raises,
 so the script exits nonzero and prints no result; so does a machine
 without CUDA.
@@ -324,6 +340,155 @@ def layer_times(params, x, smi, precision="f32") -> None:
           + ", ".join(parts))
 
 
+def agree_bf16(name, y, ref) -> float:
+    """Check a bf16 kernel output against its plain version: within 2^-7 of
+    the plain output's largest magnitude and ≥ 99.9% of the elements
+    bit-equal (the products are exact, the sums taken in another order).
+    Returns the max abs error."""
+    check(y.shape == ref.shape, f"{name}: shape {tuple(y.shape)} vs {tuple(ref.shape)}")
+    err = float((y.float() - ref.float()).abs().max())
+    scale = float(ref.float().abs().max())
+    equal = float((y == ref).float().mean())
+    check(err <= BF16_REL * scale and equal >= 0.999,
+          f"{name}: kernel vs plain max {err} (scale {scale}), bit-equal {equal}")
+    return err
+
+
+def winograd_bound(x, u, out_hw, mode) -> tuple:
+    """The least time of ``winograd_f2x3`` itself in ``mode`` on this card:
+    the larger of its operations over the bf16 peak and its bytes over the
+    memory rate. Operations: 16·k·n multiply-adds per 2x2 tile, the input
+    transform's adds (48 per tile and input channel in mode "direct", 32
+    in "factored", none in "pre") and the output transform's 36 per tile
+    and output channel. Bytes, all bf16: its input ``x`` (the parity input,
+    or V in mode "pre") and ``u`` read once, the parity output written
+    once. ``bound_ms`` of the layer counts the direct form's 36 a tile."""
+    k, n = u.shape[0] // 16, u.shape[1]
+    tiles = (out_hw[0] // 2) * (out_hw[1] // 2)
+    adds = {"direct": 48, "factored": 32, "pre": 0}[mode]
+    ops = tiles * (2 * 16 * k * n + adds * k + 36 * n)
+    moved = 2 * (x.numel() + u.numel() + 4 * tiles * n)
+    t_ops, t_bytes = ops / PEAK_FLOPS["bf16"] * 1e3, moved / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def probe_phase(smi) -> list:
+    """[probe]: the ports of ``tools/winograd_probe.py`` and
+    ``tools/strided_store_probe.py``. Their entry points (the probes' main
+    path: the strided roundtrip and ``--check``) with the counts set to 0
+    just before; each kernel against its plain version at the probe's
+    shapes and, for ``winograd.layer_variants``, at the RGB model's 1080p
+    L5/L6 shapes, where each is timed beside cuDNN bf16 or
+    ``.contiguous()`` and its bound. Returns the two kernel rows."""
+    from cnn_sr_tpu_torch.probes import layout, strided_store, winograd
+
+    t_phase = time.perf_counter()
+    layout.LAUNCHES = winograd.LAUNCHES = 0
+    check(strided_store.main(["--device", "cuda"]) == 0, "strided_store probe")
+    check(winograd.main(["--check"]) == 0, "winograd probe --check")
+    torch.cuda.synchronize()
+    launches = {"winograd": winograd.LAUNCHES, "parity_copy": layout.LAUNCHES}
+    print(f"[probe] probes' main path launches: winograd_f2x3 {launches['winograd']}, "
+          f"parity_copy {launches['parity_copy']}")
+    dev = torch.device("cuda")
+
+    # kernel vs plain at the probes' own shapes
+    a = torch.from_numpy(np.random.default_rng(SEED).standard_normal(
+        (strided_store.R, strided_store.C, strided_store.K)).astype(np.float32)).to(dev)
+    rt = strided_store.strided_roundtrip(a)
+    rt_plain = strided_store.strided_roundtrip_plain(a)
+    copy_errs = [float((rt - rt_plain).abs().max()), float((rt - (a + 1.0)).abs().max())]
+    check(torch.equal(rt, rt_plain) and max(copy_errs) == 0.0, f"strided roundtrip {copy_errs}")
+    wino_errs = []
+    rng = np.random.default_rng(SEED + 50)
+    hw = (winograd.CH, winograd.OW)
+    for k, n in winograd.PAIRS:
+        act_np = (rng.random((hw[0] + 2, hw[1] + 2, k), np.float32) - 0.5).astype(np.float32)
+        g = (rng.random((3, 3, k, n), np.float32) - 0.5).astype(np.float32)
+        act = torch.from_numpy(act_np).to(dev, torch.bfloat16)
+        a_par = layout.pack_rows_cols(act, winograd.CHUNK_CWP)
+        u = winograd.weights_u(g, dev)
+        for mode in ("direct", "factored"):
+            check(torch.equal(winograd.input_transform(a_par, hw, mode),
+                              winograd.input_transform_plain(a_par, hw, mode)),
+                  f"input transform {mode} {k}->{n}")
+        v = winograd.input_transform(a_par, hw)
+        for mode, x in (("direct", a_par), ("factored", a_par), ("pre", v)):
+            wino_errs.append(agree_bf16(f"winograd {mode} {k}->{n}",
+                                        winograd.winograd_f2x3(x, u, hw, mode),
+                                        winograd.winograd_f2x3_plain(x, u, hw, mode)))
+        gb = torch.from_numpy(g).to(dev, torch.bfloat16)
+        agree_bf16(f"repack {k}->{n}", winograd.repack(act, gb), winograd.repack_plain(act, gb))
+    print(f"[probe] kernel vs plain at the probes' shapes: strided roundtrip (24, 256, 128) "
+          f"f32 bit-equal, error {max(copy_errs)}; input transforms bit-equal; winograd_f2x3 "
+          f"(3 modes x 3 pairs, 24x256 out) max |kernel - plain| {max(wino_errs):.3e}; "
+          f"repack within 2^-7")
+
+    # every variant at 1080p, checked, then timed in turns: plain, kernel,
+    # kernel, plain, library, library
+    rows = {}
+    for k, n in winograd.PAIRS:
+        out_hw = winograd.OUT_1080P[(k, n)]
+        variants, inp = winograd.layer_variants(k, n, out_hw, dev, seed=SEED)
+        act, y, u = inp["act"], inp["y"], inp["u"]
+        lib_w = library_weights([{"w": inp["gb"].float(), "b": torch.zeros(n, device=dev)}],
+                                "bf16")
+        conv_ms = [time_ms(lambda: library_convs(lib_w, act[None]).relu_()) for _ in range(2)]
+        # the copies' yardstick: .contiguous() of a strided view (the
+        # split's plain version is itself one)
+        library = {"pack": lambda: act.view(act.shape[0] // 2, 2, act.shape[1] // 2, 2, k)
+                   .permute(1, 0, 2, 3, 4).contiguous(),
+                   "split": lambda: layout.split_quadrants_plain(y)}
+        conv_bound = bound_ms([{"w": inp["gb"], "b": None}], (1, *act.shape), "bf16",
+                              False, False)
+        bounds = {"sep": conv_bound, "repack": conv_bound,
+                  "wino": winograd_bound(inp["a_par"], u, out_hw, "direct"),
+                  "winoF": winograd_bound(inp["a_par"], u, out_hw, "factored"),
+                  "winoD": winograd_bound(inp["v"], u, out_hw, "pre"),
+                  **{kind: (2 * x.numel() * x.element_size() / PEAK_BYTES * 1e3, "bytes")
+                     for kind, x in (("pack", act), ("split", y))}}
+        name = f"{k}->{n} 1080p ({act.shape[0]}x{act.shape[1]} in, {out_hw[0]}x{out_hw[1]} out)"
+        t = {}
+        for kind, (kern, plain) in variants.items():
+            got, ref = kern(), plain()
+            if kind in library:
+                check(torch.equal(got, ref), f"{kind} {name}: kernel differs from plain")
+                copy_errs.append(float((got.float() - ref.float()).abs().max()))
+            else:
+                err = agree_bf16(f"{kind} {name}", got, ref)
+                if kind.startswith("wino"):
+                    wino_errs.append(err)
+            del got, ref
+            p1, k1, k2, p2 = time_ms(plain), time_ms(kern), time_ms(kern), time_ms(plain)
+            l1, l2 = ((time_ms(library[kind]), time_ms(library[kind])) if kind in library
+                      else conv_ms)
+            bound, bound_by = bounds[kind]
+            t[kind] = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
+                       "library_ms": (l1 + l2) / 2, "bound_ms": bound, "bound_by": bound_by}
+            what = ".contiguous()" if kind in library else "cuDNN bf16 conv + ReLU"
+            direct = (f"; the direct form's {conv_bound[0]:.4f} ms ({conv_bound[1]})"
+                      if kind.startswith("wino") else "")
+            print(f"[probe] {smi} | {name} {kind}: kernel {k1:.3f}/{k2:.3f} ms, plain "
+                  f"{p1:.3f}/{p2:.3f} ms, library ({what}) {l1:.3f}/{l2:.3f} ms, "
+                  f"bound {bound:.4f} ms ({bound_by}{direct})")
+        print(f"[probe] {smi} | {name}: sep / wino {t['sep']['ms'] / t['wino']['ms']:.2f}x, "
+              f"sep / winoF {t['sep']['ms'] / t['winoF']['ms']:.2f}x, sep / winoD "
+              f"{t['sep']['ms'] / t['winoD']['ms']:.2f}x")
+        rows[(k, n)] = t
+        del variants, inp
+    print(f"[probe] phase {time.perf_counter() - t_phase:.1f} s")
+
+    l6 = rows[(128, 128)]
+    return [
+        {"name": "winograd_f2x3", "source": "cnn_sr_tpu_torch/csrc/winograd.cu",
+         "replaces": "tools/winograd_probe.py:291", "launches": launches["winograd"],
+         "err": max(wino_errs), **l6["wino"]},
+        {"name": "parity_copy", "source": "cnn_sr_tpu_torch/csrc/parity_copy.cu",
+         "replaces": "tools/strided_store_probe.py:30", "launches": launches["parity_copy"],
+         "err": max(copy_errs), **l6["pack"]},
+    ]
+
+
 def border_mask(h: int, w: int, s: int) -> np.ndarray:
     """True outside the valid-conv window that the swap writes."""
     pad = s // 2
@@ -555,6 +720,7 @@ def main() -> int:
     t_fused_bf16 = time_stack("fused_srcnn, flagship 9-5-5", params, x_luma, smi, "bf16")
     t_chain_bf16 = time_stack("conv_layer chain, RGB 7-layer", params_rgb, x_rgb, smi, "bf16")
     layer_times(params_rgb, x_rgb, smi, "bf16")
+    probe_rows = probe_phase(smi)
     fused_errs.append(t_fused["err"])
     chain_errs.append(t_chain["err"])
     fused_bf16_errs.append(t_fused_bf16["err"])
@@ -580,6 +746,8 @@ def main() -> int:
         row("conv_layer_bf16", "cnn_sr_tpu_torch/csrc/conv_layer.cu",
             "cnn_sr_tpu/ops/pallas_fused/wino_kernel.py:25", serve_counts[3], chain_bf16_errs,
             t_chain_bf16),
+        *(row(r["name"], r["source"], r["replaces"], r["launches"], [r["err"]], r)
+          for r in probe_rows),
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

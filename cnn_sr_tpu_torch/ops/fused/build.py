@@ -120,6 +120,12 @@ def load_library() -> ctypes.CDLL:
     lib.conv_layer_forward.restype = i
     lib.conv_layer_forward_bf16.argtypes = [p] * 4 + [i] * 12 + [p]
     lib.conv_layer_forward_bf16.restype = i
+    lib.winograd_f2x3_forward.argtypes = [p] * 3 + [i] * 7 + [p]
+    lib.winograd_f2x3_forward.restype = i
+    lib.winograd_input_transform.argtypes = [p] * 2 + [i] * 6 + [p]
+    lib.winograd_input_transform.restype = i
+    lib.parity_copy.argtypes = [p, p, i] + [ctypes.c_longlong] * 15 + [ctypes.c_float, p]
+    lib.parity_copy.restype = i
     lib.cnn_sr_error_string.argtypes = [i]
     lib.cnn_sr_error_string.restype = ctypes.c_char_p
     return lib

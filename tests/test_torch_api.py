@@ -199,6 +199,7 @@ def test_port_imports_neither_jax_nor_pil():
         import numpy as np
         import cnn_sr_tpu_torch, cnn_sr_tpu_torch.api, cnn_sr_tpu_torch.cli
         import cnn_sr_tpu_torch.serve, cnn_sr_tpu_torch.ops.resize
+        import cnn_sr_tpu_torch.probes.strided_store, cnn_sr_tpu_torch.probes.winograd
         from cnn_sr_tpu_torch.utils.config import read_config
         from cnn_sr_tpu_torch.utils.params_io import init_params, params_to_torch
         cfg = read_config("configs/srcnn_9-1-5.json")
@@ -213,8 +214,10 @@ def test_port_imports_neither_jax_nor_pil():
         worker = cnn_sr_tpu_torch.serve.DeviceWorker({"default": {"cfg": cfg,
                                                                   "params": params}})
         assert worker.snapshot()["models"] == ["default"]
+        assert cnn_sr_tpu_torch.probes.strided_store.main(["--device", "cpu"]) == 0
         bad = sorted(m for m in sys.modules
-                     if m.split(".")[0] in ("jax", "jaxlib", "PIL", "cnn_sr_tpu"))
+                     if m.split(".")[0] in ("jax", "jaxlib", "PIL", "cnn_sr_tpu", "tools",
+                                            "winograd_probe", "strided_store_probe"))
         assert not bad, bad
     """)
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
