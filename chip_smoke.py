@@ -6,13 +6,14 @@
 Builds the CUDA kernels from ``cnn_sr_tpu_torch/csrc`` (``fused_srcnn.cu``,
 the 3-layer luma stack in one launch, and ``conv_layer.cu``, the layer
 chain, one launch per layer, each in f32 and in the bf16 stream; and the
-probes' ``winograd.cu`` and ``parity_copy.cu``), holds each against its
+probes' ``winograd.cu``, ``parity_copy.cu``, ``wino5.cu`` and
+``rowpair.cu``), holds each against its
 plain PyTorch version on the card, then drives the port's main paths:
 three 1920x1080 requests of the in-repo flagship SRCNN 9-5-5 checkpoint
 and three of the in-repo 7-layer RGB checkpoint through
 ``api.upscale_image`` in f32, one round of the HTTP server's
 ``DeviceWorker`` serving both checkpoints in bf16, and the entry points
-of the two probes (``cnn_sr_tpu_torch.probes``). Phases, one line each:
+of the four probes (``cnn_sr_tpu_torch.probes``). Phases, one line each:
 
 1. device: card name and power limit, torch and CUDA versions;
 2. build: each source's ptxas report;
@@ -53,9 +54,11 @@ of the two probes (``cnn_sr_tpu_torch.probes``). Phases, one line each:
    with TF32 off, or bf16 on channels-last tensors: cuDNN on the tensor
    cores) at the main paths' 1080p shapes, and the chain's time per layer
    beside the library's, in both precisions;
-8. probe main path: ``strided_store.main`` and ``winograd.main(["--check"])``
+8. probe main path: ``strided_store.main``, ``winograd.main(["--check"])``
    (every Winograd mode and ``repack`` within 1e-2 of a float64 direct
-   conv), with the probe kernels' counts set to 0 just before and read
+   conv), ``wino5.main(["--check"])`` (every mode within 2e-2 of a float64
+   direct 5x5 conv) and ``rowpair.main([])`` (the probe's four cases within
+   2e-2), with the probe kernels' counts set to 0 just before and read
    just after; then the kernels against their plain versions: the strided
    roundtrip and the parity layouts bit-equal, the input transform
    bit-equal, ``winograd_f2x3`` in its three modes (three pairs, 24x256
@@ -67,9 +70,17 @@ of the two probes (``cnn_sr_tpu_torch.probes``). Phases, one line each:
    and split, beside their plain versions, cuDNN bf16 (conv + ReLU on
    channels-last tensors) or ``.contiguous()`` of the strided view, and
    each one's own bound (``winograd_bound`` for the Winograd modes, with
-   the direct form's beside it).
+   the direct form's beside it); ``wino5`` in its four modes within 2^-7
+   with ≥ 99.9% bit-equal at the probe's chunk and at the flagship's 1080p
+   conv2 (the quad modes also against ``sep``), timed beside ``sep`` at
+   f=5, cuDNN bf16 conv + ReLU and ``wino5_bound``, with ``sep / <mode>``,
+   ``pack_quad`` beside ``.contiguous()``, and the L5 input pack over four
+   turns before and after them and as a CUDA graph's replays; ``rowpair_gemm`` within 1e-5 relative of its plain version in
+   the probe's four cases and at the 1080p exit (534x954xL, L = 128 and
+   64, bf16 and f32), timed as the strided read, the contiguous read, the
+   copy route and ``torch.matmul`` bf16 beside its bound.
 
-Then one JSON line of the six kernels, the ``nvidia-smi`` line, and as
+Then one JSON line of the eight kernels, the ``nvidia-smi`` line, and as
 the last line ``{"ok": true, "device": {...}}``. Any failed check raises,
 so the script exits nonzero and prints no result; so does a machine
 without CUDA.
@@ -232,6 +243,19 @@ def time_ms(fn, iters: int = 10) -> float:
     return start.elapsed_time(stop) / iters
 
 
+def graph_ms(fn, iters: int = 10) -> float:
+    """Mean ms of ``fn``'s device work: ``fn`` captured once in a CUDA
+    graph, then ``iters`` replays timed as ``time_ms`` times a call. Where
+    the host takes longer to launch ``fn``'s kernels than the card takes to
+    run them, ``time_ms`` measures the host; this does not."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return time_ms(graph.replay, iters)
+
+
 def library_weights(params, precision="f32"):
     """``(OIHW channels-last weight, bias)`` per layer in ``precision``'s
     type, for ``library_convs``."""
@@ -380,16 +404,20 @@ def probe_phase(smi) -> list:
     shapes and, for ``winograd.layer_variants``, at the RGB model's 1080p
     L5/L6 shapes, where each is timed beside cuDNN bf16 or
     ``.contiguous()`` and its bound. Returns the two kernel rows."""
-    from cnn_sr_tpu_torch.probes import layout, strided_store, winograd
+    from cnn_sr_tpu_torch.probes import layout, rowpair, strided_store, wino5, winograd
 
     t_phase = time.perf_counter()
-    layout.LAUNCHES = winograd.LAUNCHES = 0
+    layout.LAUNCHES = winograd.LAUNCHES = wino5.LAUNCHES = rowpair.LAUNCHES = 0
     check(strided_store.main(["--device", "cuda"]) == 0, "strided_store probe")
     check(winograd.main(["--check"]) == 0, "winograd probe --check")
+    check(wino5.main(["--check"]) == 0, "wino5 probe --check")
+    check(rowpair.main([]) == 0, "rowpair probe")
     torch.cuda.synchronize()
-    launches = {"winograd": winograd.LAUNCHES, "parity_copy": layout.LAUNCHES}
+    launches = {"winograd": winograd.LAUNCHES, "parity_copy": layout.LAUNCHES,
+                "wino5": wino5.LAUNCHES, "rowpair": rowpair.LAUNCHES}
     print(f"[probe] probes' main path launches: winograd_f2x3 {launches['winograd']}, "
-          f"parity_copy {launches['parity_copy']}")
+          f"parity_copy {launches['parity_copy']}, wino5 {launches['wino5']}, "
+          f"rowpair_gemm {launches['rowpair']}")
     dev = torch.device("cuda")
 
     # kernel vs plain at the probes' own shapes
@@ -476,6 +504,8 @@ def probe_phase(smi) -> list:
               f"{t['sep']['ms'] / t['winoD']['ms']:.2f}x")
         rows[(k, n)] = t
         del variants, inp
+    w5_row = wino5_phase(smi, dev)
+    rp_row = rowpair_phase(smi, dev)
     print(f"[probe] phase {time.perf_counter() - t_phase:.1f} s")
 
     l6 = rows[(128, 128)]
@@ -486,7 +516,181 @@ def probe_phase(smi) -> list:
         {"name": "parity_copy", "source": "cnn_sr_tpu_torch/csrc/parity_copy.cu",
          "replaces": "tools/strided_store_probe.py:30", "launches": launches["parity_copy"],
          "err": max(copy_errs), **l6["pack"]},
+        {"name": "wino5", "source": "cnn_sr_tpu_torch/csrc/wino5.cu",
+         "replaces": "tools/wino5_probe.py:253", "launches": launches["wino5"], **w5_row},
+        {"name": "rowpair_gemm", "source": "cnn_sr_tpu_torch/csrc/rowpair.cu",
+         "replaces": "tools/rowpair_probe.py:46", "launches": launches["rowpair"], **rp_row},
     ]
+
+
+def wino5_bound(x, w, out_hw, mode) -> tuple:
+    """The least time of ``wino5`` itself in ``mode`` on this card: the
+    larger of its operations over the bf16 peak and its bytes over the
+    memory rate. Operations: the quad modes' dense 9·4k·4n multiply-adds a
+    quad pixel; w55f's 6·3·2k·2n, the B6 row combinations' products and
+    adds over (TC + 2) columns and the AT25 products and adds. Bytes: the
+    f32 quad image and the bf16 weights read once, the bf16 parity output
+    written once."""
+    from cnn_sr_tpu_torch.probes import wino5
+
+    tr, tc = out_hw[0] // 2, out_hw[1] // 2
+    k, n = x.shape[2] // 4, wino5.KERNEL_N
+    if mode == "w55f":
+        nnz_b = (wino5.B6 != 0).sum(axis=1)
+        nnz_at = (wino5.AT25 != 0).sum(axis=0)
+        ops = (tr * tc * 2 * 6 * 3 * 2 * k * 2 * n
+               + int((2 * nnz_b - 1).sum()) * tr * (tc + 2) * 2 * k
+               + int(nnz_at.sum()) * 2 * tr * tc * 2 * n)
+    else:
+        ops = tr * tc * 2 * 9 * 4 * k * 4 * n
+    moved = 4 * x.numel() + 2 * w.numel() + 2 * 4 * tr * tc * n
+    t_ops, t_bytes = ops / PEAK_FLOPS["bf16"] * 1e3, moved / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def turns(kern, plain, library) -> dict:
+    """Times in turns: plain, kernel, kernel, plain, library, library."""
+    p1, k1, k2, p2 = time_ms(plain), time_ms(kern), time_ms(kern), time_ms(plain)
+    l1, l2 = time_ms(library), time_ms(library)
+    return {"k": (k1, k2), "p": (p1, p2), "l": (l1, l2), "ms": (k1 + k2) / 2,
+            "plain_ms": (p1 + p2) / 2, "library_ms": (l1 + l2) / 2}
+
+
+def wino5_phase(smi, dev) -> dict:
+    """``wino5`` in its four modes against its plain version at the probe's
+    chunk and at the flagship's 1080p conv2, where each mode, ``sep`` (the
+    shipped direct layer at f=5) and ``pack_quad`` are timed in turns
+    beside cuDNN bf16 conv + ReLU (``.contiguous()`` of the strided view for
+    the pack) and their bounds; and the L5 input pack (``pack_rows_cols``
+    of the same bf16 input shape) over four turns before the variants are
+    made, four after and four of a CUDA graph's replays (its device work
+    alone). Returns the w55f row."""
+    from cnn_sr_tpu_torch.probes import layout, wino5
+
+    g, a = wino5.probe_inputs()
+    x = torch.from_numpy(a).to(dev)
+    hw = (2 * wino5.TR, 2 * wino5.TC)
+    errs = [agree_bf16(f"wino5 {mode} chunk",
+                       wino5.wino5(x, wino5.weights(g, mode, dev), hw, mode),
+                       wino5.wino5_plain(x, wino5.weights(g, mode, dev), hw, mode))
+            for mode in wino5.MODES]
+    print(f"[probe] wino5 kernel vs plain at the probe's chunk (12x128 quad outputs, "
+          f"4 modes): max |kernel - plain| {max(errs):.3e}")
+
+    # the L5 input pack (pack_rows_cols of the same input shape in bf16),
+    # four turns in a fresh process state and four after the 1080p variants
+    out_hw = wino5.OUT_1080P
+    act_l5 = wino5.layer_inputs(out_hw, dev, SEED)[0].to(torch.bfloat16)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    pack_l5 = [time_ms(lambda: layout.pack_rows_cols(act_l5)) for _ in range(4)]
+    variants, inp = wino5.layer_variants(out_hw, dev, seed=SEED)
+    act, act_bf16, xq = inp["act"], inp["act_bf16"], inp["x"]
+    lib_w = library_weights([{"w": inp["gb"].float(), "b": torch.zeros(wino5.N, device=dev)}],
+                            "bf16")
+    cudnn = lambda: library_convs(lib_w, act_bf16[None]).relu_()  # noqa: E731
+    rh, cw = act.shape[0] // 2, act.shape[1] // 2
+    library = {"pack": lambda: act.view(rh, 2, cw, 2, wino5.K).permute(0, 2, 1, 3, 4)
+               .contiguous()}
+    direct = bound_ms([{"w": inp["gb"], "b": None}], (1, *act.shape), "bf16", False, False)
+    bounds = {"sep": direct, "pack": (8 * act.numel() / PEAK_BYTES * 1e3, "bytes"),
+              **{m: wino5_bound(xq, inp["w"][m], out_hw, m) for m in wino5.MODES}}
+    name = (f"flagship conv2 1080p ({act.shape[0]}x{act.shape[1]}x{wino5.K} in, "
+            f"{out_hw[0]}x{out_hw[1]}x{wino5.N} out)")
+    ysep = variants["sep"][0]()
+    t = {}
+    for kind, (kern, plain) in variants.items():
+        got, ref = kern(), plain()
+        if kind == "pack":
+            check(torch.equal(got, ref), f"pack_quad {name}: kernel differs from plain")
+        else:
+            err = agree_bf16(f"{kind} {name}", got, ref)
+            if kind != "sep":
+                errs.append(err)
+            if kind in wino5.GROUP:
+                # the direct layer's exact products (and zeros), summed in another order
+                agree_bf16(f"{kind} vs sep {name}", layout.merge_quadrants(got), ysep)
+        del got, ref
+        t[kind] = turns(kern, plain, library.get(kind, cudnn))
+        bound, bound_by = bounds[kind]
+        t[kind].update(bound_ms=bound, bound_by=bound_by)
+        what = ".contiguous()" if kind == "pack" else "cuDNN bf16 conv + ReLU"
+        extra = (f"; the direct form's {direct[0]:.4f} ms ({direct[1]})"
+                 if kind in wino5.MODES else "")
+        print(f"[probe] {smi} | {name} {kind}: kernel {t[kind]['k'][0]:.3f}/"
+              f"{t[kind]['k'][1]:.3f} ms, plain {t[kind]['p'][0]:.3f}/{t[kind]['p'][1]:.3f} ms, "
+              f"library ({what}) {t[kind]['l'][0]:.3f}/{t[kind]['l'][1]:.3f} ms, bound "
+              f"{bound:.4f} ms ({bound_by}{extra})")
+    print(f"[probe] {smi} | {name}: " + ", ".join(
+        f"sep / {m} {t['sep']['ms'] / t[m]['ms']:.2f}x" for m in wino5.MODES))
+    after = [time_ms(lambda: layout.pack_rows_cols(act_l5)) for _ in range(4)]
+    graphed = [graph_ms(lambda: layout.pack_rows_cols(act_l5)) for _ in range(4)]
+    print(f"[probe] {smi} | L5 input pack (pack_rows_cols, {tuple(act_l5.shape)} bf16), "
+          f"4 turns before the conv2 variants: " + "/".join(f"{v:.3f}" for v in pack_l5)
+          + " ms, 4 after them: " + "/".join(f"{v:.3f}" for v in after) + " ms, 4 of its "
+          "device work alone (a CUDA graph's replays): " + "/".join(f"{v:.3f}" for v in graphed)
+          + f" ms, bound {4 * act_l5.numel() / PEAK_BYTES * 1e3:.4f} ms (bytes)")
+    del variants, inp
+    row = {k: t["w55f"][k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
+    return {"err": max(errs), **row}
+
+
+def rowpair_phase(smi, dev) -> dict:
+    """``rowpair_gemm`` against its plain version (rel ≤ 1e-5) in the
+    probe's four cases and at the flagship's 1080p exit (a 534x954xL
+    operand, L = 128 and 64, bf16 and f32), where the strided read, the
+    contiguous read, the copy route and ``torch.matmul`` bf16 are timed in
+    turns beside the bound. Returns the bf16 L=128 strided row."""
+    from cnn_sr_tpu_torch.probes import rowpair
+
+    errs = []
+    for lanes in rowpair.LANES:
+        for dtype in rowpair.DTYPES:
+            a, wm = rowpair.probe_inputs(lanes)
+            at = torch.from_numpy(a).to(dev, rowpair.DTYPES[dtype])
+            wt = torch.from_numpy(wm).to(dev, torch.bfloat16)
+            for rt in range(2):
+                y = rowpair.rowpair_gemm(at, wt, rowpair.M_ROWS, rt)
+                ref = rowpair.rowpair_gemm_plain(at, wt, rowpair.M_ROWS, rt)
+                errs.append(float((y - ref).abs().max()))
+                check(errs[-1] <= 1e-5 * float(ref.abs().max()),
+                      f"rowpair {dtype} {lanes}: kernel vs plain {errs[-1]}")
+    print(f"[probe] rowpair_gemm kernel vs plain at the probe's shape (64, 128, L), 4 cases: "
+          f"max |kernel - plain| {max(errs):.3e}")
+    row = None
+    for lanes in rowpair.LANES:
+        for dtype in rowpair.DTYPES:
+            ways, plain, a, w = rowpair.routes(lanes, dtype, dev, seed=SEED)
+            ref = plain()
+            outs = {kind: fn() for kind, fn in ways.items()}
+            for y, r in zip(outs["strided"], ref):
+                errs.append(float((y - r).abs().max()))
+                check(errs[-1] <= 1e-5 * float(r.abs().max()),
+                      f"rowpair 1080p {dtype} {lanes}: kernel vs plain {errs[-1]}")
+            check(all(torch.equal(s, c) for s, c in zip(outs["strided"], outs["contiguous"]))
+                  and all(torch.equal(s, c) for s, c in zip(outs["strided"], outs["copy"])),
+                  f"rowpair 1080p {dtype} {lanes}: the routes differ")
+            del outs, ref
+            m = a.shape[0] // 2
+            macs = 2 * m * a.shape[1] * lanes * lanes
+            moved = a.numel() * a.element_size() + 2 * w.numel() + 4 * 2 * m * a.shape[1] * lanes
+            t_ops, t_bytes = 2 * macs / PEAK_FLOPS["bf16"] * 1e3, moved / PEAK_BYTES * 1e3
+            bound = (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes")
+            t = turns(ways["strided"], plain, ways["library"])
+            c1, c2, n1, n2 = (time_ms(ways["contiguous"]), time_ms(ways["copy"]),
+                              time_ms(ways["copy"]), time_ms(ways["contiguous"]))
+            print(f"[probe] {smi} | rowpair 1080p exit ({a.shape[0]}x{a.shape[1]}x{lanes} "
+                  f"{dtype}, both parities): strided {t['k'][0]:.3f}/{t['k'][1]:.3f} ms, "
+                  f"contiguous {c1:.3f}/{n2:.3f} ms, copy route {c2:.3f}/{n1:.3f} ms, plain "
+                  f"{t['p'][0]:.3f}/{t['p'][1]:.3f} ms, torch.matmul bf16 {t['l'][0]:.3f}/"
+                  f"{t['l'][1]:.3f} ms, bound {bound[0]:.4f} ms ({bound[1]})")
+            if (lanes, dtype) == (128, "bf16"):
+                row = {"err": max(errs), "ms": t["ms"], "plain_ms": t["plain_ms"],
+                       "library_ms": t["library_ms"], "bound_ms": bound[0],
+                       "bound_by": bound[1]}
+            del ways, plain, a, w
+    row["err"] = max(errs)
+    return row
 
 
 def border_mask(h: int, w: int, s: int) -> np.ndarray:

@@ -126,6 +126,11 @@ def load_library() -> ctypes.CDLL:
     lib.winograd_input_transform.restype = i
     lib.parity_copy.argtypes = [p, p, i] + [ctypes.c_longlong] * 15 + [ctypes.c_float, p]
     lib.parity_copy.restype = i
+    lib.wino5_forward.argtypes = [p] * 3 + [i] * 6 + [p]
+    lib.wino5_forward.restype = i
+    ll = ctypes.c_longlong
+    lib.rowpair_gemm.argtypes = [p, p, p, i, i, ll, i, ll, p]
+    lib.rowpair_gemm.restype = i
     lib.cnn_sr_error_string.argtypes = [i]
     lib.cnn_sr_error_string.restype = ctypes.c_char_p
     return lib

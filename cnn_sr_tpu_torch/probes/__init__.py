@@ -9,9 +9,17 @@ runs on. Here the same question is asked of the H100:
 * ``winograd`` (``tools/winograd_probe.py``): Winograd F(2x2,3x3) against
   the direct ("sep") form of a 3x3 ReLU layer at the RGB model's k=64/128
   widths, through the ``csrc/winograd.cu`` kernel and the shipped
-  ``conv_layer_forward_bf16``.
+  ``conv_layer_forward_bf16``;
+* ``wino5`` (``tools/wino5_probe.py``): denser forms of the flagship's
+  conv2 (f=5, 64→32) in the half-resolution quad domain, the dense quad
+  dot in three tap groupings and a 1-D F(2,5) row Winograd, against the
+  direct form, through the ``csrc/wino5.cu`` kernel and the shipped
+  ``conv_layer_forward_bf16`` at f=5;
+* ``rowpair`` (``tools/rowpair_probe.py``): a GEMM whose operand is read
+  through a stride-2 leading dimension, the row-pair form of the parity
+  exit, through the ``csrc/rowpair.cu`` kernel.
 
-``layout`` holds the parity layouts both use. Run a probe with
+``layout`` holds the parity layouts they use. Run a probe with
 ``python -m cnn_sr_tpu_torch.probes.<name>`` (``--device cpu`` for its
 plain version).
 """

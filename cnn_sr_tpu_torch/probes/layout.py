@@ -8,12 +8,15 @@ read (``tools/winograd_probe.py:15-21``):
   ``(2, ⌈R/2⌉, CWP, 2k)``, ``a[rp, i, j, cp·k + c] = act[2i+rp, 2j+cp, c]``;
   cells whose source lies past the image (odd R or C) and columns from
   ⌈C/2⌉ up to ``CWP`` are zero;
+* ``pack_quad(act)``: ``(R, C, k)`` to the quad image ``(⌈R/2⌉, CWP, 4k)``,
+  ``a[i, j, (2rp+cp)·k + c] = act[2i+rp, 2j+cp, c]``, the f=5 probe's
+  layout (``tools/wino5_probe.py:240-244, 270-274``), zeros as above;
 * ``split_quadrants(y)``: ``(R, C, n)`` to ``(2, 2, R/2, C/2, n)``,
   ``q[p, q', i, j] = y[2i+p, 2j+q']``; ``merge_quadrants`` is its inverse.
 
-All three are exact copies. On the card they are ``parity_copy`` launches
+All four are exact copies. On the card they are ``parity_copy`` launches
 (``csrc/parity_copy.cu``): one for the split and the merge, one per parity
-quadrant for the pack, which zeroes only the cells no source reaches.
+quadrant for either pack, which zeroes only the cells no source reaches.
 ``parity_copy(dst, src, add)`` is that kernel's wrapper:
 ``dst = src + add`` elementwise over two strided views of up to five
 dimensions. On CPU tensors every function here runs its plain version
@@ -102,48 +105,73 @@ def _check_act(x: torch.Tensor, name: str, dims: int = 3) -> None:
                          f"contiguous={x.is_contiguous()}")
 
 
-def _pack_shape(act: torch.Tensor, cwp):
+def _pack_shape(act: torch.Tensor, cwp, name: str):
     r, c, k = act.shape
     half_c = (c + 1) // 2
     cwp = half_c if cwp is None else cwp
     if cwp < half_c:
-        raise ValueError(f"pack_rows_cols: cwp {cwp} < ⌈C/2⌉ = {half_c}")
+        raise ValueError(f"{name}: cwp {cwp} < ⌈C/2⌉ = {half_c}")
     return (r + 1) // 2, cwp, k
 
 
-def _quadrant_views(act: torch.Tensor, out: torch.Tensor):
-    """(dst, src) per parity quadrant (rp, cp): ``dst`` the (RH, CWP, k)
-    plane of ``out`` viewed as (2, RH, CWP, 2, k), ``src`` the strided view
-    of ``act`` that fills its top-left corner."""
-    for rp in range(2):
-        for cp in range(2):
-            yield out[rp, :, :, cp], act[rp::2, cp::2]
+def _packed(act: torch.Tensor, cwp, quad: bool, alloc):
+    """A pack's buffer from ``alloc`` and, per parity quadrant (rp, cp),
+    (dst, src): ``dst`` its (RH, CWP, k) plane, ``src`` the strided view
+    of ``act`` that fills the plane's top-left corner. The buffer is
+    (RH, CWP, 2, 2, k) for the quad image, else (2, RH, CWP, 2, k)."""
+    name = "pack_quad" if quad else "pack_rows_cols"
+    _check_act(act, name)
+    rh, cwp, k = _pack_shape(act, cwp, name)
+    out = alloc((rh, cwp, 2, 2, k) if quad else (2, rh, cwp, 2, k), dtype=act.dtype,
+                device=act.device)
+    views = [(out[:, :, rp, cp] if quad else out[rp, :, :, cp], act[rp::2, cp::2])
+             for rp in range(2) for cp in range(2)]
+    return out, views
+
+
+def _pack_plain(act: torch.Tensor, cwp, quad: bool) -> torch.Tensor:
+    out, views = _packed(act, cwp, quad, torch.zeros)
+    for dst, src in views:
+        dst[:src.shape[0], :src.shape[1]].copy_(src)
+    return out
+
+
+def _pack(act: torch.Tensor, cwp, quad: bool) -> torch.Tensor:
+    if act.device.type == "cpu":
+        return _pack_plain(act, cwp, quad)
+    out, views = _packed(act, cwp, quad, torch.empty)
+    for dst, src in views:
+        sr, sc = src.shape[:2]
+        parity_copy(dst[:sr, :sc], src)
+        dst[sr:].zero_()        # the last row of an odd R
+        dst[:sr, sc:].zero_()   # an odd C's last column and the padded columns
+    return out
 
 
 def pack_rows_cols_plain(act: torch.Tensor, cwp: int | None = None) -> torch.Tensor:
     """``pack_rows_cols`` by four strided slices in PyTorch."""
-    _check_act(act, "pack_rows_cols")
-    rh, cwp, k = _pack_shape(act, cwp)
-    out = torch.zeros((2, rh, cwp, 2, k), dtype=act.dtype, device=act.device)
-    for dst, src in _quadrant_views(act, out):
-        dst[:src.shape[0], :src.shape[1]].copy_(src)
-    return out.view(2, rh, cwp, 2 * k)
+    out = _pack_plain(act, cwp, quad=False)
+    return out.view(*out.shape[:3], -1)
 
 
 def pack_rows_cols(act: torch.Tensor, cwp: int | None = None) -> torch.Tensor:
     """``(R, C, k)`` → ``(2, ⌈R/2⌉, cwp, 2k)`` (``cwp`` ≥ ⌈C/2⌉, default
     ⌈C/2⌉), the Winograd probe's parity input; see the module's docstring."""
-    _check_act(act, "pack_rows_cols")
-    if act.device.type == "cpu":
-        return pack_rows_cols_plain(act, cwp)
-    rh, cwp, k = _pack_shape(act, cwp)
-    out = torch.empty((2, rh, cwp, 2, k), dtype=act.dtype, device=act.device)
-    for dst, src in _quadrant_views(act, out):
-        sr, sc = src.shape[:2]
-        parity_copy(dst[:sr, :sc], src)
-        dst[sr:].zero_()        # the last row of an odd R
-        dst[:sr, sc:].zero_()   # an odd C's last column and the padded columns
-    return out.view(2, rh, cwp, 2 * k)
+    out = _pack(act, cwp, quad=False)
+    return out.view(*out.shape[:3], -1)
+
+
+def pack_quad_plain(act: torch.Tensor, cwp: int | None = None) -> torch.Tensor:
+    """``pack_quad`` by four strided slices in PyTorch."""
+    out = _pack_plain(act, cwp, quad=True)
+    return out.view(*out.shape[:2], -1)
+
+
+def pack_quad(act: torch.Tensor, cwp: int | None = None) -> torch.Tensor:
+    """``(R, C, k)`` → ``(⌈R/2⌉, cwp, 4k)`` (``cwp`` ≥ ⌈C/2⌉, default
+    ⌈C/2⌉), the f=5 probe's quad image; see the module's docstring."""
+    out = _pack(act, cwp, quad=True)
+    return out.view(*out.shape[:2], -1)
 
 
 def _quadrants_of(y: torch.Tensor) -> torch.Tensor:

@@ -7,7 +7,8 @@ direct ("sep") form at the RGB model's big layers, 64→128, 128→128 and
 output:
 
 * ``sep``: the shipped direct kernel, ``conv_layer_forward_bf16``
-  (``csrc/conv_layer.cu`` through ``chain.layer_forward``), NHWC out;
+  (``csrc/conv_layer.cu`` through ``chain.layer_forward``), NHWC out; it
+  takes any odd f (``probes/wino5.py`` runs it at f=5);
 * ``wino`` / ``winoF``: ``winograd_f2x3`` in mode "direct" / "factored"
   (``csrc/winograd.cu``) on the parity input ``layout.pack_rows_cols``,
   with the input transform in the kernel, parity output (2, 2, TR, TC, n);
@@ -272,16 +273,19 @@ def winograd_f2x3(x: torch.Tensor, u: torch.Tensor, out_hw,
     return y
 
 
-def _check_sep(act: torch.Tensor, g: torch.Tensor):
+def _check_sep(act: torch.Tensor, g: torch.Tensor) -> int:
+    """Check ``sep``'s operands; returns the window f (odd, from ``g``)."""
     if act.dim() != 3 or act.dtype != torch.bfloat16 or not act.is_contiguous():
         raise ValueError(f"sep takes a contiguous bf16 (R, C, k), got {tuple(act.shape)} "
                          f"{act.dtype}")
-    if (tuple(g.shape[:3]) != (3, 3, act.shape[2]) or g.dim() != 4 or g.dtype != torch.bfloat16
+    f = g.shape[0] if g.dim() == 4 else 0
+    if (f % 2 == 0 or tuple(g.shape[1:3]) != (f, act.shape[2]) or g.dtype != torch.bfloat16
             or not g.is_contiguous() or g.device != act.device):
-        raise ValueError(f"sep takes bf16 weights (3, 3, {act.shape[2]}, n) on {act.device}, "
-                         f"got {tuple(g.shape)} {g.dtype} {g.device}")
-    if act.shape[0] < 3 or act.shape[1] < 3:
-        raise ValueError(f"the input {tuple(act.shape)} is smaller than the 3x3 window")
+        raise ValueError(f"sep takes bf16 weights (f, f, {act.shape[2]}, n), f odd, on "
+                         f"{act.device}, got {tuple(g.shape)} {g.dtype} {g.device}")
+    if act.shape[0] < f or act.shape[1] < f:
+        raise ValueError(f"the input {tuple(act.shape)} is smaller than the {f}x{f} window")
+    return f
 
 
 def sep_plain(act: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
@@ -296,21 +300,21 @@ def sep_plain(act: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
 
 
 def sep(act: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
-    """The direct form: ``act`` (R, C, k) bf16 through the 3x3 bf16 weights
-    ``g`` (3, 3, k, n) with a zero bias and ReLU into (R−2, C−2, n) bf16.
-    On CUDA tensors one launch of the shipped ``conv_layer_forward_bf16``
-    as a middle layer of the stream (counted in ``chain.LAUNCHES_BF16``);
-    on CPU tensors its plain version."""
-    _check_sep(act, g)
+    """The direct form: ``act`` (R, C, k) bf16 through the f×f bf16 weights
+    ``g`` (f, f, k, n), f odd, with a zero bias and ReLU into (R−f+1,
+    C−f+1, n) bf16. On CUDA tensors one launch of the shipped
+    ``conv_layer_forward_bf16`` as a middle layer of the stream (counted in
+    ``chain.LAUNCHES_BF16``); on CPU tensors its plain version."""
+    f = _check_sep(act, g)
     if act.device.type == "cpu":
         return sep_plain(act, g)
     from ..ops.fused.build import load_library
 
     r, c, k = act.shape
     n = g.shape[3]
-    dst = torch.empty((1, r - 2, c - 2, n), dtype=torch.bfloat16, device=act.device)
+    dst = torch.empty((1, r - f + 1, c - f + 1, n), dtype=torch.bfloat16, device=act.device)
     bias = torch.zeros(n, dtype=torch.float32, device=act.device)
-    plan = entry.layer_plan(3, k, n, entry.ELEM_BYTES["bf16"])
+    plan = entry.layer_plan(f, k, n, entry.ELEM_BYTES["bf16"])
     with torch.cuda.device(act.device):
         stream = torch.cuda.current_stream().cuda_stream
         chain.layer_forward(load_library(), act[None], g, bias, dst, plan, first=False,
@@ -330,14 +334,15 @@ def repack(act: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
 
 
 def direct_conv_f64(act: np.ndarray, g: np.ndarray) -> np.ndarray:
-    """The oracle: VALID 3x3 cross-correlation of ``act`` (R, C, k) with
-    ``g`` (3, 3, k, n) in float64, ReLU."""
+    """The oracle: VALID f×f cross-correlation of ``act`` (R, C, k) with
+    ``g`` (f, f, k, n) in float64, ReLU."""
     r, c, _ = act.shape
+    f = g.shape[0]
     a64 = act.astype(np.float64)
-    ref = np.zeros((r - 2, c - 2, g.shape[3]))
-    for dy in range(3):
-        for dx in range(3):
-            ref += a64[dy:dy + r - 2, dx:dx + c - 2] @ g[dy, dx].astype(np.float64)
+    ref = np.zeros((r - f + 1, c - f + 1, g.shape[3]))
+    for dy in range(f):
+        for dx in range(f):
+            ref += a64[dy:dy + r - f + 1, dx:dx + c - f + 1] @ g[dy, dx].astype(np.float64)
     return np.maximum(ref, 0.0)
 
 

@@ -22,6 +22,7 @@ from cnn_sr_tpu_torch.utils.params_io import init_params, params_to_torch, rando
 
 from test_determinism_and_golden import CFG as GOLDEN_CFG
 from test_determinism_and_golden import GOLDEN_DIR, _fixture
+from test_torch_bf16 import LUMA_CFG, RGB_CFG
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NARROW = {
@@ -200,6 +201,7 @@ def test_port_imports_neither_jax_nor_pil():
         import cnn_sr_tpu_torch, cnn_sr_tpu_torch.api, cnn_sr_tpu_torch.cli
         import cnn_sr_tpu_torch.serve, cnn_sr_tpu_torch.ops.resize
         import cnn_sr_tpu_torch.probes.strided_store, cnn_sr_tpu_torch.probes.winograd
+        import cnn_sr_tpu_torch.probes.wino5, cnn_sr_tpu_torch.probes.rowpair
         from cnn_sr_tpu_torch.utils.config import read_config
         from cnn_sr_tpu_torch.utils.params_io import init_params, params_to_torch
         cfg = read_config("configs/srcnn_9-1-5.json")
@@ -215,9 +217,11 @@ def test_port_imports_neither_jax_nor_pil():
                                                                   "params": params}})
         assert worker.snapshot()["models"] == ["default"]
         assert cnn_sr_tpu_torch.probes.strided_store.main(["--device", "cpu"]) == 0
+        assert cnn_sr_tpu_torch.probes.rowpair.main(["--device", "cpu"]) == 0
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "PIL", "cnn_sr_tpu", "tools",
-                                            "winograd_probe", "strided_store_probe"))
+                                            "winograd_probe", "strided_store_probe",
+                                            "wino5_probe", "rowpair_probe"))
         assert not bad, bad
     """)
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
@@ -326,3 +330,39 @@ def test_cli_precision_bucket_scale_writes_what_the_api_returns(tmp_path):
     got = np.asarray(Image.open(out).convert("RGB"))
     assert got.shape == (40, 46, 3)
     np.testing.assert_array_equal(got, want)
+
+
+# the configs of test_torch_bf16.py: the 8-channel 9-5-5 with the plain and
+# the squared mean, and the narrow 7-layer RGB
+BF16_CFGS = {"luma": LUMA_CFG, "luma_squared_mean": {**LUMA_CFG, "subtract_squared_mean": True},
+             "rgb": {**RGB_CFG, "zero_mean_target": True}}
+
+
+@pytest.mark.parametrize("name", list(BF16_CFGS))
+def test_bf16_bucketed_matches_jax_use_pallas(name):
+    """The port's bf16 bucketed path against JAX's ``use_pallas=True``
+    bucketed path (its bf16 stream in interpret mode): ±1 uint8."""
+    raw = BF16_CFGS[name]
+    jcfg = jparse_config(raw)
+    params = random_parameters(jcfg.layer_specs(), jcfg.distributions, seed=2)
+    rgba = np.random.default_rng(3).integers(0, 256, (41, 70, 4), dtype=np.uint8)
+    got = api.upscale_image(parse_config(raw), params_to_torch(params, "cpu"), rgba, bucket=32,
+                            precision="bf16")
+    want = japi.upscale_image(jcfg, params, rgba, use_pallas=True, bucket=32)
+    assert got.shape == want.shape == (41, 70, 3)
+    assert _max_diff(got, want) <= 1
+
+
+@pytest.mark.parametrize("name", list(BF16_CFGS))
+def test_bf16_batch_matches_jax_use_pallas(name):
+    """The port's bf16 ``upscale_batch`` against JAX's ``use_pallas=True``
+    ``upscale_batch``: ±1 uint8."""
+    raw = BF16_CFGS[name]
+    jcfg = jparse_config(raw)
+    params = random_parameters(jcfg.layer_specs(), jcfg.distributions, seed=2)
+    rgbas = np.random.default_rng(4).integers(0, 256, (2, 40, 52, 4), dtype=np.uint8)
+    got = api.upscale_batch(parse_config(raw), params_to_torch(params, "cpu"), rgbas,
+                            precision="bf16")
+    want = japi.upscale_batch(jcfg, params, rgbas, use_pallas=True)
+    assert got.shape == want.shape == (2, 40, 52, 3)
+    assert _max_diff(got, want) <= 1
