@@ -6,14 +6,14 @@
 Builds the CUDA kernels from ``cnn_sr_tpu_torch/csrc`` (``fused_srcnn.cu``,
 the 3-layer luma stack in one launch, and ``conv_layer.cu``, the layer
 chain, one launch per layer, each in f32 and in the bf16 stream; and the
-probes' ``winograd.cu``, ``parity_copy.cu``, ``wino5.cu`` and
-``rowpair.cu``), holds each against its
+probes' ``winograd.cu``, ``parity_copy.cu``, ``wino5.cu``,
+``rowpair.cu`` and ``xpack.cu``, the last on the tensor cores), holds each against its
 plain PyTorch version on the card, then drives the port's main paths:
 three 1920x1080 requests of the in-repo flagship SRCNN 9-5-5 checkpoint
 and three of the in-repo 7-layer RGB checkpoint through
 ``api.upscale_image`` in f32, one round of the HTTP server's
 ``DeviceWorker`` serving both checkpoints in bf16, and the entry points
-of the four probes (``cnn_sr_tpu_torch.probes``). Phases, one line each:
+of the six probes (``cnn_sr_tpu_torch.probes``). Phases, one line each:
 
 1. device: card name and power limit, torch and CUDA versions;
 2. build: each source's ptxas report;
@@ -57,9 +57,11 @@ of the four probes (``cnn_sr_tpu_torch.probes``). Phases, one line each:
 8. probe main path: ``strided_store.main``, ``winograd.main(["--check"])``
    (every Winograd mode and ``repack`` within 1e-2 of a float64 direct
    conv), ``wino5.main(["--check"])`` (every mode within 2e-2 of a float64
-   direct 5x5 conv) and ``rowpair.main([])`` (the probe's four cases within
-   2e-2), with the probe kernels' counts set to 0 just before and read
-   just after; then the kernels against their plain versions: the strided
+   direct 5x5 conv), ``rowpair.main([])`` (the probe's four cases within
+   2e-2) and ``xpack.main(["--check"])``, ``xpack2.main(["--check"])``
+   (14 variants at a 1080p layer's steps within one bf16 ulp of their plain
+   versions, ≥ 99.9% bit-equal), with the probe kernels' counts set to 0
+   just before and read just after; then the kernels against their plain versions: the strided
    roundtrip and the parity layouts bit-equal, the input transform
    bit-equal, ``winograd_f2x3`` in its three modes (three pairs, 24x256
    outputs, and again at 1080p) and ``repack`` within 2^-7 of the
@@ -78,9 +80,13 @@ of the four probes (``cnn_sr_tpu_torch.probes``). Phases, one line each:
    turns before and after them and as a CUDA graph's replays; ``rowpair_gemm`` within 1e-5 relative of its plain version in
    the probe's four cases and at the 1080p exit (534x954xL, L = 128 and
    64, bf16 and f32), timed as the strided read, the contiguous read, the
-   copy route and ``torch.matmul`` bf16 beside its bound.
+   copy route and ``torch.matmul`` bf16 beside its bound; ``tap_gemm``
+   in the 14 xpack variants at one step and a ragged case, then timed at a
+   1080p layer's steps, eagerly and as CUDA graph replays, beside its
+   plain version, cuDNN bf16 conv + ReLU of RGB L2/L3/L4 and
+   ``xpack_bound``, with packed / sep per pair.
 
-Then one JSON line of the eight kernels, the ``nvidia-smi`` line, and as
+Then one JSON line of the ten kernels, the ``nvidia-smi`` line, and as
 the last line ``{"ok": true, "device": {...}}``. Any failed check raises,
 so the script exits nonzero and prints no result; so does a machine
 without CUDA.
@@ -89,6 +95,7 @@ without CUDA.
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -397,27 +404,36 @@ def winograd_bound(x, u, out_hw, mode) -> tuple:
 
 
 def probe_phase(smi) -> list:
-    """[probe]: the ports of ``tools/winograd_probe.py`` and
-    ``tools/strided_store_probe.py``. Their entry points (the probes' main
-    path: the strided roundtrip and ``--check``) with the counts set to 0
-    just before; each kernel against its plain version at the probe's
-    shapes and, for ``winograd.layer_variants``, at the RGB model's 1080p
-    L5/L6 shapes, where each is timed beside cuDNN bf16 or
-    ``.contiguous()`` and its bound. Returns the two kernel rows."""
-    from cnn_sr_tpu_torch.probes import layout, rowpair, strided_store, wino5, winograd
+    """[probe]: the ports of the six ``tools/*_probe*.py``. Their entry
+    points (the probes' main path: the strided roundtrip, ``--check`` and
+    the rowpair cases) with the counts set to 0 just before; each kernel
+    against its plain version at the probe's shapes and, for
+    ``winograd.layer_variants``, at the RGB model's 1080p L5/L6 shapes,
+    where each is timed beside cuDNN bf16 or ``.contiguous()`` and its
+    bound; then ``wino5_phase``, ``rowpair_phase`` and ``xpack_phase``.
+    Returns the six kernel rows."""
+    from cnn_sr_tpu_torch.probes import (layout, rowpair, strided_store, wino5, winograd, xpack,
+                                         xpack2)
 
     t_phase = time.perf_counter()
     layout.LAUNCHES = winograd.LAUNCHES = wino5.LAUNCHES = rowpair.LAUNCHES = 0
+    xpack.LAUNCHES = 0
     check(strided_store.main(["--device", "cuda"]) == 0, "strided_store probe")
     check(winograd.main(["--check"]) == 0, "winograd probe --check")
     check(wino5.main(["--check"]) == 0, "wino5 probe --check")
     check(rowpair.main([]) == 0, "rowpair probe")
+    check(xpack.main(["--check"]) == 0, "xpack probe --check")
+    torch.cuda.synchronize()
+    xpack_launches = xpack.LAUNCHES
+    check(xpack2.main(["--check"]) == 0, "xpack2 probe --check")
     torch.cuda.synchronize()
     launches = {"winograd": winograd.LAUNCHES, "parity_copy": layout.LAUNCHES,
-                "wino5": wino5.LAUNCHES, "rowpair": rowpair.LAUNCHES}
+                "wino5": wino5.LAUNCHES, "rowpair": rowpair.LAUNCHES, "xpack": xpack_launches,
+                "xpack2": xpack.LAUNCHES - xpack_launches}
     print(f"[probe] probes' main path launches: winograd_f2x3 {launches['winograd']}, "
           f"parity_copy {launches['parity_copy']}, wino5 {launches['wino5']}, "
-          f"rowpair_gemm {launches['rowpair']}")
+          f"rowpair_gemm {launches['rowpair']}, tap_gemm {launches['xpack']} (xpack) + "
+          f"{launches['xpack2']} (xpack2)")
     dev = torch.device("cuda")
 
     # kernel vs plain at the probes' own shapes
@@ -506,6 +522,7 @@ def probe_phase(smi) -> list:
         del variants, inp
     w5_row = wino5_phase(smi, dev)
     rp_row = rowpair_phase(smi, dev)
+    xp_rows = xpack_phase(smi, dev)
     print(f"[probe] phase {time.perf_counter() - t_phase:.1f} s")
 
     l6 = rows[(128, 128)]
@@ -520,6 +537,12 @@ def probe_phase(smi) -> list:
          "replaces": "tools/wino5_probe.py:253", "launches": launches["wino5"], **w5_row},
         {"name": "rowpair_gemm", "source": "cnn_sr_tpu_torch/csrc/rowpair.cu",
          "replaces": "tools/rowpair_probe.py:46", "launches": launches["rowpair"], **rp_row},
+        {"name": "xpack", "source": "cnn_sr_tpu_torch/csrc/xpack.cu",
+         "replaces": "tools/xpack_probe.py:114", "launches": launches["xpack"],
+         **xp_rows["xpack"]},
+        {"name": "xpack2", "source": "cnn_sr_tpu_torch/csrc/xpack.cu",
+         "replaces": "tools/xpack_probe2.py:172", "launches": launches["xpack2"],
+         **xp_rows["xpack2"]},
     ]
 
 
@@ -691,6 +714,99 @@ def rowpair_phase(smi, dev) -> dict:
             del ways, plain, a, w
     row["err"] = max(errs)
     return row
+
+
+def xpack_bound(variant, steps: int) -> tuple:
+    """The least time of ``tap_gemm`` of an xpack ``variant`` at ``steps`` on
+    this card: the larger of its multiply-adds (two operations each) over
+    the bf16 peak and its bytes over the memory rate: the bf16 operand and
+    weights read once, the bf16 output of every step written once."""
+    moved = 2 * (math.prod(variant.a_shape) + sum(math.prod(s) for s in variant.w_shapes)
+                 + steps * math.prod(variant.out_shape))
+    t_ops = 2 * variant.taps.mac * steps / PEAK_FLOPS["bf16"] * 1e3
+    t_bytes = moved / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def xpack_phase(smi, dev) -> dict:
+    """``tap_gemm`` (``csrc/xpack.cu``) against its plain version in the 14
+    variants of the two xpack probes at one step and in the ragged case
+    (``xpack.ragged``, 3 steps) at every N, one launch each; then each
+    variant at a 1080p layer's steps (338 or 85), timed in turns beside
+    its plain version and the cuDNN bf16 conv + ReLU (channels-last) of
+    the RGB layer its pair stands for (L2 32→32, L3 32→64, L4 64→64), and
+    as a CUDA graph's replays (its device work: a launch is 40–300 µs, near
+    the host's cost of one); printed with µs a step, ms per 1080p layer,
+    packed / sep and the bound. Returns each probe's kernel row: its 64→64
+    packed variant, graph ms."""
+    from cnn_sr_tpu_torch.probes import xpack, xpack2
+
+    probes = {"xpack": xpack, "xpack2": xpack2}
+    errs, ops = {name: [] for name in probes}, {}
+    cases = []
+    for name, mod in probes.items():
+        inputs = mod.probe_inputs()
+        for v in mod.VARIANTS:
+            ops[v.name] = xpack.operands(v, *inputs[v.name], dev)
+            cases.append((name, v.name, *ops[v.name], v.taps, 1))
+    cases += [("xpack", f"ragged N={n}", *xpack.ragged(n, dev, SEED), 3) for n in xpack.WIDTHS]
+    for name, what, a, w, taps, steps in cases:
+        before = xpack.LAUNCHES
+        y = xpack.tap_gemm(a, w, taps, steps)
+        ref = xpack.tap_gemm_plain(a, w, taps, steps)
+        torch.cuda.synchronize()
+        check(xpack.LAUNCHES == before + 1, f"tap_gemm {what}: {xpack.LAUNCHES - before} launches")
+        err, equal, ok = xpack.agree(y, ref)
+        check(ok, f"tap_gemm {what}: kernel vs plain max {err}, bit-equal {equal}")
+        errs[name].append(err)
+    print(f"[probe] tap_gemm kernel vs plain, 14 variants at one step and the ragged case at N = "
+          f"32/64/128 (3 steps): max |kernel - plain| {max(max(e) for e in errs.values()):.3e}, "
+          f"within one bf16 ulp, >= 99.9% bit-equal")
+
+    cudnn = {}
+    for (k, n), (layer, (oh, ow)) in xpack.LAYERS.items():
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        act = (torch.rand((1, oh + 2, ow + 2, k), generator=gen, device=dev) - 0.5).to(
+            torch.bfloat16)
+        g = (torch.rand((3, 3, k, n), generator=gen, device=dev) - 0.5) * (12.0 / (9 * k)) ** 0.5
+        lib_w = library_weights([{"w": g, "b": torch.zeros(n, device=dev)}], "bf16")
+        cudnn[(k, n)] = lambda lib_w=lib_w, act=act: library_convs(lib_w, act).relu_()
+    rows = {}
+    for name, mod in probes.items():
+        steps = xpack.steps_1080p(mod.VARIANTS)
+        t = {}
+        for v in mod.VARIANTS:
+            a, w = ops[v.name]
+            kern = lambda: xpack.tap_gemm(a, w, v.taps, steps)  # noqa: E731
+            plain = lambda: xpack.tap_gemm_plain(a, w, v.taps, steps)  # noqa: E731
+            t[v.name] = turns(kern, plain, cudnn[v.pair])
+            g1, g2 = graph_ms(kern), graph_ms(kern)
+            bound, bound_by = xpack_bound(v, steps)
+            layer, (oh, ow) = xpack.LAYERS[v.pair]
+            per_layer = oh * ow / (v.positions * steps)
+            t[v.name].update(g=(g1, g2), graph_ms=(g1 + g2) / 2, bound_ms=bound, bound_by=bound_by,
+                             us_step=(g1 + g2) / 2 * 1e3 / steps)
+            tv = t[v.name]
+            print(f"[probe] {smi} | {name} {v.name} ({v.pair[0]}->{v.pair[1]}, {steps} steps, "
+                  f"{v.taps.mac * steps / 1e9:.1f} G MAC): kernel {g1:.4f}/{g2:.4f} ms as graph "
+                  f"replays ({tv['us_step']:.3f} us/step, {tv['graph_ms'] * per_layer:.4f} ms per "
+                  f"1080p {layer}), {tv['k'][0]:.4f}/{tv['k'][1]:.4f} ms eager, plain "
+                  f"{tv['p'][0]:.3f}/{tv['p'][1]:.3f} ms, cuDNN bf16 {layer} conv + ReLU "
+                  f"{tv['l'][0]:.4f}/{tv['l'][1]:.4f} ms, bound {bound:.4f} ms ({bound_by})")
+        sep = None
+        for v in mod.VARIANTS:
+            if v.sep:
+                sep = v.name
+                continue
+            print(f"[probe] {smi} | {name} {v.pair[0]}->{v.pair[1]}: {v.name} / {sep} "
+                  f"{t[v.name]['graph_ms'] / t[sep]['graph_ms']:.3f}x as graph replays, "
+                  f"{t[v.name]['ms'] / t[sep]['ms']:.3f}x eager; bound "
+                  f"{t[v.name]['bound_ms'] / t[sep]['bound_ms']:.3f}x")
+        l4 = t[mod.VARIANTS[-1].name]
+        rows[name] = {"err": max(errs[name]), "ms": l4["graph_ms"], "plain_ms": l4["plain_ms"],
+                      "library_ms": l4["library_ms"], "bound_ms": l4["bound_ms"],
+                      "bound_by": l4["bound_by"]}
+    return rows
 
 
 def border_mask(h: int, w: int, s: int) -> np.ndarray:

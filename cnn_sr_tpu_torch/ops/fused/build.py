@@ -131,6 +131,8 @@ def load_library() -> ctypes.CDLL:
     ll = ctypes.c_longlong
     lib.rowpair_gemm.argtypes = [p, p, p, i, i, ll, i, ll, p]
     lib.rowpair_gemm.restype = i
+    lib.tap_gemm_bf16.argtypes = [p] * 3 + [i] * 8 + [ctypes.POINTER(i), i, i, p]
+    lib.tap_gemm_bf16.restype = i
     lib.cnn_sr_error_string.argtypes = [i]
     lib.cnn_sr_error_string.restype = ctypes.c_char_p
     return lib

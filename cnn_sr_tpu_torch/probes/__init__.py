@@ -18,6 +18,11 @@ runs on. Here the same question is asked of the H100:
 * ``rowpair`` (``tools/rowpair_probe.py``): a GEMM whose operand is read
   through a stride-2 leading dimension, the row-pair form of the parity
   exit, through the ``csrc/rowpair.cu`` kernel.
+* ``xpack`` and ``xpack2`` (``tools/xpack_probe.py``,
+  ``tools/xpack_probe2.py``): the separated dots of the RGB model's 32→32,
+  32→64 and 64→64 layers against dots that pack positions or rows into
+  128 lanes, as tap lists of one bf16 GEMM on the tensor cores
+  (``mma.sync``), the ``csrc/xpack.cu`` kernel (``xpack.tap_gemm``).
 
 ``layout`` holds the parity layouts they use. Run a probe with
 ``python -m cnn_sr_tpu_torch.probes.<name>`` (``--device cpu`` for its

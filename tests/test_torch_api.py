@@ -202,6 +202,7 @@ def test_port_imports_neither_jax_nor_pil():
         import cnn_sr_tpu_torch.serve, cnn_sr_tpu_torch.ops.resize
         import cnn_sr_tpu_torch.probes.strided_store, cnn_sr_tpu_torch.probes.winograd
         import cnn_sr_tpu_torch.probes.wino5, cnn_sr_tpu_torch.probes.rowpair
+        import cnn_sr_tpu_torch.probes.xpack, cnn_sr_tpu_torch.probes.xpack2
         from cnn_sr_tpu_torch.utils.config import read_config
         from cnn_sr_tpu_torch.utils.params_io import init_params, params_to_torch
         cfg = read_config("configs/srcnn_9-1-5.json")
@@ -218,10 +219,13 @@ def test_port_imports_neither_jax_nor_pil():
         assert worker.snapshot()["models"] == ["default"]
         assert cnn_sr_tpu_torch.probes.strided_store.main(["--device", "cpu"]) == 0
         assert cnn_sr_tpu_torch.probes.rowpair.main(["--device", "cpu"]) == 0
+        assert cnn_sr_tpu_torch.probes.xpack.main(["--device", "cpu", "--check",
+                                                   "--steps", "1"]) == 0
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "PIL", "cnn_sr_tpu", "tools",
                                             "winograd_probe", "strided_store_probe",
-                                            "wino5_probe", "rowpair_probe"))
+                                            "wino5_probe", "rowpair_probe", "xpack_probe",
+                                            "xpack_probe2"))
         assert not bad, bad
     """)
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,

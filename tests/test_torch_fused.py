@@ -136,7 +136,7 @@ def test_library_hash_covers_headers(monkeypatch, tmp_path):
     rebuild, though only the ``.cu`` files are compiled."""
     assert [p.name for p in build._sources()] == ["conv_layer.cu", "fused_srcnn.cu",
                                                   "parity_copy.cu", "rowpair.cu", "wino5.cu",
-                                                  "winograd.cu"]
+                                                  "winograd.cu", "xpack.cu"]
     assert "conv_stage.cuh" in [p.name for p in build._hashed_files()]
     (tmp_path / "k.cu").write_text('#include "s.cuh"\n')
     (tmp_path / "s.cuh").write_text("// one\n")
