@@ -5,9 +5,10 @@
 
 Builds the CUDA kernels from ``cnn_sr_tpu_torch/csrc`` (``fused_srcnn.cu``,
 the 3-layer luma stack in one launch, and ``conv_layer.cu``, the layer
-chain, one launch per layer, each in f32 and in the bf16 stream; and the
-probes' ``winograd.cu``, ``parity_copy.cu``, ``wino5.cu``,
-``rowpair.cu`` and ``xpack.cu``, the last on the tensor cores), holds each against its
+chain, one launch per layer, each in f32 on the CUDA cores and in the bf16
+stream on the tensor cores (``tc_stage.cuh``, ``mma.sync``); and the
+probes' ``winograd.cu``, ``parity_copy.cu``, ``wino5.cu``, ``rowpair.cu``
+and ``xpack.cu``, the last on the tensor cores), holds each against its
 plain PyTorch version on the card, then drives the port's main paths:
 three 1920x1080 requests of the in-repo flagship SRCNN 9-5-5 checkpoint
 and three of the in-repo 7-layer RGB checkpoint through
@@ -16,7 +17,8 @@ and three of the in-repo 7-layer RGB checkpoint through
 of the six probes (``cnn_sr_tpu_torch.probes``). Phases, one line each:
 
 1. device: card name and power limit, torch and CUDA versions;
-2. build: each source's ptxas report;
+2. build: each source's ptxas report, and the HMMA instructions in the
+   SASS of each bf16 entry point's kernels (``cuobjdump -sass``), > 0;
 3. kernel vs plain, f32: the fused kernel at the flagship (pretrained)
    and 9-1-5 (random, seed 0) stacks; the chain at the RGB (pretrained)
    stack, a ragged batch of two and the wide 9-5-5 (random). Max
@@ -53,7 +55,11 @@ of the six probes (``cnn_sr_tpu_torch.probes``). Phases, one line each:
    f32 and in bf16, its plain version and the library's convolutions (f32
    with TF32 off, or bf16 on channels-last tensors: cuDNN on the tensor
    cores) at the main paths' 1080p shapes, and the chain's time per layer
-   beside the library's, in both precisions;
+   beside the library's, in both precisions (each layer with its own
+   plan: ``entry.layer_plan`` in f32, ``entry.tc_layer_plan`` in bf16);
+   then the flagship in bf16 through the fused kernel beside the same
+   stack through the chain's three tensor-core launches (whether fusion
+   pays), and the 9-1-5 stack in both precisions;
 8. probe main path: ``strided_store.main``, ``winograd.main(["--check"])``
    (every Winograd mode and ``repack`` within 1e-2 of a float64 direct
    conv), ``wino5.main(["--check"])`` (every mode within 2e-2 of a float64
@@ -343,24 +349,26 @@ def time_stack(name, params, x, smi, precision="f32") -> dict:
 
 def layer_times(params, x, smi, precision="f32") -> None:
     """The chain's time per layer in ``precision`` on the stack's own
-    activations (``chain.layer_forward``; in bf16 the first layer
-    quantises the f32 input, the last writes f32, the others read and
-    write bf16), beside the library's convolution of that layer on the
-    same activations (CUDA events)."""
+    activations (``chain.layer_forward`` with the layer's plan:
+    ``entry.layer_plan`` in f32, ``entry.tc_layer_plan`` in bf16, where the
+    first layer quantises the f32 input, the last writes f32 and the others
+    read and write bf16), beside the library's convolution of that layer on
+    the same activations (CUDA events)."""
     bf16 = precision == "bf16"
     lib = build.load_library()
     stream = torch.cuda.current_stream().cuda_stream
-    weights = entry.bf16_weights(params) if bf16 else [l["w"] for l in params]
+    operands = entry.bf16_weights(params) if bf16 else [(l["w"], l["b"]) for l in params]
     parts, src = [], x
     last = len(params) - 1
-    for i, (layer, wt) in enumerate(zip(params, weights)):
+    for i, (layer, (wt, bt)) in enumerate(zip(params, operands)):
         f, _, k, n = layer["w"].shape
-        plan = entry.layer_plan(f, k, n, entry.ELEM_BYTES[precision])
+        plan = (entry.tc_layer_plan(f, k, n, i == 0, i == last) if bf16
+                else entry.layer_plan(f, k, n))
         nb, h, w, _ = src.shape
         dst = torch.empty((nb, h - f + 1, w - f + 1, n), device=src.device,
                           dtype=torch.bfloat16 if bf16 and i != last else torch.float32)
-        k_ms = time_ms(lambda: chain.layer_forward(lib, src, wt, layer["b"], dst, plan,
-                                                   i == 0, i == last, bf16, stream))
+        k_ms = time_ms(lambda: chain.layer_forward(lib, src, wt, bt, dst, plan, i == 0,
+                                                   i == last, bf16, stream))
         lib_layer = library_weights([layer], precision)
         src_lib = src.to(torch.bfloat16) if bf16 else src
         l_ms = time_ms(lambda: library_convs(lib_layer, src_lib))
@@ -369,6 +377,46 @@ def layer_times(params, x, smi, precision="f32") -> None:
         src = dst
     print(f"[layers] {smi} | {precision} chain/library ({precision})/bound ms per layer: "
           + ", ".join(parts))
+
+
+def fused_vs_chain_bf16(params, x, smi) -> None:
+    """The flagship in bf16 through the fused kernel (one launch) beside the
+    same stack through the chain (three tensor-core launches, ``conv1``
+    and ``conv2`` through device memory in bf16), both checked against the
+    plain version, timed in turns: fused, chain, chain, fused. Shows
+    whether fusion still pays on the tensor cores."""
+    last = len(params) - 1
+    plans = [entry.tc_layer_plan(l["w"].shape[0], l["w"].shape[2], l["w"].shape[3], i == 0,
+                                 i == last) for i, l in enumerate(params)]
+    fused = lambda: entry.fused_forward(params, x, "bf16")  # noqa: E731
+    chained = lambda: chain.chain_forward(params, x, plans, bf16=True)  # noqa: E731
+    ref = reference.fused_forward(params, x, "bf16")
+    scale = float(ref.abs().max())
+    errs = [float((fn() - ref).abs().max()) for fn in (fused, chained)]
+    check(max(errs) <= BF16_REL * scale, f"flagship bf16 fused / chain vs plain {errs}")
+    f1, c1, c2, f2 = time_ms(fused), time_ms(chained), time_ms(chained), time_ms(fused)
+    print(f"[time] {smi} | flagship 9-5-5 bf16 {tuple(x.shape)}: fused kernel {f1:.3f}/{f2:.3f} "
+          f"ms, chain of 3 tensor-core launches {c1:.3f}/{c2:.3f} ms, chain / fused "
+          f"{(c1 + c2) / (f1 + f2):.2f}x (max |kernel - plain| {errs[0]:.3e} fused, "
+          f"{errs[1]:.3e} chain)")
+
+
+def sass_hmma() -> dict:
+    """HMMA instructions in the SASS of each bf16 entry point's kernels in
+    the built library (``cuobjdump -sass``, beside ``nvcc``): the proof that
+    they run on the tensor cores."""
+    tool = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", build.library_path()], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    counts = {"fused_srcnn_forward_bf16": 0, "conv_layer_forward_bf16": 0}
+    kernel = {"fused_srcnn_tc_kernel": "fused_srcnn_forward_bf16",
+              "conv_layer_tc_kernel": "conv_layer_forward_bf16"}
+    for part in sass.split("Function : ")[1:]:
+        name = part.split("\n", 1)[0]
+        for key, entry_point in kernel.items():
+            if key in name:
+                counts[entry_point] += part.count("HMMA")
+    return counts
 
 
 def agree_bf16(name, y, ref) -> float:
@@ -954,6 +1002,11 @@ def main() -> int:
                  if "registers" in ln or "spill" in ln or "Compiling" in ln]
         print(f"[build] {src}: {' | '.join(ptxas)}")
     build.load_library()
+    hmma = sass_hmma()
+    print("[build] HMMA instructions in the SASS (cuobjdump -sass): "
+          + ", ".join(f"{k} {v}" for k, v in hmma.items()))
+    for k, v in hmma.items():
+        check(v > 0, f"{k}: no HMMA in its kernels' SASS")
 
     cfg = read_config(FLAGSHIP)
     params = params_to_torch(init_params(cfg)[0], dev)
@@ -1040,6 +1093,10 @@ def main() -> int:
     t_fused_bf16 = time_stack("fused_srcnn, flagship 9-5-5", params, x_luma, smi, "bf16")
     t_chain_bf16 = time_stack("conv_layer chain, RGB 7-layer", params_rgb, x_rgb, smi, "bf16")
     layer_times(params_rgb, x_rgb, smi, "bf16")
+    fused_vs_chain_bf16(params, x_luma, smi)
+    # the 9-1-5 stack (random, seed 0) beside its library time, both precisions
+    for precision in ("f32", "bf16"):
+        time_stack("fused_srcnn, 9-1-5", params915, x_luma, smi, precision)
     probe_rows = probe_phase(smi)
     fused_errs.append(t_fused["err"])
     chain_errs.append(t_chain["err"])

@@ -114,11 +114,11 @@ def load_library() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.fused_srcnn_forward.argtypes = [p] * 8 + [i] * 14 + [p]
     lib.fused_srcnn_forward.restype = i
-    lib.fused_srcnn_forward_bf16.argtypes = [p] * 8 + [i] * 14 + [p]
+    lib.fused_srcnn_forward_bf16.argtypes = [p] * 8 + [i] * 11 + [p]
     lib.fused_srcnn_forward_bf16.restype = i
     lib.conv_layer_forward.argtypes = [p] * 4 + [i] * 11 + [p]
     lib.conv_layer_forward.restype = i
-    lib.conv_layer_forward_bf16.argtypes = [p] * 4 + [i] * 12 + [p]
+    lib.conv_layer_forward_bf16.argtypes = [p] * 4 + [i] * 11 + [p]
     lib.conv_layer_forward_bf16.restype = i
     lib.winograd_f2x3_forward.argtypes = [p] * 3 + [i] * 7 + [p]
     lib.winograd_f2x3_forward.restype = i

@@ -2,12 +2,15 @@
 
 The route ``entry.fused_forward`` takes on the card for every well-formed
 stack outside the fused kernel's envelope (the 7-layer RGB model first).
-``entry`` checks the shapes and plans each layer (``entry.layer_plan``);
-``chain_forward`` allocates two intermediates, ping-pongs the layers
-through them and writes the last layer into a fresh f32 output. In bf16
-the intermediates are bf16, the first layer quantises the f32 input at
-its window load and the last writes f32. Its plain version is
-``reference.fused_forward``, the same as the fused kernel's.
+``entry`` checks the shapes and plans each layer (``entry.layer_plan``
+in f32, ``entry.tc_layer_plan`` in bf16); ``chain_forward`` allocates two
+intermediates, ping-pongs the layers through them and writes the last
+layer into a fresh f32 output. In bf16 (on the tensor cores) the
+intermediates are bf16, the weights packed tap-major
+(``entry.bf16_weights``), the first layer quantises the f32 input at its
+window load and the last writes f32. Its plain version is
+``reference.fused_forward``, the same as the fused kernel's;
+``reference.tap_layer`` is the plain version of one bf16 launch.
 """
 
 from __future__ import annotations
@@ -26,19 +29,20 @@ LAUNCHES_BF16 = 0
 def layer_forward(lib, src: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                   dst: torch.Tensor, plan, first: bool, last: bool, bf16: bool,
                   stream: int) -> None:
-    """Launch one layer of ``src`` (N, H, W, K) into ``dst`` on ``stream``.
-    f32: ReLU unless ``last``. bf16: ``w`` is bf16 (folded when
-    ``first``), ``src`` f32 when ``first`` else bf16, ``dst`` f32 when
-    ``last`` else bf16, ReLU unless ``last``."""
+    """Launch one layer of ``src`` (N, H, W, K) into ``dst`` (N, H', W', n)
+    on ``stream``. f32: ``w`` HWIO, ``plan`` an ``entry.LayerPlan``, ReLU
+    unless ``last``. bf16: ``w`` and ``b`` from ``entry.pack_bf16``,
+    ``plan`` an ``entry.TcPlan``, ``src`` f32 when ``first`` else bf16,
+    ``dst`` f32 when ``last`` else bf16, ReLU unless ``last``."""
     global LAUNCHES, LAUNCHES_BF16
-    n, h, wd, _ = src.shape
-    f, _, k, c = w.shape
-    args = (src.data_ptr(), w.data_ptr(), b.data_ptr(), dst.data_ptr(), n, h, wd, k, f, c)
-    tail = (plan.tile_h, plan.tile_w, plan.chunk, plan.smem, stream)
+    n, h, wd, k = src.shape
+    args = (src.data_ptr(), w.data_ptr(), b.data_ptr(), dst.data_ptr(), n, h, wd, k)
     if bf16:
-        err = lib.conv_layer_forward_bf16(*args, int(first), int(last), *tail)
+        err = lib.conv_layer_forward_bf16(*args, plan.f, dst.shape[3], int(first), int(last),
+                                          plan.kc, plan.tps, plan.smem, stream)
     else:
-        err = lib.conv_layer_forward(*args, int(not last), *tail)
+        err = lib.conv_layer_forward(*args, w.shape[0], dst.shape[3], int(not last),
+                                     plan.tile_h, plan.tile_w, plan.chunk, plan.smem, stream)
     if err:
         raise RuntimeError(f"conv_layer{'_bf16' if bf16 else ''} launch failed: "
                            + lib.cnn_sr_error_string(err).decode())
@@ -50,7 +54,8 @@ def layer_forward(lib, src: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 
 def chain_forward(params, x: torch.Tensor, plans, bf16: bool = False) -> torch.Tensor:
     """Run ``params`` over the CUDA tensor ``x`` (N, H, W, C), layer i
-    with ``plans[i]`` (an ``entry.LayerPlan``), on the current stream, in
+    with ``plans[i]`` (``entry.LayerPlan`` or, in bf16, ``entry.TcPlan``),
+    on the current stream, in
     f32 or, with ``bf16``, as the bf16 stream. The shapes are the caller's
     to check (``entry.fused_forward``)."""
     if not x.is_cuda:
@@ -59,7 +64,7 @@ def chain_forward(params, x: torch.Tensor, plans, bf16: bool = False) -> torch.T
     from .entry import bf16_weights
 
     lib = load_library()
-    weights = bf16_weights(params) if bf16 else [layer["w"] for layer in params]
+    operands = bf16_weights(params) if bf16 else [(l["w"], l["b"]) for l in params]
     n, h, w, _ = x.shape
     shapes = []
     for layer in params:
@@ -76,9 +81,8 @@ def chain_forward(params, x: torch.Tensor, plans, bf16: bool = False) -> torch.T
     src = x
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        for i, (layer, wt, shape, plan) in enumerate(zip(params, weights, shapes, plans)):
+        for i, ((wt, bt), shape, plan) in enumerate(zip(operands, shapes, plans)):
             dst = y if i == last else bufs[i % 2][:math.prod(shape)].view(shape)
-            layer_forward(lib, src, wt, layer["b"], dst, plan, i == 0, i == last, bf16,
-                          stream)
+            layer_forward(lib, src, wt, bt, dst, plan, i == 0, i == last, bf16, stream)
             src = dst
     return y

@@ -10,11 +10,15 @@ by ``route``, a pure function of the shapes:
 * ``csrc/conv_layer.cu`` through ``chain.chain_forward``, one launch per
   layer, for every other well-formed stack (the 7-layer RGB model).
 
-``precision="f32"`` runs them in f32. ``precision="bf16"`` runs the JAX
-package's bf16 stream with the int8 first layer (``reference`` states
-the numbers), on the JAX rule of where that stream applies
+``precision="f32"`` runs them in f32 on the CUDA cores
+(``csrc/conv_stage.cuh``). ``precision="bf16"`` runs the JAX package's
+bf16 stream with the int8 first layer (``reference`` states the numbers)
+on the tensor cores (``csrc/tc_stage.cuh``), with its own plans
+(``tc_layer_plan``, ``tc_fused_plan``) and its weights packed tap-major
+(``pack_bf16``), on the JAX rule of where that stream applies
 (``bf16_envelope``): elsewhere JAX runs its XLA f32 forward, and so this
-takes its f32 route.
+takes its f32 route. A stack may take the fused kernel in f32 and the
+chain in bf16 (the wide 9-5-5: its bf16 tiles do not fit one block).
 
 A stack with a layer whose input window does not fit in shared memory
 raises NotImplementedError on every device, before any launch. A CPU
@@ -44,42 +48,41 @@ ELEM_BYTES = {"f32": 4, "bf16": 2}  # bytes of a stored activation or weight
 _ROADMAP = "ROADMAP.md Queue 2"
 
 
-def tile_bytes(c: int, dims, elem: int = 4) -> int:
-    """Shared bytes of one block's activations: the input window with its
-    halo, the conv1 tile and the conv2 tile, ``elem`` bytes each (4 for
-    f32, 2 for bf16). ``dims`` is ((f, n) per layer)."""
+def tile_bytes(c: int, dims) -> int:
+    """Shared bytes of one f32 block's activations: the input window with
+    its halo, the conv1 tile and the conv2 tile. ``dims`` is ((f, n) per
+    layer)."""
     (f1, n1), (f2, n2), (f3, _) = dims
     a2 = (TILE_H + f3 - 1, TILE_W + f3 - 1)
     a1 = (a2[0] + f2 - 1, a2[1] + f2 - 1)
     win = (a1[0] + f1 - 1, a1[1] + f1 - 1)
-    return elem * (c * win[0] * win[1] + n1 * a1[0] * a1[1] + n2 * a2[0] * a2[1])
+    return 4 * (c * win[0] * win[1] + n1 * a1[0] * a1[1] + n2 * a2[0] * a2[1])
 
 
-def _weight_chunk(used: int, layers, elem: int = 4):
-    """Elements of weights that fit in the shared memory beside ``used``
-    bytes, up to the largest layer's whole set (a multiple of 16 bytes'
-    worth, for 16-byte reads); None when not even one input channel's
-    weights of a layer fit. ``layers`` = ((f, k, n), ...)."""
-    vec = 16 // elem
+def _weight_chunk(used: int, layers):
+    """f32 weights that fit in the shared memory beside ``used`` bytes, up
+    to the largest layer's whole set (a multiple of 4, for 16-byte reads);
+    None when not even one input channel's weights of a layer fit.
+    ``layers`` = ((f, k, n), ...)."""
     need = max(f * f * n for f, _, n in layers)  # one input channel
     full = max(f * f * k * n for f, k, n in layers)
-    chunk = min((SMEM_LIMIT - used) // 16 * vec, -(-full // vec) * vec)
+    chunk = min((SMEM_LIMIT - used) // 16 * 4, -(-full // 4) * 4)
     return chunk if chunk >= need else None
 
 
-def smem_plan(c: int, layers, elem: int = 4):
-    """The fused kernel's ``(weight_chunk_elems, total_bytes)`` for
-    ``layers`` = ((f, k, n), ...) at ``elem`` bytes an element: the shared
-    memory left beside the tiles, up to the block limit, holds the weights
-    a chunk of input channels at a time (the whole layer where it fits).
-    None when not even one input channel's weights of a layer fit."""
-    tiles = tile_bytes(c, [(f, n) for f, _, n in layers], elem)
-    chunk = _weight_chunk(tiles, layers, elem)
-    return None if chunk is None else (chunk, tiles + elem * chunk)
+def smem_plan(c: int, layers):
+    """The f32 fused kernel's ``(weight_chunk_floats, total_bytes)`` for
+    ``layers`` = ((f, k, n), ...): the shared memory left beside the tiles,
+    up to the block limit, holds the weights a chunk of input channels at a
+    time (the whole layer where it fits). None when not even one input
+    channel's weights of a layer fit."""
+    tiles = tile_bytes(c, [(f, n) for f, _, n in layers])
+    chunk = _weight_chunk(tiles, layers)
+    return None if chunk is None else (chunk, tiles + 4 * chunk)
 
 
 class LayerPlan(NamedTuple):
-    """One chain launch: the output tile of a block, the elements of its
+    """One f32 chain launch: the output tile of a block, the floats of its
     weight chunk and its dynamic shared bytes (window plus chunk)."""
     tile_h: int
     tile_w: int
@@ -87,39 +90,155 @@ class LayerPlan(NamedTuple):
     smem: int
 
 
-def window_bytes(f: int, k: int, elem: int = 4) -> int:
-    """Shared bytes of a chain block's input window: the output tile plus
-    its (f − 1) halo, all k channels, ``elem`` bytes each."""
-    return elem * k * (TILE_H + f - 1) * (TILE_W + f - 1)
+def window_bytes(f: int, k: int) -> int:
+    """Shared bytes of an f32 chain block's input window: the output tile
+    plus its (f − 1) halo, all k channels."""
+    return 4 * k * (TILE_H + f - 1) * (TILE_W + f - 1)
 
 
-def layer_plan(f: int, k: int, n: int, elem: int = 4) -> LayerPlan:
-    """The chain's plan for one f×f layer from k to n channels at ``elem``
-    bytes an element: the rest of the block's shared memory beside the
-    window carries the weights, a chunk of input channels at a time.
-    Raises NotImplementedError when the window and one input channel's
-    weights do not fit."""
-    win = window_bytes(f, k, elem)
-    chunk = _weight_chunk(win, [(f, k, n)], elem)
+def layer_plan(f: int, k: int, n: int) -> LayerPlan:
+    """The f32 chain's plan for one f×f layer from k to n channels: the
+    rest of the block's shared memory beside the window carries the
+    weights, a chunk of input channels at a time. Raises
+    NotImplementedError when the window and one input channel's weights do
+    not fit."""
+    win = window_bytes(f, k)
+    chunk = _weight_chunk(win, [(f, k, n)])
     if chunk is None:
         raise NotImplementedError(
             f"a {TILE_H}x{TILE_W} tile of an f={f} layer over {k} channels needs "
-            f"{win} shared bytes for its window plus {elem * f * f * n} for weights "
+            f"{win} shared bytes for its window plus {4 * f * f * n} for weights "
             f"(> {SMEM_LIMIT}); such layers need the tensor-core kernel "
             f"({_ROADMAP} #1)")
-    return LayerPlan(TILE_H, TILE_W, chunk, win + elem * chunk)
+    return LayerPlan(TILE_H, TILE_W, chunk, win + 4 * chunk)
+
+
+# The bf16 kernels (tensor cores, csrc/tc_stage.cuh): padded widths, the
+# chain's plan per layer and the fused kernel's shared bytes. The C side
+# recomputes the same layout and refuses a launch whose shared bytes fall
+# short of it.
+
+def n_pad(n: int) -> int:
+    """A layer's N on the tensor cores: 8, 16, 32, 64 or a multiple of 128
+    (a block takes at most 128 columns)."""
+    for w in (8, 16, 32, 64):
+        if n <= w:
+            return w
+    return -(-n // 128) * 128
+
+
+def k_pad(k: int) -> int:
+    """A middle or last layer's K: its input's padded N, at least 16."""
+    return max(16, n_pad(k))
+
+
+def kx_lanes(f: int, c: int) -> int:
+    """The first layer's K: its dx-expanded window's f·c lanes, padded to
+    a multiple of 16."""
+    return -(-f * c // 16) * 16
+
+
+def w_stride(nb: int) -> int:
+    """bf16 elements of a shared weight row of nb columns: padded by 16
+    bytes where nb / 8 is even, so that ldmatrix rows fall on distinct
+    banks."""
+    return nb if (nb // 8) % 2 else nb + 8
+
+
+class TcPlan(NamedTuple):
+    """One bf16 chain launch (``conv_layer_forward_bf16``): the layer
+    (f, k → n, first or last of the stream), the window's lanes a channel
+    chunk, the taps a weight stage and the dynamic shared bytes. The
+    output tile is TILE_H x TILE_W."""
+    f: int
+    k: int
+    n: int
+    first: bool
+    last: bool
+    kc: int
+    tps: int
+    smem: int
+
+
+def tc_layer_plan(f: int, k: int, n: int, first: bool = False, last: bool = False) -> TcPlan:
+    """The bf16 chain's plan for one f×f layer from k to n channels. The
+    window (the tile plus its halo, position-major, rows of kc + 8 lanes;
+    the first layer dx-expanded, TILE_W positions wide) takes all of K
+    where it fits beside two stages of one tap's weights, else the largest
+    chunk of 16 lanes that does. The weights stay whole in one stage where
+    window and weights fit in half the block limit (two blocks an SM); else
+    they stream in stages of as many taps as fit in two (in half the limit
+    where one tap does, else in all of it). Raises NotImplementedError when
+    not even 16 lanes fit."""
+    nb = min(n_pad(n), 128)
+    ws = w_stride(nb)
+    rows = TILE_H + f - 1
+    if first:
+        kp, cols, taps = kx_lanes(f, k), TILE_W, f
+    else:
+        kp, cols, taps = k_pad(k), TILE_W + f - 1, f * f
+    win = lambda kc: 2 * rows * cols * (kc + 8)  # noqa: E731
+    tap = lambda kc: 2 * kc * ws  # noqa: E731
+    kc = kp
+    while not first and kc > 16 and win(kc) + 2 * tap(kc) > SMEM_LIMIT:
+        kc -= 16
+    if win(kc) + 2 * tap(kc) > SMEM_LIMIT:
+        raise NotImplementedError(
+            f"a {TILE_H}x{TILE_W} tile of an f={f} layer over {k} channels needs "
+            f"{win(kc)} shared bytes for its window plus {2 * tap(kc)} for weights "
+            f"(> {SMEM_LIMIT})")
+    half = SMEM_LIMIT // 2
+    if kc == kp and win(kc) + taps * tap(kc) <= half:
+        tps = taps
+    else:
+        budget = half if win(kc) + 2 * tap(kc) <= half else SMEM_LIMIT
+        tps = min(taps, (budget - win(kc)) // (2 * tap(kc)))
+    stages = 2 if -(-taps // tps) > 1 else 1
+    out = 0 if last else 2 * TILE_H * TILE_W * ws  # the staged bf16 output tile
+    return TcPlan(f, k, n, first, last, kc, tps, max(win(kc) + stages * tps * tap(kc), out))
+
+
+def tc_fused_plan(c: int, layers):
+    """Shared bytes of the bf16 fused kernel for ``layers`` = ((f, k, n),
+    ...) at a TILE_H x TILE_W output tile, or None where they exceed the
+    block limit or a width exceeds one block's 128 columns: the first
+    layer's dx-expanded window and w1 (then w2's stages of one kernel row,
+    in the same bytes), the conv1 and conv2 tiles position-major in rows of
+    K + 8 lanes, and w3."""
+    (f1, _, n1), (f2, _, n2), (f3, _, n3) = layers
+    if n_pad(n1) > 128 or n_pad(n2) > 128 or n3 > 8:
+        return None
+    a2 = TILE_H + f3 - 1
+    a1 = a2 + f2 - 1
+    ih = a1 + f1 - 1
+    kx, l1, l2 = kx_lanes(f1, c), k_pad(n1), k_pad(n2)
+    head = ih * a1 * (kx + 8) + f1 * kx * w_stride(n_pad(n1))
+    w2_stages = (2 if f2 > 1 else 1) * f2 * l1 * w_stride(n_pad(n2))
+    total = 2 * (max(head, w2_stages) + a1 * a1 * (l1 + 8) + a2 * a2 * (l2 + 8)
+                 + f3 * f3 * l2 * 8)
+    return total if total <= SMEM_LIMIT else None
 
 
 def route(c: int, layers, elem: int = 4):
-    """``("fused", (chunk, smem))`` for a stack the fused kernel takes,
-    else ``("chain", [LayerPlan, ...])``; ``layers`` = ((f, k, n), ...),
-    ``c`` the input channels and ``elem`` the bytes of an element. Raises
+    """The kernel for ``layers`` = ((f, k, n), ...) over ``c`` input
+    channels at ``elem`` bytes an element (4: f32, 2: the bf16 stream).
+    f32: ``("fused", (chunk, smem))`` for a stack the fused kernel takes,
+    else ``("chain", [LayerPlan, ...])``. bf16: ``("fused", smem)`` or
+    ``("chain", [TcPlan, ...])``. The fused kernels take 3-layer stacks
+    with c ≤ 4 and n_out ≤ 4 whose tiles fit one block. Raises
     NotImplementedError for a stack neither kernel takes."""
-    if len(layers) == 3 and c <= 4 and layers[-1][2] <= 4:
-        plan = smem_plan(c, layers, elem)
-        if plan is not None:
-            return "fused", plan
-    return "chain", [layer_plan(*layer, elem) for layer in layers]
+    fits = len(layers) == 3 and c <= 4 and layers[-1][2] <= 4
+    if elem == 2:
+        smem = tc_fused_plan(c, layers) if fits else None
+        if smem is not None:
+            return "fused", smem
+        last = len(layers) - 1
+        return "chain", [tc_layer_plan(*layer, first=i == 0, last=i == last)
+                         for i, layer in enumerate(layers)]
+    plan = smem_plan(c, layers) if fits else None
+    if plan is not None:
+        return "fused", plan
+    return "chain", [layer_plan(*layer) for layer in layers]
 
 
 def bf16_envelope(c: int, layers, h: int, w: int) -> bool:
@@ -175,22 +294,43 @@ def _check(params, x, precision: str = "f32"):
     return (precision,) + route(x.shape[3], layers, ELEM_BYTES[precision])
 
 
+def pack_bf16(w: torch.Tensor, b: torch.Tensor, first: bool):
+    """The bf16 kernels' operands of one layer, ``w`` (f, f, k, n) HWIO and
+    ``b`` (n,): the weights tap-major ``(taps, K_pad, N_pad)`` bf16 and the
+    bias ``(N_pad,)`` f32, zero in every padding lane. The first layer
+    (``first``) is dx-expanded with the 1/127 fold: ``f`` taps (one per
+    dy) whose row ``dx·k + ci`` holds ``fold_first(w)[dy, dx, ci]``, K_pad
+    = ``kx_lanes(f, k)``; any other layer has ``f²`` taps (dy·f + dx) of
+    ``w[dy, dx].to(bf16)``, K_pad = ``k_pad(k)``."""
+    f, _, k, n = w.shape
+    npad = n_pad(n)
+    if first:
+        taps, kp, wb = f, kx_lanes(f, k), reference.fold_first(w).reshape(f, f * k, n)
+    else:
+        taps, kp, wb = f * f, k_pad(k), w.to(torch.bfloat16).reshape(f * f, k, n)
+    wp = torch.zeros((taps, kp, npad), dtype=torch.bfloat16, device=w.device)
+    wp[:, :wb.shape[1], :n] = wb
+    bp = torch.zeros(npad, dtype=torch.float32, device=b.device)
+    bp[:n] = b
+    return wp, bp
+
+
+def packed_bf16(w: torch.Tensor, b: torch.Tensor, first: bool):
+    """``pack_bf16(w, b, first)``, made once per weight tensor (and again
+    only after ``w`` or ``b`` changes in place): the result is kept on
+    ``w`` itself, beside the version counters."""
+    key = (first, w._version, b.data_ptr(), b._version)
+    kept = getattr(w, "_cnn_sr_bf16", None)
+    if kept is None or kept[0] != key:
+        kept = (key, pack_bf16(w, b, first))
+        w._cnn_sr_bf16 = kept
+    return kept[1]
+
+
 def bf16_weights(params):
-    """The bf16 kernels' weights: w1 with the 1/127 fold, every other w
-    rounded to bf16, contiguous on the weights' device. Made once per
-    weight tensor (and again only after it changes in place): the result
-    is kept on the tensor itself, beside its version counter."""
-    out = []
-    for i, layer in enumerate(params):
-        w = layer["w"]
-        key = (i == 0, w._version)
-        kept = getattr(w, "_cnn_sr_bf16", None)
-        if kept is None or kept[0] != key:
-            wb = reference.fold_first(w) if i == 0 else w.to(torch.bfloat16)
-            kept = (key, wb.contiguous())
-            w._cnn_sr_bf16 = kept
-        out.append(kept[1])
-    return out
+    """The bf16 kernels' ``(weights, bias)`` of every layer
+    (``packed_bf16``, the first layer dx-expanded and folded)."""
+    return [packed_bf16(layer["w"], layer["b"], i == 0) for i, layer in enumerate(params)]
 
 
 def fused_forward(params, x: torch.Tensor, precision: str = "f32") -> torch.Tensor:
@@ -207,7 +347,6 @@ def fused_forward(params, x: torch.Tensor, precision: str = "f32") -> torch.Tens
     bf16 = precision == "bf16"
     if kind == "chain":
         return chain.chain_forward(params, x, plan, bf16=bf16)
-    chunk, smem = plan
     dims = [(layer["w"].shape[0], layer["w"].shape[3]) for layer in params]
     n, h, w, c = x.shape
     from .build import load_library
@@ -216,16 +355,18 @@ def fused_forward(params, x: torch.Tensor, precision: str = "f32") -> torch.Tens
     shrink = sum(f - 1 for f, _ in dims)
     y = torch.empty((n, h - shrink, w - shrink, dims[2][1]),
                     dtype=torch.float32, device=x.device)
-    weights = bf16_weights(params) if bf16 else [layer["w"] for layer in params]
-    ptrs = [x.data_ptr()]
-    for wt, layer in zip(weights, params):
-        ptrs += [wt.data_ptr(), layer["b"].data_ptr()]
+    operands = bf16_weights(params) if bf16 else [(l["w"], l["b"]) for l in params]
+    ptrs = [x.data_ptr()] + [t.data_ptr() for pair in operands for t in pair]
     (f1, n1), (f2, n2), (f3, n3) = dims
-    launch = lib.fused_srcnn_forward_bf16 if bf16 else lib.fused_srcnn_forward
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = launch(*ptrs, y.data_ptr(), n, h, w, c, f1, n1, f2, n2, f3, n3,
-                     TILE_H, TILE_W, chunk, smem, stream)
+        if bf16:
+            err = lib.fused_srcnn_forward_bf16(*ptrs, y.data_ptr(), n, h, w, c, f1, n1, f2, n2,
+                                               f3, n3, plan, stream)
+        else:
+            chunk, smem = plan
+            err = lib.fused_srcnn_forward(*ptrs, y.data_ptr(), n, h, w, c, f1, n1, f2, n2, f3,
+                                          n3, TILE_H, TILE_W, chunk, smem, stream)
     if err:
         raise RuntimeError(f"fused_srcnn{'_bf16' if bf16 else ''} launch failed: "
                            + lib.cnn_sr_error_string(err).decode())

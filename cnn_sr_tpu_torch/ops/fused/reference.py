@@ -1,5 +1,6 @@
 """Plain PyTorch version of both kernels (``csrc/fused_srcnn.cu`` and the
-layer chain ``csrc/conv_layer.cu``), in both precisions.
+layer chain ``csrc/conv_layer.cu``), in both precisions, and of one
+tensor-core layer over packed weights (``tap_layer``).
 
 ``precision="f32"``: a layer loop of ``F.conv2d`` in strict f32 (TF32 off
 for cuDNN and matmuls).
@@ -65,4 +66,36 @@ def fused_forward(params, x: torch.Tensor, precision: str = "f32") -> torch.Tens
             y = conv_layer(y, w.to(torch.float32), layer["b"], relu=i != last)
             if i != last:
                 y = round_bf16(y)
+    return y.contiguous()
+
+
+def tap_layer(x: torch.Tensor, wp: torch.Tensor, bp: torch.Tensor, f: int, n: int,
+              first: bool, last: bool) -> torch.Tensor:
+    """Plain version of one tensor-core layer (``csrc/tc_stage.cuh``) over
+    its packed operands ``wp`` (taps, K_pad, N_pad) bf16 and ``bp``
+    (N_pad,) f32 (``entry.pack_bf16``): the sum over taps of shifted
+    windows of ``x`` (N, H, W, k) @ ``wp[tap]``, in f32, then the bias, ReLU
+    unless ``last``, and bf16 rounding unless ``last``; (N, H−f+1, W−f+1, n)
+    f32. The first layer quantises ``x`` (f32) and builds the dx-expanded
+    window, lane ``dx·k + ci``; its taps are the f rows dy. Padding lanes
+    are zero, as the kernel's. Only the tests call it: they hold the
+    packing and the tap indexing against ``fused_forward``."""
+    nb, h, w, k = x.shape
+    oh, ow = h - f + 1, w - f + 1
+    kp = wp.shape[1]
+    if first:
+        q = quantize(x)
+        win = torch.cat([q[:, :, dx:dx + ow, :] for dx in range(f)], dim=3)
+        win = torch.nn.functional.pad(win, (0, kp - f * k))
+        shifts = [(dy, 0) for dy in range(f)]
+    else:
+        win = torch.nn.functional.pad(x.to(torch.float32), (0, kp - k))
+        shifts = [(dy, dx) for dy in range(f) for dx in range(f)]
+    with strict_f32():
+        y = torch.zeros((nb, oh, ow, wp.shape[2]), dtype=torch.float32, device=x.device)
+        for t, (dy, dx) in enumerate(shifts):
+            y += win[:, dy:dy + oh, dx:dx + ow, :] @ wp[t].to(torch.float32)
+    y = (y + bp)[..., :n]
+    if not last:
+        y = round_bf16(torch.relu(y))
     return y.contiguous()

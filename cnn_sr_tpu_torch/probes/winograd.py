@@ -7,7 +7,8 @@ direct ("sep") form at the RGB model's big layers, 64→128, 128→128 and
 output:
 
 * ``sep``: the shipped direct kernel, ``conv_layer_forward_bf16``
-  (``csrc/conv_layer.cu`` through ``chain.layer_forward``), NHWC out; it
+  (``csrc/conv_layer.cu`` through ``chain.layer_forward``: the
+  tensor-core implicit GEMM of ``csrc/tc_stage.cuh``), NHWC out; it
   takes any odd f (``probes/wino5.py`` runs it at f=5);
 * ``wino`` / ``winoF``: ``winograd_f2x3`` in mode "direct" / "factored"
   (``csrc/winograd.cu``) on the parity input ``layout.pack_rows_cols``,
@@ -303,7 +304,8 @@ def sep(act: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """The direct form: ``act`` (R, C, k) bf16 through the f×f bf16 weights
     ``g`` (f, f, k, n), f odd, with a zero bias and ReLU into (R−f+1,
     C−f+1, n) bf16. On CUDA tensors one launch of the shipped
-    ``conv_layer_forward_bf16`` as a middle layer of the stream (counted in
+    ``conv_layer_forward_bf16`` (the tensor-core layer) as a middle layer of
+    the stream, over ``g`` packed once (``entry.packed_bf16``; counted in
     ``chain.LAUNCHES_BF16``); on CPU tensors its plain version."""
     f = _check_sep(act, g)
     if act.device.type == "cpu":
@@ -313,11 +315,14 @@ def sep(act: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     r, c, k = act.shape
     n = g.shape[3]
     dst = torch.empty((1, r - f + 1, c - f + 1, n), dtype=torch.bfloat16, device=act.device)
-    bias = torch.zeros(n, dtype=torch.float32, device=act.device)
-    plan = entry.layer_plan(f, k, n, entry.ELEM_BYTES["bf16"])
+    bias = getattr(g, "_sep_bias", None)
+    if bias is None:
+        bias = g._sep_bias = torch.zeros(n, dtype=torch.float32, device=act.device)
+    wp, bp = entry.packed_bf16(g, bias, first=False)
+    plan = entry.tc_layer_plan(f, k, n)
     with torch.cuda.device(act.device):
         stream = torch.cuda.current_stream().cuda_stream
-        chain.layer_forward(load_library(), act[None], g, bias, dst, plan, first=False,
+        chain.layer_forward(load_library(), act[None], wp, bp, dst, plan, first=False,
                             last=False, bf16=True, stream=stream)
     return dst[0]
 

@@ -5,8 +5,8 @@ operands and f32 sums, in ``cnn_sr_tpu_torch.ops.fused`` and through
 On the CPU the plain bf16 version is held against the JAX package's
 Pallas kernel in interpret mode (``fused_forward(..., input_int8=True)``
 at its default bf16 dtype) and against its public API. The bf16 CUDA
-kernels (``fused_srcnn_forward_bf16``, ``conv_layer_forward_bf16``) run
-only on a card: those tests carry the ``cuda`` marker and skip without
+kernels (``fused_srcnn_forward_bf16``, ``conv_layer_forward_bf16``, on the
+tensor cores) run only on a card: those tests carry the ``cuda`` marker and skip without
 one. A machine with a card may have no JAX, so this module imports JAX
 only inside the tests that need it; there the card tests run with
 
@@ -30,6 +30,9 @@ NARROW7 = [(3, 3, 8), (3, 8, 8), (3, 8, 16), (3, 16, 16), (3, 16, 16), (3, 16, 1
 RGB7 = [(3, 3, 32), (3, 32, 32), (3, 32, 64), (3, 64, 64), (3, 64, 128), (3, 128, 128),
         (3, 128, 3)]
 FLAGSHIP = [(9, 1, 64), (5, 64, 32), (5, 32, 1)]
+# its tensor-core bf16 tiles (a1 24²·(128+8) alone is 156,672 bytes) do
+# not fit one block beside w2's stages, so bf16 runs it on the chain
+WIDE_955 = [(9, 1, 128), (5, 128, 64), (5, 64, 1)]
 # a 4-layer stack whose f=9 layer over 128 channels f32 refuses (a
 # 294,912-byte window) and bf16 admits (147,456 bytes)
 WIDE_F9 = [(3, 1, 128), (9, 128, 16), (3, 16, 8), (3, 8, 1)]
@@ -172,41 +175,63 @@ def test_envelope_is_a_function_of_the_shapes():
 
 
 def test_bf16_shared_memory_plan_matches_the_design():
-    # the flagship in bf16: 32²·1 + 24²·64 + 20²·32 elements of 2 bytes,
-    # and conv2's whole weight set (5·5·64·32) beside them, in one chunk
-    assert entry.tile_bytes(1, [(9, 64), (5, 32), (5, 1)], 2) == 101_376
-    chunk, total = entry.smem_plan(1, FLAGSHIP, 2)
-    assert chunk == 5 * 5 * 64 * 32 and total == 101_376 + 102_400 <= entry.SMEM_LIMIT
-    assert entry.route(1, FLAGSHIP, 2) == ("fused", (chunk, total))
-    # the chain's k=128 layer: an 82,944-byte window, 64 input channels of
-    # weights per chunk (14 in f32)
-    assert entry.window_bytes(3, 128, 2) == 82_944
-    plan = entry.layer_plan(3, 128, 128, 2)
-    assert plan.chunk // (9 * 128) == 64 and plan.smem <= entry.SMEM_LIMIT
-    assert entry.layer_plan(3, 128, 128).chunk // (9 * 128) == 14
-    # f=9 over 128 channels: refused in f32, admitted in bf16
+    # the flagship on the tensor cores, a 16x16 output tile, rows padded by
+    # 16 bytes: the dx-expanded window 32·24·(16+8) and w1 9·16·(64+8)
+    # (57,600 bytes, later w2's two stages of 5·64·(32+8), 51,200), a1
+    # 24²·(64+8), a2 20²·(32+8) and w3 25·32·8, two bytes each
+    assert entry.tc_fused_plan(1, FLAGSHIP) == 2 * (
+        32 * 24 * 24 + 9 * 16 * 72 + 576 * 72 + 400 * 40 + 25 * 32 * 8) == 185_344
+    assert entry.route(1, FLAGSHIP, 2) == ("fused", 185_344)
+    # padded widths: K to 16, N to 8/16/32/64 or 128s; the first layer's K
+    # is its f·c dx lanes to a multiple of 16 (9 -> 16 for f=9 luma and
+    # f=3 RGB, 3 -> 16 for f=3 luma)
+    assert [entry.n_pad(n) for n in (1, 3, 8, 12, 16, 24, 64, 96, 128, 200)] == [
+        8, 8, 8, 16, 16, 32, 64, 128, 128, 256]
+    assert [entry.k_pad(k) for k in (8, 16, 32, 128)] == [16, 16, 32, 128]
+    assert [entry.kx_lanes(f, c) for f, c in ((9, 1), (3, 3), (3, 1), (9, 4))] == [16, 16, 16, 48]
+    # the chain's k=128 layer: an 18²·(128+8) window (88,128 bytes) and
+    # two stages of two taps of 128·(128+8) weights
+    plan = entry.tc_layer_plan(3, 128, 128)
+    assert (plan.kc, plan.tps) == (128, 2)
+    assert plan.smem == 2 * (18 * 18 * 136 + 2 * 2 * 128 * 136) == 227_392 <= entry.SMEM_LIMIT
+    # a narrow layer keeps all its weights in one stage, two blocks an SM
+    plan = entry.tc_layer_plan(3, 32, 32)
+    assert plan.tps == 9 and plan.smem == 2 * (18 * 18 * 40 + 9 * 32 * 40) <= entry.SMEM_LIMIT // 2
+    # the first layer: f taps over its dx-expanded window, 16 positions
+    # wide (18·16·(16+8) and 3·16·(32+8)); the staged 16x16x(32+8) output
+    # tile takes more
+    plan = entry.tc_layer_plan(3, 3, 32, first=True)
+    assert 2 * (18 * 16 * 24 + 3 * 16 * 40) < 2 * 256 * 40
+    assert (plan.kc, plan.tps, plan.smem) == (16, 3, 2 * 256 * 40)
+    # f=9 over 128 channels: refused in f32, admitted in bf16 (a 24²·136
+    # window beside two stages of six taps)
     with pytest.raises(NotImplementedError, match="294912 shared bytes"):
         entry.layer_plan(9, 128, 16)
-    assert entry.layer_plan(9, 128, 16, 2).smem - 2 * entry.layer_plan(9, 128, 16, 2).chunk \
-        == 147_456
+    plan = entry.tc_layer_plan(9, 128, 16)
+    assert (plan.kc, plan.tps) == (128, 6) and plan.smem == 2 * (24 * 24 * 136 + 12 * 128 * 24)
     kind, plans = entry.route(1, WIDE_F9, 2)
-    assert kind == "chain" and len(plans) == 4
-    # 16-byte weight reads: chunks are whole multiples of 8 bf16
-    assert all(p.chunk % 8 == 0 for p in plans)
+    assert kind == "chain" and len(plans) == 4 and plans[0].first and plans[-1].last
+    # a window too wide for all its channels takes them in chunks of 16 lanes
+    plan = entry.tc_layer_plan(9, 256, 16)
+    assert plan.kc < 256 and plan.kc % 16 == 0 and plan.smem <= entry.SMEM_LIMIT
 
 
 def test_bf16_weights_made_once_per_parameter_set():
     params = params_to_torch(_params(NARROW_955, 4), "cpu")
     first = entry.bf16_weights(params)
-    assert first[0].dtype == torch.bfloat16
-    assert torch.equal(first[0], reference.fold_first(params[0]["w"]))
-    assert torch.equal(first[1], params[1]["w"].to(torch.bfloat16))
+    assert [wp.shape for wp, _ in first] == [(9, 16, 8), (25, 16, 8), (25, 16, 8)]
+    assert first[0][0].dtype == torch.bfloat16 and first[0][1].dtype == torch.float32
+    assert torch.equal(first[0][0][:, :9, :8].reshape(9, 9, 1, 8),
+                       reference.fold_first(params[0]["w"]))
+    assert torch.equal(first[1][0][:, :8, :8].reshape(5, 5, 8, 8),
+                       params[1]["w"].to(torch.bfloat16))
     again = entry.bf16_weights(params)
     assert all(a is b for a, b in zip(first, again))
     params[1]["w"].mul_(2.0)  # changed in place: made anew
     third = entry.bf16_weights(params)
     assert third[0] is first[0] and third[1] is not first[1]
-    assert torch.equal(third[1], params[1]["w"].to(torch.bfloat16))
+    assert torch.equal(third[1][0][:, :8, :8].reshape(5, 5, 8, 8),
+                       params[1]["w"].to(torch.bfloat16))
 
 
 @pytest.mark.parametrize("raw,zmt", [(LUMA_CFG, True), (LUMA_CFG, False), (RGB_CFG, True)],
@@ -270,8 +295,13 @@ def test_bf16_cuda_without_card_is_not_served_by_the_cpu():
     (RGB7, (1, 80, 272, 3), True, (0, 7)),
     (RGB7, (2, 97, 131, 3), True, (0, 7)),
     (WIDE_F9, (1, 60, 70, 1), True, (0, 4)),
+    (FLAGSHIP, (1, 16 + 17, 16 + 33, 1), False, (1, 0)),
+    (NARROW7, (1, 40, 70, 3), True, (0, 7)),
+    (RGB7, (3, 6 + 17, 6 + 33, 3), True, (0, 7)),
+    (WIDE_955, (1, 50, 70, 1), True, (0, 3)),
 ], ids=["flagship", "flagship_ragged_batch", "9-1-5", "narrow_batch3", "rgb_7layer",
-        "rgb_ragged_batch", "wide_f9_k128"])
+        "rgb_ragged_batch", "wide_f9_k128", "flagship_17x33", "narrow7_k8", "rgb_batch3_17x33",
+        "wide_9-5-5_chain"])
 def test_bf16_kernel_matches_plain_on_card(cuda_device, specs, shape, he, launches):
     # the same bf16 products, summed in another order than cuDNN's: a
     # bf16 rounding between layers can go the other way at a tie, so
