@@ -17,8 +17,9 @@ and three of the in-repo 7-layer RGB checkpoint through
 of the six probes (``cnn_sr_tpu_torch.probes``). Phases, one line each:
 
 1. device: card name and power limit, torch and CUDA versions;
-2. build: each source's ptxas report, and the HMMA instructions in the
-   SASS of each bf16 entry point's kernels (``cuobjdump -sass``), > 0;
+2. build: each source's ptxas report, the f32 fused kernel's registers
+   (it must not spill), and the HMMA instructions in the SASS of each
+   bf16 entry point's kernels (``cuobjdump -sass``), > 0;
 3. kernel vs plain, f32: the fused kernel at the flagship (pretrained)
    and 9-1-5 (random, seed 0) stacks; the chain at the RGB (pretrained)
    stack, a ragged batch of two and the wide 9-5-5 (random). Max
@@ -57,8 +58,8 @@ of the six probes (``cnn_sr_tpu_torch.probes``). Phases, one line each:
    cores) at the main paths' 1080p shapes, and the chain's time per layer
    beside the library's, in both precisions (each layer with its own
    plan: ``entry.layer_plan`` in f32, ``entry.tc_layer_plan`` in bf16);
-   then the flagship in bf16 through the fused kernel beside the same
-   stack through the chain's three tensor-core launches (whether fusion
+   then the flagship in f32 and in bf16 through the fused kernel beside
+   the same stack through the chain's three launches (whether fusion
    pays), and the 9-1-5 stack in both precisions;
 8. probe main path: ``strided_store.main``, ``winograd.main(["--check"])``
    (every Winograd mode and ``repack`` within 1e-2 of a float64 direct
@@ -379,25 +380,29 @@ def layer_times(params, x, smi, precision="f32") -> None:
           + ", ".join(parts))
 
 
-def fused_vs_chain_bf16(params, x, smi) -> None:
-    """The flagship in bf16 through the fused kernel (one launch) beside the
-    same stack through the chain (three tensor-core launches, ``conv1``
-    and ``conv2`` through device memory in bf16), both checked against the
-    plain version, timed in turns: fused, chain, chain, fused. Shows
-    whether fusion still pays on the tensor cores."""
+def fused_vs_chain(params, x, smi, precision="f32") -> None:
+    """The flagship in ``precision`` through the fused kernel (one launch)
+    beside the same stack through the chain (three launches, ``conv1`` and
+    ``conv2`` through device memory: f32 on the CUDA cores, or bf16 on the
+    tensor cores), both checked against the plain version, timed in turns:
+    fused, chain, chain, fused. Shows whether fusion pays."""
     last = len(params) - 1
-    plans = [entry.tc_layer_plan(l["w"].shape[0], l["w"].shape[2], l["w"].shape[3], i == 0,
-                                 i == last) for i, l in enumerate(params)]
-    fused = lambda: entry.fused_forward(params, x, "bf16")  # noqa: E731
-    chained = lambda: chain.chain_forward(params, x, plans, bf16=True)  # noqa: E731
-    ref = reference.fused_forward(params, x, "bf16")
+    dims = [(l["w"].shape[0], l["w"].shape[2], l["w"].shape[3]) for l in params]
+    bf16 = precision == "bf16"
+    plans = [entry.tc_layer_plan(*d, i == 0, i == last) if bf16 else entry.layer_plan(*d)
+             for i, d in enumerate(dims)]
+    fused = lambda: entry.fused_forward(params, x, precision)  # noqa: E731
+    chained = lambda: chain.chain_forward(params, x, plans, bf16=bf16)  # noqa: E731
+    ref = reference.fused_forward(params, x, precision)
     scale = float(ref.abs().max())
     errs = [float((fn() - ref).abs().max()) for fn in (fused, chained)]
-    check(max(errs) <= BF16_REL * scale, f"flagship bf16 fused / chain vs plain {errs}")
+    check(max(errs) <= (BF16_REL * scale if bf16 else ATOL),
+          f"flagship {precision} fused / chain vs plain {errs}")
     f1, c1, c2, f2 = time_ms(fused), time_ms(chained), time_ms(chained), time_ms(fused)
-    print(f"[time] {smi} | flagship 9-5-5 bf16 {tuple(x.shape)}: fused kernel {f1:.3f}/{f2:.3f} "
-          f"ms, chain of 3 tensor-core launches {c1:.3f}/{c2:.3f} ms, chain / fused "
-          f"{(c1 + c2) / (f1 + f2):.2f}x (max |kernel - plain| {errs[0]:.3e} fused, "
+    cores = "tensor-core" if bf16 else "CUDA-core"
+    print(f"[time] {smi} | flagship 9-5-5 {precision} {tuple(x.shape)}: fused kernel "
+          f"{f1:.3f}/{f2:.3f} ms, chain of 3 {cores} launches {c1:.3f}/{c2:.3f} ms, chain / "
+          f"fused {(c1 + c2) / (f1 + f2):.2f}x (max |kernel - plain| {errs[0]:.3e} fused, "
           f"{errs[1]:.3e} chain)")
 
 
@@ -1001,6 +1006,13 @@ def main() -> int:
         ptxas = [ln.strip() for ln in log.splitlines()
                  if "registers" in ln or "spill" in ln or "Compiling" in ln]
         print(f"[build] {src}: {' | '.join(ptxas)}")
+    if info["logs"]:
+        report = build.ptxas_entry(info["logs"]["fused_srcnn.cu"], "fused_srcnn_kernel")
+        check(report is not None, "fused_srcnn_kernel: no ptxas report")
+        print(f"[build] fused_srcnn_kernel (f32, ffma_stage.cuh): {report[0]} registers, "
+              f"{report[1]}")
+        check(" 0 bytes spill stores, 0 bytes spill loads" in report[1],
+              f"fused_srcnn_kernel spills: {report[1]}")
     build.load_library()
     hmma = sass_hmma()
     print("[build] HMMA instructions in the SASS (cuobjdump -sass): "
@@ -1093,7 +1105,8 @@ def main() -> int:
     t_fused_bf16 = time_stack("fused_srcnn, flagship 9-5-5", params, x_luma, smi, "bf16")
     t_chain_bf16 = time_stack("conv_layer chain, RGB 7-layer", params_rgb, x_rgb, smi, "bf16")
     layer_times(params_rgb, x_rgb, smi, "bf16")
-    fused_vs_chain_bf16(params, x_luma, smi)
+    fused_vs_chain(params, x_luma, smi, "f32")
+    fused_vs_chain(params, x_luma, smi, "bf16")
     # the 9-1-5 stack (random, seed 0) beside its library time, both precisions
     for precision in ("f32", "bf16"):
         time_stack("fused_srcnn, 9-1-5", params915, x_luma, smi, precision)

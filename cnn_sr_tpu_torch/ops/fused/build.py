@@ -106,13 +106,31 @@ def build() -> dict:
     return {"path": str(path), "seconds": time.perf_counter() - t0, "logs": logs}
 
 
+def ptxas_entry(log: str, name: str):
+    """``(registers, spill line)`` of the first kernel whose mangled name
+    holds ``name`` in a ptxas ``-v`` report (``build()["logs"]``), or
+    None."""
+    regs = spill = None
+    inside = False
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            if inside:
+                break
+            inside = name in ln
+        elif inside and "spill" in ln:
+            spill = ln.strip()
+        elif inside and "Used" in ln and "registers" in ln:
+            regs = int(ln.split("Used")[1].split("registers")[0])
+    return None if regs is None else (regs, spill)
+
+
 @functools.lru_cache(maxsize=None)
 def load_library() -> ctypes.CDLL:
     """Build if needed, load once per process, and declare the C entry
     points' signatures (every pointer and the stream as ``c_void_p``)."""
     lib = ctypes.CDLL(build()["path"])
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.fused_srcnn_forward.argtypes = [p] * 8 + [i] * 14 + [p]
+    lib.fused_srcnn_forward.argtypes = [p] * 8 + [i] * 12 + [p]
     lib.fused_srcnn_forward.restype = i
     lib.fused_srcnn_forward_bf16.argtypes = [p] * 8 + [i] * 11 + [p]
     lib.fused_srcnn_forward_bf16.restype = i

@@ -10,11 +10,13 @@ by ``route``, a pure function of the shapes:
 * ``csrc/conv_layer.cu`` through ``chain.chain_forward``, one launch per
   layer, for every other well-formed stack (the 7-layer RGB model).
 
-``precision="f32"`` runs them in f32 on the CUDA cores
-(``csrc/conv_stage.cuh``). ``precision="bf16"`` runs the JAX package's
-bf16 stream with the int8 first layer (``reference`` states the numbers)
-on the tensor cores (``csrc/tc_stage.cuh``), with its own plans
-(``tc_layer_plan``, ``tc_fused_plan``) and its weights packed tap-major
+``precision="f32"`` runs them in f32 on the CUDA cores (the fused
+kernel on ``csrc/ffma_stage.cuh``, its weights packed once by
+``pack_f32``; the chain on ``csrc/conv_stage.cuh``). ``precision="bf16"``
+runs the JAX package's bf16 stream with the int8 first layer
+(``reference`` states the numbers) on the tensor cores
+(``csrc/tc_stage.cuh``), with its own plans (``tc_layer_plan``,
+``tc_fused_plan``) and its weights packed tap-major
 (``pack_bf16``), on the JAX rule of where that stream applies
 (``bf16_envelope``): elsewhere JAX runs its XLA f32 forward, and so this
 takes its f32 route. A stack may take the fused kernel in f32 and the
@@ -48,15 +50,35 @@ ELEM_BYTES = {"f32": 4, "bf16": 2}  # bytes of a stored activation or weight
 _ROADMAP = "ROADMAP.md Queue 2"
 
 
-def tile_bytes(c: int, dims) -> int:
-    """Shared bytes of one f32 block's activations: the input window with
-    its halo, the conv1 tile and the conv2 tile. ``dims`` is ((f, n) per
-    layer)."""
+# (output channels, output rows) a thread of the f32 fused kernel computes
+# at once in each layer ((kNB1, kPX1), ... in csrc/fused_srcnn.cu): its
+# packed weights and biases are zero-padded to a multiple of the first,
+# and its tiles' column strides follow from the second
+FUSED_SHAPE = ((8, 4), (4, 5), (4, 2))
+FUSED_NB = tuple(nb for nb, _ in FUSED_SHAPE)
+
+
+def col_stride(rows: int, f: int, px: int) -> int:
+    """The column stride of an f32 fused tile of ``rows`` rows read by a
+    layer of ``f`` taps at ``px`` rows a thread (``ffma_col_stride`` in
+    ``csrc/ffma_stage.cuh``): odd, for conflict-free reads across columns,
+    and long enough for the last row block's reads."""
+    need = -(-(rows - f + 1) // px) * px + f - 1
+    return max(rows, need) | 1
+
+
+def tile_bytes(c: int, dims, shape=FUSED_SHAPE) -> int:
+    """Shared bytes of one f32 fused block's activations: the input window
+    with its halo, the conv1 tile and the conv2 tile, each [c][x][y] with
+    the column stride of the layer that reads it. ``dims`` is ((f, n) per
+    layer); ``shape`` the kernel's (NB, PX) per layer."""
     (f1, n1), (f2, n2), (f3, _) = dims
-    a2 = (TILE_H + f3 - 1, TILE_W + f3 - 1)
-    a1 = (a2[0] + f2 - 1, a2[1] + f2 - 1)
-    win = (a1[0] + f1 - 1, a1[1] + f1 - 1)
-    return 4 * (c * win[0] * win[1] + n1 * a1[0] * a1[1] + n2 * a2[0] * a2[1])
+    a2 = TILE_H + f3 - 1
+    a1 = a2 + f2 - 1
+    win = a1 + f1 - 1
+    (_, px1), (_, px2), (_, px3) = shape
+    return 4 * (c * win * col_stride(win, f1, px1) + n1 * a1 * col_stride(a1, f2, px2)
+                + n2 * a2 * col_stride(a2, f3, px3))
 
 
 def _weight_chunk(used: int, layers):
@@ -70,15 +92,37 @@ def _weight_chunk(used: int, layers):
     return chunk if chunk >= need else None
 
 
-def smem_plan(c: int, layers):
-    """The f32 fused kernel's ``(weight_chunk_floats, total_bytes)`` for
-    ``layers`` = ((f, k, n), ...): the shared memory left beside the tiles,
-    up to the block limit, holds the weights a chunk of input channels at a
-    time (the whole layer where it fits). None when not even one input
-    channel's weights of a layer fit."""
-    tiles = tile_bytes(c, [(f, n) for f, _, n in layers])
-    chunk = _weight_chunk(tiles, layers)
-    return None if chunk is None else (chunk, tiles + 4 * chunk)
+def n_pad_f32(n: int, nb: int) -> int:
+    """A layer's packed width in the f32 fused kernel: n rounded up to nb."""
+    return -(-n // nb) * nb
+
+
+def smem_plan(c: int, layers, shape=FUSED_SHAPE):
+    """The f32 fused kernel's ``(wbuf_floats, total_bytes)`` for ``layers``
+    = ((f, k, n), ...) at the kernel's (NB, PX) per layer ``shape``: the
+    shared memory left beside the tiles, up to the block limit and to the
+    largest layer's whole packed set, carries the weights
+    (``weight_stages`` says how). None when not even one input channel's
+    packed weights of a layer fit."""
+    tiles = tile_bytes(c, [(f, n) for f, _, n in layers], shape)
+    padded = [(f, k, n_pad_f32(n, nb)) for (f, k, n), (nb, _) in zip(layers, shape)]
+    wbuf = _weight_chunk(tiles, padded)
+    return None if wbuf is None else (wbuf, tiles + 4 * wbuf)
+
+
+def weight_stages(f: int, k: int, npad: int, wbuf: int):
+    """How one layer's packed weights (``k`` input channels of ``f²·npad``
+    floats) pass through ``wbuf`` shared floats in the f32 fused kernel, as
+    ``FfmaChunks`` in ``csrc/ffma_stage.cuh`` computes it: ``(channels a
+    chunk, stages)``. The whole layer where it fits; else two stages
+    (cp.async brings chunk c + 1 while chunk c is computed) of as many
+    channels as fit in half the buffer; else one stage."""
+    per_ch = f * f * npad
+    if k * per_ch <= wbuf:
+        return k, 1
+    if 2 * per_ch <= wbuf:
+        return wbuf // 2 // per_ch, 2
+    return wbuf // per_ch, 1
 
 
 class LayerPlan(NamedTuple):
@@ -222,9 +266,9 @@ def tc_fused_plan(c: int, layers):
 def route(c: int, layers, elem: int = 4):
     """The kernel for ``layers`` = ((f, k, n), ...) over ``c`` input
     channels at ``elem`` bytes an element (4: f32, 2: the bf16 stream).
-    f32: ``("fused", (chunk, smem))`` for a stack the fused kernel takes,
-    else ``("chain", [LayerPlan, ...])``. bf16: ``("fused", smem)`` or
-    ``("chain", [TcPlan, ...])``. The fused kernels take 3-layer stacks
+    f32: ``("fused", (wbuf, smem))`` (``smem_plan``) for a stack the
+    fused kernel takes, else ``("chain", [LayerPlan, ...])``. bf16:
+    ``("fused", smem)`` or ``("chain", [TcPlan, ...])``. The fused kernels take 3-layer stacks
     with c ≤ 4 and n_out ≤ 4 whose tiles fit one block. Raises
     NotImplementedError for a stack neither kernel takes."""
     fits = len(layers) == 3 and c <= 4 and layers[-1][2] <= 4
@@ -315,16 +359,50 @@ def pack_bf16(w: torch.Tensor, b: torch.Tensor, first: bool):
     return wp, bp
 
 
+def pack_f32(w: torch.Tensor, b: torch.Tensor, nb: int):
+    """The f32 fused kernel's operands of one layer, ``w`` (f, f, k, n)
+    HWIO and ``b`` (n,): the weights channel-major ``(k, f·f, npad)`` f32
+    (row ``dy·f + dx`` of channel ``ci`` holds ``w[dy, dx, ci]``) and the
+    bias ``(npad,)``, npad = ``n_pad_f32(n, nb)``, zero in every padding
+    lane. A chunk of input channels is then one contiguous copy."""
+    f, _, k, n = w.shape
+    npad = n_pad_f32(n, nb)
+    wp = torch.zeros((k, f * f, npad), dtype=torch.float32, device=w.device)
+    wp[:, :, :n] = w.permute(2, 0, 1, 3).reshape(k, f * f, n)
+    bp = torch.zeros(npad, dtype=torch.float32, device=b.device)
+    bp[:n] = b
+    return wp, bp
+
+
+def _packed(w: torch.Tensor, b: torch.Tensor, attr: str, key, pack):
+    """``pack()``, made once per weight tensor and ``key`` (and again only
+    after ``w`` or ``b`` changes in place): kept on ``w`` itself as
+    ``attr``, beside the version counters."""
+    key = (key, w._version, b.data_ptr(), b._version)
+    kept = getattr(w, attr, None)
+    if kept is None or kept[0] != key:
+        kept = (key, pack())
+        setattr(w, attr, kept)
+    return kept[1]
+
+
+def packed_f32(w: torch.Tensor, b: torch.Tensor, nb: int):
+    """``pack_f32(w, b, nb)``, made once per weight tensor (and again only
+    after ``w`` or ``b`` changes in place)."""
+    return _packed(w, b, "_cnn_sr_f32", nb, lambda: pack_f32(w, b, nb))
+
+
+def f32_weights(params, nbs=FUSED_NB):
+    """The f32 fused kernel's ``(weights, bias)`` of its three layers
+    (``packed_f32`` at ``nbs``)."""
+    return [packed_f32(layer["w"], layer["b"], nb) for layer, nb in zip(params, nbs)]
+
+
 def packed_bf16(w: torch.Tensor, b: torch.Tensor, first: bool):
     """``pack_bf16(w, b, first)``, made once per weight tensor (and again
     only after ``w`` or ``b`` changes in place): the result is kept on
     ``w`` itself, beside the version counters."""
-    key = (first, w._version, b.data_ptr(), b._version)
-    kept = getattr(w, "_cnn_sr_bf16", None)
-    if kept is None or kept[0] != key:
-        kept = (key, pack_bf16(w, b, first))
-        w._cnn_sr_bf16 = kept
-    return kept[1]
+    return _packed(w, b, "_cnn_sr_bf16", first, lambda: pack_bf16(w, b, first))
 
 
 def bf16_weights(params):
@@ -355,7 +433,7 @@ def fused_forward(params, x: torch.Tensor, precision: str = "f32") -> torch.Tens
     shrink = sum(f - 1 for f, _ in dims)
     y = torch.empty((n, h - shrink, w - shrink, dims[2][1]),
                     dtype=torch.float32, device=x.device)
-    operands = bf16_weights(params) if bf16 else [(l["w"], l["b"]) for l in params]
+    operands = bf16_weights(params) if bf16 else f32_weights(params)
     ptrs = [x.data_ptr()] + [t.data_ptr() for pair in operands for t in pair]
     (f1, n1), (f2, n2), (f3, n3) = dims
     with torch.cuda.device(x.device):
@@ -364,9 +442,9 @@ def fused_forward(params, x: torch.Tensor, precision: str = "f32") -> torch.Tens
             err = lib.fused_srcnn_forward_bf16(*ptrs, y.data_ptr(), n, h, w, c, f1, n1, f2, n2,
                                                f3, n3, plan, stream)
         else:
-            chunk, smem = plan
+            wbuf, smem = plan
             err = lib.fused_srcnn_forward(*ptrs, y.data_ptr(), n, h, w, c, f1, n1, f2, n2, f3,
-                                          n3, TILE_H, TILE_W, chunk, smem, stream)
+                                          n3, wbuf, smem, stream)
     if err:
         raise RuntimeError(f"fused_srcnn{'_bf16' if bf16 else ''} launch failed: "
                            + lib.cnn_sr_error_string(err).decode())

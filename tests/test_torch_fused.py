@@ -106,17 +106,33 @@ def test_malformed_input_raises():
 
 
 def test_smem_sizing_matches_the_design():
-    # flagship 9-5-5 at a 16x16 tile: 32²·1 + 24²·64 + 20²·32 floats
-    assert entry.tile_bytes(1, [(9, 64), (5, 32), (5, 1)]) == 202_752
+    # flagship 9-5-5 at a 16x16 tile, each tile [c][x][y] with the odd
+    # column stride of its reader (conv1 PX = 4, conv2 PX = 5, conv3 PX = 2):
+    # 32·33·1 + 24·25·64 + 20·21·32 floats
+    assert entry.FUSED_SHAPE == ((8, 4), (4, 5), (4, 2))
+    assert [entry.col_stride(32, 9, 4), entry.col_stride(24, 5, 5),
+            entry.col_stride(20, 5, 2)] == [33, 25, 21]
+    assert entry.tile_bytes(1, [(9, 64), (5, 32), (5, 1)]) == 211_584
+    # 9-1-5: 28·29 + 20·21·64 + 20·21·32
     assert entry.tile_bytes(1, [(9, 64), (1, 32), (5, 1)]) == 4 * (
-        28 * 28 + 20 * 20 * 64 + 20 * 20 * 32)
-    # the rest of the block's shared memory carries conv2's weights, 9 of
-    # its 64 input channels (5·5·32 floats each) at a time
-    chunk, total = entry.smem_plan(1, [(9, 1, 64), (5, 64, 32), (5, 32, 1)])
-    assert total == entry.SMEM_LIMIT and chunk // (5 * 5 * 32) == 9
-    # 9-1-5: all of conv2's weights fit at once; no more than they need
-    chunk, total = entry.smem_plan(1, [(9, 1, 64), (1, 64, 32), (5, 32, 1)])
-    assert chunk == 9 * 9 * 64 and total < entry.SMEM_LIMIT
+        28 * 29 + 20 * 21 * 64 + 20 * 21 * 32)
+    # a ragged last row block reads inside its column: 20 rows at PX = 8
+    # need 24 + 8 rows of a 28-row window
+    assert entry.col_stride(28, 9, 8) == 33
+    # the rest of the block's shared memory, 5,216 floats, carries the
+    # packed weights: conv1 (81·64) and conv3 (32 channels of 25·4, n3 = 1
+    # padded to NB = 4) whole, conv2 through two cp.async stages of 2,608
+    # floats, 3 of its 64 input channels (25·32 floats each) a stage
+    wbuf, total = entry.smem_plan(1, [(9, 1, 64), (5, 64, 32), (5, 32, 1)])
+    assert total == entry.SMEM_LIMIT and wbuf == (entry.SMEM_LIMIT - 211_584) // 4 == 5216
+    assert entry.weight_stages(9, 1, 64, wbuf) == (1, 1)
+    assert entry.weight_stages(5, 64, 32, wbuf) == (3, 2)
+    assert entry.weight_stages(5, 32, 4, wbuf) == (32, 1)
+    # 9-1-5: every layer's packed weights fit at once; the buffer takes no
+    # more than the largest, conv1's
+    wbuf, total = entry.smem_plan(1, [(9, 1, 64), (1, 64, 32), (5, 32, 1)])
+    assert wbuf == 9 * 9 * 64 and total == 164_528 + 4 * wbuf < entry.SMEM_LIMIT
+    assert entry.weight_stages(1, 64, 32, wbuf) == (64, 1)
 
 
 def test_build_names_library_by_source_hash_and_needs_nvcc(monkeypatch, tmp_path):
@@ -132,12 +148,14 @@ def test_build_names_library_by_source_hash_and_needs_nvcc(monkeypatch, tmp_path
 
 
 def test_library_hash_covers_headers(monkeypatch, tmp_path):
-    """Both kernels include ``conv_stage.cuh``: an edited header must
-    rebuild, though only the ``.cu`` files are compiled."""
+    """The kernels include shared headers (``conv_stage.cuh``,
+    ``ffma_stage.cuh``): an edited header must rebuild, though only the
+    ``.cu`` files are compiled."""
     assert [p.name for p in build._sources()] == ["conv_layer.cu", "fused_srcnn.cu",
                                                   "parity_copy.cu", "rowpair.cu", "wino5.cu",
                                                   "winograd.cu", "xpack.cu"]
-    assert "conv_stage.cuh" in [p.name for p in build._hashed_files()]
+    hashed = [p.name for p in build._hashed_files()]
+    assert "conv_stage.cuh" in hashed and "ffma_stage.cuh" in hashed
     (tmp_path / "k.cu").write_text('#include "s.cuh"\n')
     (tmp_path / "s.cuh").write_text("// one\n")
     (tmp_path / "notes.txt").write_text("one")
@@ -157,8 +175,17 @@ def test_library_hash_covers_headers(monkeypatch, tmp_path):
     ([(9, 1, 64), (1, 64, 32), (5, 32, 1)], (1, 80, 272, 1)),
     ([(3, 3, 16), (3, 16, 8), (3, 8, 3)], (1, 45, 70, 3)),
     ([(9, 1, 12), (1, 12, 4), (5, 4, 1)], (1, 48, 64, 1)),
-], ids=["narrow_9-5-5", "flagship_ragged", "9-1-5", "rgb_3layer", "odd_widths"])
+    ([(9, 1, 64), (5, 64, 32), (5, 32, 1)], (1, 33, 49, 1)),
+    ([(9, 1, 64), (5, 64, 32), (5, 32, 1)], (3, 50, 70, 1)),
+    ([(9, 1, 60), (5, 60, 28), (5, 28, 1)], (1, 60, 90, 1)),
+    ([(9, 1, 40), (9, 40, 56), (3, 56, 1)], (1, 40, 50, 1)),
+], ids=["narrow_9-5-5", "flagship_ragged", "9-1-5", "rgb_3layer", "odd_widths",
+        "flagship_17x33", "flagship_batch3", "flagship_depth_odd_widths", "one_stage_conv2"])
 def test_kernel_matches_plain_on_card(cuda_device, specs, shape):
+    # flagship_17x33: an output one pixel past a 16x16 tile edge both ways;
+    # flagship_depth_odd_widths: n1, n2 not multiples of the kernel's NB
+    # (padded lanes), conv2 streamed in partial chunks; one_stage_conv2:
+    # conv2's weights through a single stage, one input channel a chunk
     # f32 sums of up to 1,600 terms in another order than cuDNN's
     params = params_to_torch(_params(specs, 7), cuda_device)
     x = torch.from_numpy(_x(shape, 8)).to(cuda_device)
