@@ -5,8 +5,9 @@
 
 Builds the CUDA kernels from ``cnn_sr_tpu_torch/csrc`` (``fused_srcnn.cu``,
 the 3-layer luma stack in one launch, and ``conv_layer.cu``, the layer
-chain, one launch per layer, each in f32 on the CUDA cores and in the bf16
-stream on the tensor cores (``tc_stage.cuh``, ``mma.sync``); and the
+chain, one launch per layer, each in f32 on the CUDA cores
+(``ffma_stage.cuh``) and in the bf16 stream on the tensor cores
+(``tc_stage.cuh``, ``mma.sync``); and the
 probes' ``winograd.cu``, ``parity_copy.cu``, ``wino5.cu``, ``rowpair.cu``
 and ``xpack.cu``, the last on the tensor cores), holds each against its
 plain PyTorch version on the card, then drives the port's main paths:
@@ -17,20 +18,21 @@ and three of the in-repo 7-layer RGB checkpoint through
 of the six probes (``cnn_sr_tpu_torch.probes``). Phases, one line each:
 
 1. device: card name and power limit, torch and CUDA versions;
-2. build: each source's ptxas report, the f32 fused kernel's registers
-   (it must not spill), and the HMMA instructions in the SASS of each
-   bf16 entry point's kernels (``cuobjdump -sass``), > 0;
+2. build: each source's ptxas report, the registers of the f32 fused
+   kernel and of every f32 chain kernel instance (none may spill), and the
+   HMMA instructions in the SASS of each bf16 entry point's kernels
+   (``cuobjdump -sass``), > 0;
 3. kernel vs plain, f32: the fused kernel at the flagship (pretrained)
    and 9-1-5 (random, seed 0) stacks; the chain at the RGB (pretrained)
-   stack, a ragged batch of two and the wide 9-5-5 (random). Max
-   |kernel − plain| ≤ 1e-4 absolute and ≤ 1e-4 of the output's largest
+   stack, a ragged batch of two, the wide 9-5-5 and a 4-layer stack with
+   an f=9 layer over 128 channels (random; its window streams in channel
+   chunks). Max |kernel − plain| ≤ 1e-4 absolute and ≤ 1e-4 of the output's largest
    magnitude, because the f32 sums (up to 1,600 terms a layer in the
    fused kernel, 1,152 a layer over seven layers in the chain) are taken
    in another order; and bf16: the fused kernel at the flagship, a
    ragged batch of two and the 9-1-5; the chain at the RGB stack, a
-   ragged batch and a 4-layer stack with an f=9 layer over 128 channels
-   (which f32 refuses). Max |kernel − plain| ≤ 2^-7 of the output's
-   largest magnitude: the products are exact in both, but a sum taken in
+   ragged batch and the same 4-layer stack. Max |kernel − plain| ≤ 2^-7
+   of the output's largest magnitude: the products are exact in both, but a sum taken in
    another order can round an activation to the neighbouring bf16 value;
 4. flagship main path: three requests, each exactly one fused f32 launch
    and no other; 5. RGB main path: three requests, each exactly seven
@@ -358,13 +360,15 @@ def layer_times(params, x, smi, precision="f32") -> None:
     bf16 = precision == "bf16"
     lib = build.load_library()
     stream = torch.cuda.current_stream().cuda_stream
-    operands = entry.bf16_weights(params) if bf16 else [(l["w"], l["b"]) for l in params]
-    parts, src = [], x
     last = len(params) - 1
-    for i, (layer, (wt, bt)) in enumerate(zip(params, operands)):
+    dims = [tuple(l["w"].shape[1:]) for l in params]
+    plans = [entry.tc_layer_plan(*d, i == 0, i == last) if bf16 else entry.layer_plan(*d)
+             for i, d in enumerate(dims)]
+    operands = (entry.bf16_weights(params) if bf16
+                else entry.f32_weights(params, [p.nb for p in plans]))
+    parts, src = [], x
+    for i, (layer, (wt, bt), plan) in enumerate(zip(params, operands, plans)):
         f, _, k, n = layer["w"].shape
-        plan = (entry.tc_layer_plan(f, k, n, i == 0, i == last) if bf16
-                else entry.layer_plan(f, k, n))
         nb, h, w, _ = src.shape
         dst = torch.empty((nb, h - f + 1, w - f + 1, n), device=src.device,
                           dtype=torch.bfloat16 if bf16 and i != last else torch.float32)
@@ -1013,6 +1017,14 @@ def main() -> int:
               f"{report[1]}")
         check(" 0 bytes spill stores, 0 bytes spill loads" in report[1],
               f"fused_srcnn_kernel spills: {report[1]}")
+        chain_kernels = build.ptxas_entries(info["logs"]["conv_layer.cu"], "conv_layer_kernel")
+        check(len(chain_kernels) == 15, f"conv_layer_kernel: {len(chain_kernels)} f32 instances "
+              "in the ptxas report, expected 15 (3 width classes x 5 f)")
+        print("[build] conv_layer_kernel (f32, ffma_stage.cuh), registers of each instance: "
+              + ", ".join(f"{name} {regs}" for name, regs, _ in chain_kernels))
+        for name, _, spill in chain_kernels:
+            check(" 0 bytes spill stores, 0 bytes spill loads" in spill,
+                  f"conv_layer_kernel {name} spills: {spill}")
     build.load_library()
     hmma = sass_hmma()
     print("[build] HMMA instructions in the SASS (cuobjdump -sass): "
@@ -1038,8 +1050,8 @@ def main() -> int:
 
     # the wide 9-5-5 (n1 = 128, n2 = 64) does not fit the fused kernel's f32 tiles
     wide = he([(9, 1, 128), (5, 128, 64), (5, 64, 1)])
-    # an f=9 layer over 128 channels: a 294,912-byte f32 window, refused;
-    # 147,456 bytes in bf16
+    # an f=9 layer over 128 channels: its whole window (294,912 f32 bytes)
+    # exceeds a block's shared memory, so both chains stream it in chunks
     wide_f9 = he([(3, 1, 128), (9, 128, 16), (3, 16, 8), (3, 8, 1)])
 
     fused_errs = [
@@ -1052,7 +1064,9 @@ def main() -> int:
                         (0, 7, 0, 0)),
         kernel_vs_plain("chain RGB 7-layer ragged", params_rgb, (2, 97, 131, 3), SEED + 4,
                         (0, 7, 0, 0)),
-        kernel_vs_plain("chain wide 9-5-5", wide, (1, 80, 272, 1), SEED + 5, (0, 3, 0, 0))]
+        kernel_vs_plain("chain wide 9-5-5", wide, (1, 80, 272, 1), SEED + 5, (0, 3, 0, 0)),
+        kernel_vs_plain("chain f=9 over 128 channels, 4-layer", wide_f9, (1, 80, 272, 1),
+                        SEED + 6, (0, 4, 0, 0))]
     fused_bf16_errs = [
         kernel_vs_plain("flagship 9-5-5", params, (1, 80, 272, 1), SEED, (0, 0, 1, 0), "bf16"),
         kernel_vs_plain("flagship 9-5-5 ragged", params, (2, 97, 131, 1), SEED + 1,

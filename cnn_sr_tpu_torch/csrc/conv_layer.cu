@@ -13,132 +13,235 @@
 // all-phase reduction (mm_last, kernel.py:585-606) or the parity exit
 // (wino_kernel.py:wino_mm_exit). Each of those computes a VALID f x f
 // layer; this kernel computes it directly, NHWC in and NHWC out, with no
-// parity layout and no Winograd transform (whether Winograd pays on this
-// card is a later measurement).
+// parity layout and no Winograd transform (Winograd at k >= 64 is a later
+// measurement).
 //
-// Two entry points: conv_layer_forward (f32, this header) and the bf16
-// stream's conv_layer_forward_bf16 on the tensor cores (tc_stage.cuh; its
-// note is with its kernel below).
+// Two entry points: conv_layer_forward (f32, on ffma_stage.cuh) and the
+// bf16 stream's conv_layer_forward_bf16 on the tensor cores (tc_stage.cuh;
+// its note is with its kernel below).
 //
-// What bounds the f32 one: f32 FMAs on the CUDA cores. The RGB model does 290,016
-// MACs per output pixel, half of them in the 128 -> 128 layer; moving every
-// layer's input and output through device memory costs far less than the
-// FMAs (about 7.4 GB against 1.19 TFLOP per 1080p frame).
+// What bounds the f32 one, by width class (ffma_plan.cuh: ChainPlan): f32
+// FMAs on the CUDA cores in the middle layers (RGB L2-L6: 17.42 ms of the
+// stack's 17.68 ms bound at 67 TFLOP/s, half of it in the 128 -> 128
+// layer); bytes in the first and last layers (L1 3 -> 32 writes 265 MB,
+// 0.086 ms; L7 128 -> 3 reads 1.06 GB, 0.32 ms), where a layer's input and
+// output through device memory cost more than its FMAs.
 //
-// Why one layer per launch and not the whole stack, as on the TPU: the TPU
-// kernel keeps all seven layers' tiles in VMEM; a block here has 227 KB of
-// shared memory, and a 16x16 output tile of a k=128 layer needs 165,888
-// bytes for its input window alone, while the stack's halo is 7 px per
-// side. A fused 7-layer tile would not fit, or would spend most of its
-// FMAs on halo recompute. Fusing pairs of layers is later work.
+// What the design does about it. A block owns a tile of output positions
+// and nblk output channels; each of its threads one item (an FfmaAcc: PX
+// rows of one column for NB channels, the column fastest, then the NB
+// group, then the row block), so that every thread works and a warp's
+// activation reads, 32 columns or 16 columns of two groups, hit distinct
+// banks or one address. The plan picks the class from n (ffma_plan.cuh):
+// NB = 16, PX = 4, 512 threads at n > 64 (a 16x16 tile at n = 128, 64
+// sums a thread, one block an SM); NB = 8, PX = 4, 256 threads at n <= 64
+// (16x16 at n = 32, 8x16 at n = 64, two blocks an SM, so that one block's
+// barriers and window waits overlap the other's FMAs); NB = 4, PX = 2, 512
+// threads at n <= 4 (a 32x32 tile, 512 items: the byte-bound last layer
+// keeps every thread busy; one block an SM, stages of up to 32 channels).
+// The input streams through shared memory kc input channels a stage: the
+// chunk's window [c][x][y] (column stride ffma_col_stride, an odd channel
+// stride), copied from NHWC by 4-byte cp.async with zero fill outside the
+// image, channels fastest so that a warp reads whole 32-byte sectors, and
+// its packed weights (entry.pack_f32 at the class's NB, 16-byte cp.async).
+// Two stages alternate: chunk c + 1 lands while chunk c is computed, one
+// barrier a chunk, and the accumulators stay in registers across chunks.
+// So no layer is refused for its window: a stage needs one channel's
+// window and weights, and a layer of a wide f takes fewer NB groups a
+// block (N over more blocks) until it has them. Stores: NHWC, 16 bytes a store where n % 4 == 0.
 //
-// What the design does: one block per output tile of one image
-// (blockIdx.x/y = tile column/row, blockIdx.z = image) loads the tile's
-// input window, tile + (f - 1), for all k channels into shared memory,
-// channel-major, zero outside the image; conv_stage (conv_stage.cuh) then
-// streams the weights through the rest of shared memory a chunk of input
-// channels at a time, so that the FMA loop reads only shared memory, and
-// stores the ragged-masked result NHWC. The wrapper
-// (ops/fused/chain.py) plans the window and the chunk per layer and
-// launches once per layer on the current stream.
-// Each thread computes 4 output rows of one column for NB output channels.
-// NB = 16 where the layer still has an item for each of the 512 threads
-// (n >= 128 at a 16x16 tile): every activation read then feeds 16 FMAs,
-// and the weights stream through shared memory once per block instead of
-// once per round of items. With NB = 8 there, the 128 -> 128 layer took
-// 38.9 ms at 1080p, with NB = 16 29.7 ms, and the RGB stack 84.9 against
-// 70.9 ms (NVIDIA H100 80GB HBM3, 700 W; chip_smoke.py).
+// Measured (chip_smoke.py [time], [layers]; NVIDIA H100 80GB HBM3, 700 W):
+// the RGB stack at 1080p in 31.67 ms, against 63.28 on the per-tap stage
+// this replaces, cuDNN f32's 44.1 and the 17.68 ms bound; per layer L1-L7
+// 0.232, 1.149, 2.159, 4.012, 7.744, 15.112, 1.261 ms (L2-L6 at 49-59% of
+// the FMA peak, L7 at 4x its byte bound). The flagship as three launches
+// takes 6.62 ms, against the fused kernel's 9.69. ops/fused/tune.py times
+// other shapes a class: two blocks an SM at n <= 4, one at n <= 64, NB =
+// 16 at n <= 64, 256 threads at n > 64 and NB = 8 at n = 128 ran 0.5-5%
+// slower over each class's RGB layers summed (NB = 16 was ahead at L1
+// and L3 alone). A window read 16 bytes (4 channels) at a time and staged
+// in registers across the previous chunk's FMAs ran 1-11% slower than
+// the 4-byte cp.async, in every class, and is not kept.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#include "conv_stage.cuh"
+#include "ffma_stage.cuh"
 #include "tc_stage.cuh"
 
 namespace {
 
-constexpr int kThreads = 512;
-
-template <int NB, int PX, bool VEC, bool RELU>
-__global__ void __launch_bounds__(kThreads)
-    conv_layer_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                      const float* __restrict__ b, float* __restrict__ y, int H, int W, int K,
-                      int f, int n, int tile_h, int tile_w, int wbuf_elems) {
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int OH = H - f + 1, OW = W - f + 1;
-  const int oy0 = blockIdx.y * tile_h;
-  const int ox0 = blockIdx.x * tile_w;
-  const size_t img = blockIdx.z;
-  const int ih = tile_h + f - 1, iw = tile_w + f - 1;
-  // [weight chunk | input window]; the chunk comes first so that its
-  // 16-byte reads are aligned
-  float* wbuf = smem;
-  float* s_in = wbuf + wbuf_elems;
-
-  // input window, NHWC global -> channel-major shared; zero outside the image
-  const float* xi = x + img * H * W * K;
-  const int total = ih * iw * K;
-  for (int i = threadIdx.x; i < total; i += blockDim.x) {
-    const int c = i % K;
-    const int p = i / K;
-    const int gy = oy0 + p / iw, gx = ox0 + p % iw;
-    s_in[c * ih * iw + p] =
-        (gy < H && gx < W) ? __ldg(xi + (static_cast<size_t>(gy) * W + gx) * K + c) : 0.f;
-  }
-  // (the first chunk load in conv_stage synchronises before any read)
-  conv_stage<NB, PX, VEC, RELU, true>(s_in, K, ih, iw, w, b, f, n, wbuf, wbuf_elems,
-                                      y + img * OH * OW * n, tile_h, tile_w, oy0, ox0, OH, OW);
+// 4 bytes global -> shared by cp.async, or 4 zero bytes where !valid (src-size 0)
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(valid ? 4 : 0));
 }
 
-template <int NB, int PX, bool VEC, bool RELU>
-int launch(const float* x, const float* w, const float* b, float* y, int N, int H, int W, int K,
-           int f, int n, int tile_h, int tile_w, int wbuf_elems, int smem_bytes,
-           cudaStream_t stream) {
-  auto kernel = conv_layer_kernel<NB, PX, VEC, RELU>;
+// One f32 layer: x (N, H, W, K) NHWC, w packed (K, f * f, npad), b (npad),
+// y (N, H - f + 1, W - f + 1, n). blockIdx.x = tile column x N split, .y =
+// tile row, .z = image; blockDim.x = the plan's items; p: the layer's
+// ChainPlan (ffma_plan.cuh), passed by value.
+template <int NB, int PX, int F, int THREADS, int BLOCKS>
+__global__ void __launch_bounds__(THREADS, BLOCKS)
+    conv_layer_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                      const float* __restrict__ b, float* __restrict__ y, int H, int W, int K,
+                      int f_rt, int n, int relu, ChainPlan p) {
+  extern __shared__ float4 smem4[];
+  float* const smem = reinterpret_cast<float*>(smem4);
+  const int f = F > 0 ? F : f_rt;
+  const int taps = f * f;
+  const int OH = H - f + 1, OW = W - f + 1;
+  const int nbase = (blockIdx.x % p.nsplit) * p.nblk;
+  const int oy0 = blockIdx.y * p.tile_h, ox0 = (blockIdx.x / p.nsplit) * p.tile_w;
+  const size_t img = blockIdx.z;
+  const float* const xi = x + img * H * W * K;
+  const int t = threadIdx.x;
+  const int xc = t % p.tile_w;
+  const int n0 = (t / p.tile_w) % p.gb * NB;
+  const int row0 = t / (p.tile_w * p.gb) * PX;
+  const int per_ch = taps * p.nblk;
+  const int wfloats = p.kc * per_ch;  // a stage: [weights | window]
+
+  // chunk c's packed weights into the stage at st: cn * taps rows of the
+  // block's nblk columns, 16 bytes a cp.async (not committed)
+  auto load_weights = [&](int c, float* st) {
+    const int c0 = c * p.kc, cn = min(p.kc, K - c0);
+    const int q = p.nblk / 4, pieces = cn * taps * q;
+    const float* ws = w + static_cast<size_t>(c0) * taps * p.npad + nbase;
+    if (p.nblk == p.npad) {
+      for (int i = t; i < pieces; i += blockDim.x) cp_async16(st + 4 * i, ws + 4 * i, true);
+    } else {
+      for (int i = t; i < pieces; i += blockDim.x) {
+        const int r = i / q, j = i - r * q;
+        cp_async16(st + r * p.nblk + 4 * j, ws + static_cast<size_t>(r) * p.npad + 4 * j, true);
+      }
+    }
+  };
+  // chunk c into the stage at st, weights and window by cp.async, the
+  // window an element (cc, wx, wy) a copy, channel fastest, stepped by
+  // blockDim.x without a division per element
+  auto load = [&](int c, float* st) {
+    load_weights(c, st);
+    const int c0 = c * p.kc, cn = min(p.kc, K - c0);
+    float* const win = st + wfloats;
+    const int T = blockDim.x;
+    int cc = t % cn, pos = t / cn;
+    const int dcc = T % cn, dpos = T / cn;
+    int wy = pos / p.iw, wx = pos - wy * p.iw;
+    const int dwy = dpos / p.iw, dwx = dpos - dwy * p.iw;
+    while (wy < p.ih) {
+      const int gy = oy0 + wy, gx = ox0 + wx;
+      const bool valid = gy < H && gx < W;
+      cp_async4(win + cc * p.plane + wx * p.cs + wy,
+                valid ? xi + (static_cast<size_t>(gy) * W + gx) * K + c0 + cc : xi, valid);
+      cc += dcc;
+      wx += dwx;
+      wy += dwy;
+      if (cc >= cn) {
+        cc -= cn;
+        ++wx;
+      }
+      if (wx >= p.iw) {
+        wx -= p.iw;
+        ++wy;
+      }
+    }
+    cp_async_commit();
+  };
+
+  FfmaAcc<NB, PX, F> acc;
+  acc.begin(b + nbase + n0);
+  const int chunks = (K + p.kc - 1) / p.kc;
+  const int col0 = xc * p.cs + row0;
+  auto compute = [&](int c, const float* st) {
+    acc.accumulate(st + wfloats + col0, p.plane, p.cs, st + n0, per_ch, p.nblk, f,
+                   min(p.kc, K - c * p.kc));
+  };
+  load(0, smem);
+  for (int c = 0; c < chunks; ++c) {
+    cp_async_wait_all();
+    __syncthreads();  // chunk c has landed, and every thread is done with chunk c - 1
+    if (c + 1 < chunks) load(c + 1, smem + ((c + 1) & 1) * p.stage_floats);
+    compute(c, smem + (c & 1) * p.stage_floats);
+  }
+
+  float* const yi = y + img * OH * OW * n;
+  const int nc = nbase + n0;
+#define CHAIN_STORE(RELU, VEC)                                                                 \
+  ffma_store<NB, PX, F, RELU, true, VEC>(acc, yi, 0, 0, n, nc, xc, row0, p.tile_h, oy0, ox0, OH, \
+                                         OW)
+  if (n % 4 == 0) {
+    if (relu) CHAIN_STORE(true, true);
+    else CHAIN_STORE(false, true);
+  } else {
+    if (relu) CHAIN_STORE(true, false);
+    else CHAIN_STORE(false, false);
+  }
+#undef CHAIN_STORE
+}
+
+template <int NB, int PX, int THREADS, int BLOCKS, int F>
+int launch_f32(const float* x, const float* w, const float* b, float* y, int N, int H, int W,
+               int K, int f, int n, int relu, const ChainPlan& pl, int smem_bytes,
+               cudaStream_t s) {
+  auto kernel = conv_layer_kernel<NB, PX, F, THREADS, BLOCKS>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int OH = H - f + 1, OW = W - f + 1;
-  const dim3 grid((OW + tile_w - 1) / tile_w, (OH + tile_h - 1) / tile_h, N);
-  kernel<<<grid, kThreads, smem_bytes, stream>>>(x, w, b, y, H, W, K, f, n, tile_h, tile_w,
-                                                 wbuf_elems);
+  const dim3 grid((OW + pl.tile_w - 1) / pl.tile_w * pl.nsplit, (OH + pl.tile_h - 1) / pl.tile_h,
+                  N);
+  kernel<<<grid, pl.items, smem_bytes, s>>>(x, w, b, y, H, W, K, f, n, relu, pl);
   return static_cast<int>(cudaGetLastError());
 }
 
-// 16 channels x 4 rows per thread where that still gives every thread an
-// item (n >= 128 at a 16x16 tile), 8 x 4 where the width is a multiple of
-// 8, both with 16-byte weight reads and stores; 4 channels x 1 row
-// otherwise (narrow last layers)
-template <bool RELU>
-int launch_by_width(const float* x, const float* w, const float* b, float* y, int N, int H,
-                    int W, int K, int f, int n, int tile_h, int tile_w, int wbuf_elems,
-                    int smem_bytes, cudaStream_t s) {
-  if (n % 16 == 0 && (n / 16) * ((tile_h + 3) / 4) * tile_w >= kThreads)
-    return launch<16, 4, true, RELU>(x, w, b, y, N, H, W, K, f, n, tile_h, tile_w, wbuf_elems,
-                                     smem_bytes, s);
-  if (n % 8 == 0)
-    return launch<8, 4, true, RELU>(x, w, b, y, N, H, W, K, f, n, tile_h, tile_w, wbuf_elems,
-                                    smem_bytes, s);
-  return launch<4, 1, false, RELU>(x, w, b, y, N, H, W, K, f, n, tile_h, tile_w, wbuf_elems,
-                                   smem_bytes, s);
+// one width class: f unrolled where it is one of the shipped configs' (1,
+// 3, 5, 9), else in a runtime loop
+template <int NB, int PX, int THREADS, int BLOCKS>
+int launch_class(const float* x, const float* w, const float* b, float* y, int N, int H, int W,
+                 int K, int f, int n, int relu, const ChainPlan& pl, int smem_bytes,
+                 cudaStream_t s) {
+#define LAUNCH_F(F) \
+  launch_f32<NB, PX, THREADS, BLOCKS, F>(x, w, b, y, N, H, W, K, f, n, relu, pl, smem_bytes, s)
+  switch (f) {
+    case 1: return LAUNCH_F(1);
+    case 3: return LAUNCH_F(3);
+    case 5: return LAUNCH_F(5);
+    case 9: return LAUNCH_F(9);
+    default: return LAUNCH_F(0);
+  }
+#undef LAUNCH_F
 }
 
 }  // namespace
 
-// Launches one f32 layer on `stream` and returns cudaGetLastError(). The
-// caller checks the shapes, plans the shared memory (input window plus a
-// weight chunk of wbuf_floats, smem_bytes in all, within the per-block
-// limit) and allocates y (N, H - f + 1, W - f + 1, n).
+// Launches one f32 layer on `stream` and returns cudaGetLastError(). w and
+// b: packed by ops/fused/entry.py:pack_f32 at the layer's class NB (w (K, f
+// * f, npad), b (npad,), zero-padded); y: (N, H - f + 1, W - f + 1, n),
+// 16-byte aligned; ReLU where relu != 0. tile_h, tile_w and kc: the
+// layer's ChainPlan (ffma_plan.cuh, as entry.layer_plan computes it); kc
+// may be any count of input channels a stage from 1 to K. Refused
+// (cudaErrorInvalidValue, nothing launched): a malformed shape, a layer
+// the plan finds no stage for, a tile the plan does not describe, or
+// smem_bytes below what kc needs.
 extern "C" int conv_layer_forward(const float* x, const float* w, const float* b, float* y,
                                   int N, int H, int W, int K, int f, int n, int relu,
-                                  int tile_h, int tile_w, int wbuf_floats, int smem_bytes,
-                                  void* stream) {
+                                  int tile_h, int tile_w, int kc, int smem_bytes, void* stream) {
+  const int bad = static_cast<int>(cudaErrorInvalidValue);
+  if (N <= 0 || N > 65535 || f <= 0 || H < f || W < f || K <= 0 || n <= 0) return bad;
+  ChainPlan pl(f, K, n);
+  if (pl.kc == 0 || tile_h != pl.tile_h || tile_w != pl.tile_w || kc < 1 || kc > K ||
+      (H - f + pl.tile_h) / pl.tile_h > 65535)
+    return bad;
+  pl.set_kc(f, K, kc);
+  if (smem_bytes < pl.smem) return bad;
   const auto s = static_cast<cudaStream_t>(stream);
-  return relu ? launch_by_width<true>(x, w, b, y, N, H, W, K, f, n, tile_h, tile_w, wbuf_floats,
-                                      smem_bytes, s)
-              : launch_by_width<false>(x, w, b, y, N, H, W, K, f, n, tile_h, tile_w, wbuf_floats,
-                                       smem_bytes, s);
+#define LAUNCH_CLASS(C)                                                                        \
+  launch_class<C[0], C[1], C[2], C[3]>(x, w, b, y, N, H, W, K, f, n, relu, pl, smem_bytes, s)
+  if (n <= 4) return LAUNCH_CLASS(kChainNarrow);
+  if (n <= 64) return LAUNCH_CLASS(kChainMid);
+  return LAUNCH_CLASS(kChainWide);
+#undef LAUNCH_CLASS
 }
 
 

@@ -1,7 +1,9 @@
 // ffma_stage: one VALID f x f convolution layer over a shared tile in f32,
 // as a register-tiled FFMA implicit GEMM whose weights stream through
-// shared memory in cp.async stages. fused_srcnn.cu runs its three layers
-// on it.
+// shared memory in cp.async stages. Both f32 kernels of this directory are
+// built from it: fused_srcnn.cu runs three ffma_stage layers a block,
+// conv_layer.cu one layer a launch on its parts (FfmaAcc: begin,
+// accumulate; ffma_store), with the window streamed beside the weights.
 //
 // Tiles are channel-major and column-major, [c][x][y], with an odd column
 // stride (ffma_col_stride): a column is contiguous, so a thread reads its
@@ -17,28 +19,18 @@
 // Weights come packed by ops/fused/entry.py:pack_f32: (k, f * f, npad)
 // f32, npad = n rounded up to NB with zero columns, and a zero-padded
 // (npad,) bias, so a chunk of input channels is one contiguous, 16-byte
-// aligned copy and no lane tests its channel. The shared buffer wbuf holds
-// the whole layer where it fits, else two stages of as many input channels
-// as fit in half of it (chunk c + 1 lands by cp.async while chunk c is
-// computed), else one stage.
+// aligned copy and no lane tests its channel. In the fused kernel the
+// shared buffer wbuf holds the whole layer where it fits, else two stages
+// of as many input channels as fit in half of it (chunk c + 1 lands by
+// cp.async while chunk c is computed), else one stage (FfmaChunks).
 #pragma once
 
 #include <cuda_runtime.h>
 
+#include "ffma_plan.cuh"
 #include "mma.cuh"
 
 namespace {
-
-// The column stride of a tile of `rows` rows read by a layer of f taps and
-// PX rows a thread: odd (conflict-free across columns), and long enough
-// that a thread's last row block reads inside its column.
-// ops/fused/entry.py:col_stride computes the same.
-__host__ __device__ inline int ffma_col_stride(int rows, int f, int px) {
-  const int oh = rows - f + 1;
-  const int need = (oh + px - 1) / px * px + f - 1;
-  const int s = need > rows ? need : rows;
-  return s | 1;
-}
 
 // V consecutive floats at p (16-byte aligned, V a multiple of 4) into v
 template <int V>
@@ -53,31 +45,121 @@ __device__ __forceinline__ void ffma_load(const float* p, float* v) {
   }
 }
 
-// How a layer's packed weights pass through wbuf (wbuf_floats, a multiple
-// of 4): `ck` input channels a chunk, in `stages` buffers of ck * per_ch
-// floats. ops/fused/entry.py:weight_stages computes the same.
-struct FfmaChunks {
-  int ck, stages;
-  __host__ __device__ FfmaChunks(int k, int per_ch, int wbuf_floats) {
-    if (k * per_ch <= wbuf_floats) {
-      ck = k;
-      stages = 1;
-    } else if (2 * per_ch <= wbuf_floats) {
-      ck = (wbuf_floats / 2) / per_ch;
-      stages = 2;
-    } else {
-      ck = wbuf_floats / per_ch;
-      stages = 1;
-    }
-  }
-};
-
 // cn input channels' packed weights (cn * per_ch floats, from src) into
 // dst by 16-byte cp.async copies, every thread of the block taking a share
 __device__ __forceinline__ void ffma_fetch(float* dst, const float* __restrict__ src, int floats) {
   for (int i = threadIdx.x; i < floats / 4; i += blockDim.x)
     cp_async16(dst + 4 * i, src + 4 * i, true);
   cp_async_commit();
+}
+
+// One thread's item of a layer: PX output rows of one column for NB output
+// channels, in registers, summed over as many chunks of input channels as
+// the caller streams through shared memory.
+template <int NB, int PX, int F>
+struct FfmaAcc {
+  static_assert(NB % 4 == 0, "NB must be a multiple of 4");
+  float v[PX][NB];
+
+  // begin: the item's NB biases (b, 16-byte aligned) into every row
+  __device__ __forceinline__ void begin(const float* __restrict__ b) {
+    float bv[NB];
+    ffma_load<NB>(b, bv);
+#pragma unroll
+    for (int q = 0; q < PX; ++q)
+#pragma unroll
+      for (int j = 0; j < NB; ++j) v[q][j] = bv[j];
+  }
+
+  // accumulate: the FMAs of cn input channels in shared memory. ic: the
+  // item's column in the first channel's tile (its first input row), the
+  // next channel plane floats on, rows at stride 1 and columns at stride
+  // is; wc: the first channel's weights at the item's first column, taps
+  // (dy * f + dx) wrow floats apart and channels per_ch apart.
+  __device__ __forceinline__ void accumulate(const float* ic, int plane, int is, const float* wc,
+                                             int per_ch, int wrow, int f_rt, int cn) {
+    const int f = F > 0 ? F : f_rt;
+    for (int cc = 0; cc < cn; ++cc) {
+      const float* icc = ic + cc * plane;
+      const float* wcc = wc + cc * per_ch;
+      if constexpr (F > 0) {
+        auto column = [&](int dx) {
+          float a[PX + F - 1];
+          const float* col = icc + dx * is;
+#pragma unroll
+          for (int r = 0; r < PX + F - 1; ++r) a[r] = col[r];
+#pragma unroll
+          for (int dy = 0; dy < F; ++dy) {
+            float wv[NB];
+            ffma_load<NB>(wcc + (dy * F + dx) * wrow, wv);
+#pragma unroll
+            for (int q = 0; q < PX; ++q)
+#pragma unroll
+              for (int j = 0; j < NB; ++j) v[q][j] = fmaf(a[q + dy], wv[j], v[q][j]);
+          }
+        };
+        if constexpr (F <= 5) {
+#pragma unroll
+          for (int dx = 0; dx < F; ++dx) column(dx);
+        } else {
+#pragma unroll 1
+          for (int dx = 0; dx < F; ++dx) column(dx);
+        }
+      } else {
+        for (int dy = 0; dy < f; ++dy) {
+          for (int dx = 0; dx < f; ++dx) {
+            float wv[NB];
+            ffma_load<NB>(wcc + (dy * f + dx) * wrow, wv);
+            const float* col = icc + dx * is + dy;
+#pragma unroll
+            for (int q = 0; q < PX; ++q) {
+              const float a = col[q];
+#pragma unroll
+              for (int j = 0; j < NB; ++j) v[q][j] = fmaf(a, wv[j], v[q][j]);
+            }
+          }
+        }
+      }
+    }
+  }
+};
+
+// store: the item's rows row0 + q < oh (ReLU'd if RELU), channels n0 + j < n.
+// TO_GLOBAL = false: into shared out[n][ow][os] at column x (gy0 ... gw unused).
+// TO_GLOBAL = true: NHWC into out (one image of (gh, gw, n)) at (gy0 + row,
+// gx0 + x) where inside it; VEC (n % 4 == 0 and n0 % 4 == 0, out 16-byte
+// aligned) in 16-byte stores.
+template <int NB, int PX, int F, bool RELU, bool TO_GLOBAL, bool VEC = false>
+__device__ __forceinline__ void ffma_store(const FfmaAcc<NB, PX, F>& acc, float* out, int os,
+                                           int ow, int n, int n0, int x, int row0, int oh,
+                                           int gy0, int gx0, int gh, int gw) {
+  auto act = [](float a) { return RELU ? fmaxf(a, 0.f) : a; };
+#pragma unroll
+  for (int q = 0; q < PX; ++q) {
+    const int row = row0 + q;
+    if (row >= oh) break;
+    if constexpr (TO_GLOBAL) {
+      const int gy = gy0 + row, gx = gx0 + x;
+      if (gy >= gh || gx >= gw) continue;
+      float* dst = out + (static_cast<size_t>(gy) * gw + gx) * n + n0;
+      if constexpr (VEC) {
+#pragma unroll
+        for (int j = 0; j < NB; j += 4)
+          if (n0 + j < n)
+            *reinterpret_cast<float4*>(dst + j) =
+                make_float4(act(acc.v[q][j]), act(acc.v[q][j + 1]), act(acc.v[q][j + 2]),
+                            act(acc.v[q][j + 3]));
+      } else {
+#pragma unroll
+        for (int j = 0; j < NB; ++j)
+          if (n0 + j < n) dst[j] = act(acc.v[q][j]);
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < NB; ++j)
+        if (n0 + j < n) out[(n0 + j) * ow * os + x * os + row] = act(acc.v[q][j]);
+    }
+  }
 }
 
 // One layer: VALID cross-correlation of the shared tile in[k][iw][is] (ih
@@ -124,60 +206,11 @@ __device__ void ffma_stage(const float* in, int k, int ih, int iw, int is,
     // and their outputs never stored
     const int col0 = x * is + row0;
 
-    float acc[PX][NB];
-    {
-      float bv[NB];
-      ffma_load<NB>(b + n0, bv);
-#pragma unroll
-      for (int q = 0; q < PX; ++q)
-#pragma unroll
-        for (int j = 0; j < NB; ++j) acc[q][j] = bv[j];
-    }
-
+    FfmaAcc<NB, PX, F> acc;
+    acc.begin(b + n0);
     // the FMAs of cn input channels from c0, their weights at ws
     auto compute = [&](const float* ws, int c0, int cn) {
-      for (int cc = 0; cc < cn; ++cc) {
-        const float* ic = in + (c0 + cc) * plane + col0;
-        const float* wc = ws + cc * per_ch + n0;
-        if constexpr (F > 0) {
-          auto column = [&](int dx) {
-            float a[PX + F - 1];
-            const float* col = ic + dx * is;
-#pragma unroll
-            for (int r = 0; r < PX + F - 1; ++r) a[r] = col[r];
-#pragma unroll
-            for (int dy = 0; dy < F; ++dy) {
-              float wv[NB];
-              ffma_load<NB>(wc + (dy * F + dx) * npad, wv);
-#pragma unroll
-              for (int q = 0; q < PX; ++q)
-#pragma unroll
-                for (int j = 0; j < NB; ++j) acc[q][j] = fmaf(a[q + dy], wv[j], acc[q][j]);
-            }
-          };
-          if constexpr (F <= 5) {
-#pragma unroll
-            for (int dx = 0; dx < F; ++dx) column(dx);
-          } else {
-#pragma unroll 1
-            for (int dx = 0; dx < F; ++dx) column(dx);
-          }
-        } else {
-          for (int dy = 0; dy < f; ++dy) {
-            for (int dx = 0; dx < f; ++dx) {
-              float wv[NB];
-              ffma_load<NB>(wc + (dy * f + dx) * npad, wv);
-              const float* col = ic + dx * is + dy;
-#pragma unroll
-              for (int q = 0; q < PX; ++q) {
-                const float a = col[q];
-#pragma unroll
-                for (int j = 0; j < NB; ++j) acc[q][j] = fmaf(a, wv[j], acc[q][j]);
-              }
-            }
-          }
-        }
-      }
+      acc.accumulate(in + c0 * plane + col0, plane, is, ws + n0, per_ch, npad, f, cn);
     };
 
     if (nchunks == 1) {
@@ -208,25 +241,8 @@ __device__ void ffma_stage(const float* in, int k, int ih, int iw, int is,
       }
     }
     if (!active) continue;
-
-#pragma unroll
-    for (int q = 0; q < PX; ++q) {
-      const int row = row0 + q;
-      if (row >= oh) break;
-      if constexpr (TO_GLOBAL) {
-        const int gy = gy0 + row, gx = gx0 + x;
-        if (gy >= gh || gx >= gw) continue;
-        float* dst = out + (static_cast<size_t>(gy) * gw + gx) * n + n0;
-#pragma unroll
-        for (int j = 0; j < NB; ++j)
-          if (n0 + j < n) dst[j] = RELU ? fmaxf(acc[q][j], 0.f) : acc[q][j];
-      } else {
-#pragma unroll
-        for (int j = 0; j < NB; ++j)
-          if (n0 + j < n)
-            out[(n0 + j) * ow * os + x * os + row] = RELU ? fmaxf(acc[q][j], 0.f) : acc[q][j];
-      }
-    }
+    ffma_store<NB, PX, F, RELU, TO_GLOBAL>(acc, out, os, ow, n, n0, x, row0, oh, gy0, gx0, gh,
+                                           gw);
   }
 }
 

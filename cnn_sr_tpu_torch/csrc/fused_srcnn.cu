@@ -44,7 +44,7 @@
 //   flagship's 20x20x32 tile: PX = 5, NB = 4, so 8 channel groups x 4 row
 //   blocks x 20 columns = 640 items, one a thread, none idle; 100 FFMAs per
 //   14 shared loads (9 activations, 5 weight float4s) per input channel and
-//   dx, against 32 per 6 in conv_stage.cuh, which this stage replaces here.
+//   dx, against 32 per 6 in the per-tap loop it replaced.
 //   conv1 (24x24x64: PX = 4, NB = 8) takes 1,152 items in two passes (90%
 //   of the slots); conv3 (16x16, n3 <= 4: PX = 2, NB = 4) 128. Shapes with
 //   more FFMAs a load but fewer warps measured slower
@@ -59,11 +59,12 @@
 //   and only in-image outputs are stored.
 //
 // Measured (chip_smoke.py [time], NVIDIA H100 80GB HBM3, 700 W): the
-// flagship at 1080p in 9.65 ms, against 20.28 for the conv_stage.cuh
-// kernel this replaces, cuDNN f32's 13.42 and the 3.48 ms bound: 58% of
+// flagship at 1080p in 9.65 ms, against 20.28 for the per-tap stage it
+// replaced, cuDNN f32's 13.42 and the 3.48 ms bound: 58% of
 // the FMA peak on the MACs executed at this tile. 9-1-5 in 2.12 ms (was
 // 4.93; cuDNN f32 7.19). The same flagship stack as the chain's three f32
-// launches takes 14.4 ms, so fusion pays in f32.
+// launches (conv_layer.cu on the same stage, no halo recompute) takes 6.62
+// ms, so in f32 too the chain now beats fusion (ROADMAP Queue 2).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

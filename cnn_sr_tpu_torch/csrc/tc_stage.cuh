@@ -1,7 +1,7 @@
 // tc_stage: one VALID f x f layer of the bf16 stream on the tensor cores, the
 // stage that both bf16 kernels of this directory are built from
 // (fused_srcnn.cu runs three per block, conv_layer.cu one per launch). The
-// f32 kernels stay on conv_stage.cuh.
+// f32 kernels run on ffma_stage.cuh.
 //
 // Replaces, with the two kernels, the TPU kernel
 // cnn_sr_tpu/ops/pallas_fused/kernel.py:_fused_tail_single (pl.pallas_call

@@ -106,22 +106,29 @@ def build() -> dict:
     return {"path": str(path), "seconds": time.perf_counter() - t0, "logs": logs}
 
 
-def ptxas_entry(log: str, name: str):
-    """``(registers, spill line)`` of the first kernel whose mangled name
-    holds ``name`` in a ptxas ``-v`` report (``build()["logs"]``), or
-    None."""
-    regs = spill = None
-    inside = False
+def ptxas_entries(log: str, name: str) -> list:
+    """``(mangled name, registers, spill line)`` of every kernel whose
+    mangled name holds ``name`` in a ptxas ``-v`` report
+    (``build()["logs"]``), in the report's order."""
+    out, cur = [], None
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
-            if inside:
-                break
-            inside = name in ln
-        elif inside and "spill" in ln:
-            spill = ln.strip()
-        elif inside and "Used" in ln and "registers" in ln:
-            regs = int(ln.split("Used")[1].split("registers")[0])
-    return None if regs is None else (regs, spill)
+            cur = None
+            if name in ln:
+                cur = [ln.split("'")[1] if "'" in ln else ln.strip(), None, None]
+                out.append(cur)
+        elif cur is not None and "spill" in ln:
+            cur[2] = ln.strip()
+        elif cur is not None and "Used" in ln and "registers" in ln:
+            cur[1] = int(ln.split("Used")[1].split("registers")[0])
+    return [tuple(e) for e in out if e[1] is not None]
+
+
+def ptxas_entry(log: str, name: str):
+    """``(registers, spill line)`` of the first kernel whose mangled name
+    holds ``name`` in a ptxas ``-v`` report, or None."""
+    entries = ptxas_entries(log, name)
+    return entries[0][1:] if entries else None
 
 
 @functools.lru_cache(maxsize=None)

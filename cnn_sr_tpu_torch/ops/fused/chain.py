@@ -5,11 +5,14 @@ stack outside the fused kernel's envelope (the 7-layer RGB model first).
 ``entry`` checks the shapes and plans each layer (``entry.layer_plan``
 in f32, ``entry.tc_layer_plan`` in bf16); ``chain_forward`` allocates two
 intermediates, ping-pongs the layers through them and writes the last
-layer into a fresh f32 output. In bf16 (on the tensor cores) the
-intermediates are bf16, the weights packed tap-major
-(``entry.bf16_weights``), the first layer quantises the f32 input at its
-window load and the last writes f32. Its plain version is
-``reference.fused_forward``, the same as the fused kernel's;
+layer into a fresh f32 output. In f32 (on the CUDA cores,
+``csrc/ffma_stage.cuh``) each layer's weights are packed channel-major at
+its plan's NB (``entry.f32_weights``) and its input window streams
+through shared memory beside them, a chunk of input channels at a time.
+In bf16 (on the tensor cores) the intermediates are bf16, the weights
+packed tap-major (``entry.bf16_weights``), the first layer quantises the
+f32 input at its window load and the last writes f32. Its plain version
+is ``reference.fused_forward``, the same as the fused kernel's;
 ``reference.tap_layer`` is the plain version of one bf16 launch.
 """
 
@@ -30,8 +33,9 @@ def layer_forward(lib, src: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                   dst: torch.Tensor, plan, first: bool, last: bool, bf16: bool,
                   stream: int) -> None:
     """Launch one layer of ``src`` (N, H, W, K) into ``dst`` (N, H', W', n)
-    on ``stream``. f32: ``w`` HWIO, ``plan`` an ``entry.LayerPlan``, ReLU
-    unless ``last``. bf16: ``w`` and ``b`` from ``entry.pack_bf16``,
+    on ``stream``. f32: ``w`` and ``b`` from ``entry.pack_f32`` at
+    ``plan.nb``, ``plan`` an ``entry.LayerPlan``, ReLU unless ``last``.
+    bf16: ``w`` and ``b`` from ``entry.pack_bf16``,
     ``plan`` an ``entry.TcPlan``, ``src`` f32 when ``first`` else bf16,
     ``dst`` f32 when ``last`` else bf16, ReLU unless ``last``."""
     global LAUNCHES, LAUNCHES_BF16
@@ -41,8 +45,9 @@ def layer_forward(lib, src: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
         err = lib.conv_layer_forward_bf16(*args, plan.f, dst.shape[3], int(first), int(last),
                                           plan.kc, plan.tps, plan.smem, stream)
     else:
-        err = lib.conv_layer_forward(*args, w.shape[0], dst.shape[3], int(not last),
-                                     plan.tile_h, plan.tile_w, plan.chunk, plan.smem, stream)
+        f = src.shape[1] - dst.shape[1] + 1
+        err = lib.conv_layer_forward(*args, f, dst.shape[3], int(not last), plan.tile_h,
+                                     plan.tile_w, plan.kc, plan.smem, stream)
     if err:
         raise RuntimeError(f"conv_layer{'_bf16' if bf16 else ''} launch failed: "
                            + lib.cnn_sr_error_string(err).decode())
@@ -61,10 +66,10 @@ def chain_forward(params, x: torch.Tensor, plans, bf16: bool = False) -> torch.T
     if not x.is_cuda:
         raise NotImplementedError(f"conv_layer.cu runs on CUDA tensors, not {x.device}")
     from .build import load_library
-    from .entry import bf16_weights
+    from .entry import bf16_weights, f32_weights
 
     lib = load_library()
-    operands = bf16_weights(params) if bf16 else [(l["w"], l["b"]) for l in params]
+    operands = bf16_weights(params) if bf16 else f32_weights(params, [p.nb for p in plans])
     n, h, w, _ = x.shape
     shapes = []
     for layer in params:

@@ -10,9 +10,9 @@ by ``route``, a pure function of the shapes:
 * ``csrc/conv_layer.cu`` through ``chain.chain_forward``, one launch per
   layer, for every other well-formed stack (the 7-layer RGB model).
 
-``precision="f32"`` runs them in f32 on the CUDA cores (the fused
-kernel on ``csrc/ffma_stage.cuh``, its weights packed once by
-``pack_f32``; the chain on ``csrc/conv_stage.cuh``). ``precision="bf16"``
+``precision="f32"`` runs them in f32 on the CUDA cores, both on
+``csrc/ffma_stage.cuh`` with weights packed once by ``pack_f32`` (the
+chain's plan per layer: ``layer_plan``). ``precision="bf16"``
 runs the JAX package's bf16 stream with the int8 first layer
 (``reference`` states the numbers) on the tensor cores
 (``csrc/tc_stage.cuh``), with its own plans (``tc_layer_plan``,
@@ -22,8 +22,12 @@ runs the JAX package's bf16 stream with the int8 first layer
 takes its f32 route. A stack may take the fused kernel in f32 and the
 chain in bf16 (the wide 9-5-5: its bf16 tiles do not fit one block).
 
-A stack with a layer whose input window does not fit in shared memory
-raises NotImplementedError on every device, before any launch. A CPU
+Both chains stream a layer's input window through shared memory a chunk
+of input channels at a time, so no well-formed stack is refused for its
+width; an f32 layer one input channel of whose window and weights
+exceeds a block's shared memory even at NB output channels a block (an
+f of about 50 or more) raises NotImplementedError on every device,
+before any launch. A CPU
 tensor takes the plain version (``reference.fused_forward``) on either
 route; a CUDA tensor always takes the kernel of its route and precision,
 or raises. There is no fallback from one to another.
@@ -46,8 +50,9 @@ LAUNCHES_BF16 = 0
 
 TILE_H = TILE_W = 16
 SMEM_LIMIT = 232_448  # dynamic shared memory a block may opt into on sm_90
+SM_SMEM = 233_472  # shared memory of an SM
+SM_RESERVE = 1_024  # shared bytes the runtime keeps for each resident block
 ELEM_BYTES = {"f32": 4, "bf16": 2}  # bytes of a stored activation or weight
-_ROADMAP = "ROADMAP.md Queue 2"
 
 
 # (output channels, output rows) a thread of the f32 fused kernel computes
@@ -125,36 +130,91 @@ def weight_stages(f: int, k: int, npad: int, wbuf: int):
     return wbuf // per_ch, 1
 
 
+# The f32 chain's width classes, by a layer's n (kChainNarrow, kChainMid,
+# kChainWide in csrc/ffma_plan.cuh): (NB output channels and PX output
+# rows a thread, the most threads a block, the blocks an SM its registers
+# and shared memory are sized for, the most input channels a stage)
+CHAIN_SHAPE = {"narrow": (4, 2, 512, 1, 32), "mid": (8, 4, 256, 2, 16),
+               "wide": (16, 4, 512, 1, 16)}
+CHAIN_GROUPS = 8  # the most NB-column groups a block (kChainGroups)
+
+
+def chain_class(n: int) -> str:
+    """The f32 chain's width class of a layer of n output channels."""
+    return "narrow" if n <= 4 else "mid" if n <= 64 else "wide"
+
+
 class LayerPlan(NamedTuple):
-    """One f32 chain launch: the output tile of a block, the floats of its
-    weight chunk and its dynamic shared bytes (window plus chunk)."""
+    """One f32 chain launch (``conv_layer_forward``), as ``ChainPlan`` in
+    ``csrc/ffma_plan.cuh`` computes it: the width class's (NB, PX), the
+    block's output tile, its threads (one item each: PX rows of one
+    column for NB channels) and its ``nblk`` output columns, the input
+    channels a stage, the stages and the dynamic shared bytes."""
+    nb: int
+    px: int
     tile_h: int
     tile_w: int
-    chunk: int
+    items: int
+    nblk: int
+    kc: int
+    stages: int
     smem: int
 
 
-def window_bytes(f: int, k: int) -> int:
-    """Shared bytes of an f32 chain block's input window: the output tile
-    plus its (f − 1) halo, all k channels."""
-    return 4 * k * (TILE_H + f - 1) * (TILE_W + f - 1)
-
-
 def layer_plan(f: int, k: int, n: int) -> LayerPlan:
-    """The f32 chain's plan for one f×f layer from k to n channels: the
-    rest of the block's shared memory beside the window carries the
-    weights, a chunk of input channels at a time. Raises
-    NotImplementedError when the window and one input channel's weights do
-    not fit."""
-    win = window_bytes(f, k)
-    chunk = _weight_chunk(win, [(f, k, n)])
-    if chunk is None:
-        raise NotImplementedError(
-            f"a {TILE_H}x{TILE_W} tile of an f={f} layer over {k} channels needs "
-            f"{win} shared bytes for its window plus {4 * f * f * n} for weights "
-            f"(> {SMEM_LIMIT}); such layers need the tensor-core kernel "
-            f"({_ROADMAP} #1)")
-    return LayerPlan(TILE_H, TILE_W, chunk, win + 4 * chunk)
+    """The f32 chain's plan for one f×f layer from k to n channels.
+
+    n pads to npad, a multiple of the class's NB: npad / NB groups, of
+    which a block takes the largest divisor up to CHAIN_GROUPS (``nblk``
+    columns; the rest of N in more blocks) whose stage of one input
+    channel fits. The tile is 32 columns wide for one group a block, else
+    16, and as many row blocks of PX rows (at most 32 rows) as the class's
+    threads allow; a block launches exactly its items. A stage holds kc
+    input channels of window ([c][x][y], column stride ``col_stride``, an
+    odd channel stride) and packed weights; kc is the most, up to the
+    class's cap and k, whose stages (two where kc < k) fit the shared
+    memory of one of the class's blocks an SM (else of a block alone on
+    its SM), then evened out over the chunks. Raises NotImplementedError
+    when not even one input channel fits at one group a block."""
+    return _layer_plan(f, k, n, CHAIN_SHAPE[chain_class(n)])
+
+
+def _layer_plan(f: int, k: int, n: int, shape) -> LayerPlan:
+    """``layer_plan`` at the width class ``shape`` (a ``CHAIN_SHAPE``
+    value; ``tune`` passes others)."""
+    nb, px, threads, blocks, kcmax = shape
+    npad = n_pad_f32(n, nb)
+    groups = npad // nb
+    share = min(SMEM_LIMIT, SM_SMEM // blocks - SM_RESERVE)
+    for gb in range(min(CHAIN_GROUPS, groups), 0, -1):
+        if groups % gb:
+            continue
+        nblk = gb * nb
+        tile_w = 32 if gb == 1 else 16
+        rb = min(threads // (gb * tile_w), -(-32 // px))
+        tile_h = rb * px
+        items = gb * rb * tile_w
+        ih, iw = tile_h + f - 1, tile_w + f - 1
+        plane = iw * col_stride(ih, f, px) | 1
+
+        def smem(kc):  # a stage: kc·f²·nblk weights and kc·plane window, 16-byte aligned
+            return 4 * (2 if kc < k else 1) * (-(-kc * (f * f * nblk + plane) // 4) * 4)
+
+        def fit(budget):
+            kc = min(k, kcmax)
+            while kc > 0 and smem(kc) > budget:
+                kc -= 1
+            return kc
+
+        kc = fit(share) or fit(SMEM_LIMIT)
+        if kc:
+            kc = -(-k // -(-k // kc))  # even chunks
+            return LayerPlan(nb, px, tile_h, tile_w, items, nblk, kc, 2 if kc < k else 1,
+                             smem(kc))
+    raise NotImplementedError(
+        f"an f={f} layer to {n} channels needs {smem(1)} shared bytes for the window and "
+        f"weights of one input channel at {nb} output channels a block "
+        f"({'one stage' if k == 1 else 'two stages'}; > {SMEM_LIMIT})")
 
 
 # The bf16 kernels (tensor cores, csrc/tc_stage.cuh): padded widths, the
@@ -267,7 +327,7 @@ def route(c: int, layers, elem: int = 4):
     """The kernel for ``layers`` = ((f, k, n), ...) over ``c`` input
     channels at ``elem`` bytes an element (4: f32, 2: the bf16 stream).
     f32: ``("fused", (wbuf, smem))`` (``smem_plan``) for a stack the
-    fused kernel takes, else ``("chain", [LayerPlan, ...])``. bf16:
+    fused kernel takes, else ``("chain", [LayerPlan, ...])`` (``layer_plan``). bf16:
     ``("fused", smem)`` or ``("chain", [TcPlan, ...])``. The fused kernels take 3-layer stacks
     with c ≤ 4 and n_out ≤ 4 whose tiles fit one block. Raises
     NotImplementedError for a stack neither kernel takes."""
@@ -299,8 +359,8 @@ def bf16_envelope(c: int, layers, h: int, w: int) -> bool:
 
 def _check(params, x, precision: str = "f32"):
     """Raise ValueError for malformed input and NotImplementedError for a
-    well-formed stack that no kernel takes, on every device, so the CPU
-    and CUDA paths take the same stacks. Returns ``(precision, kind,
+    well-formed stack that no kernel takes (``layer_plan``), on every
+    device, so the CPU and CUDA paths take the same stacks. Returns ``(precision, kind,
     plan)``: the precision the stack runs in (bf16 only inside
     ``bf16_envelope``) and ``route``'s answer for it."""
     if precision not in reference.PRECISIONS:
@@ -387,14 +447,16 @@ def _packed(w: torch.Tensor, b: torch.Tensor, attr: str, key, pack):
 
 
 def packed_f32(w: torch.Tensor, b: torch.Tensor, nb: int):
-    """``pack_f32(w, b, nb)``, made once per weight tensor (and again only
-    after ``w`` or ``b`` changes in place)."""
-    return _packed(w, b, "_cnn_sr_f32", nb, lambda: pack_f32(w, b, nb))
+    """``pack_f32(w, b, nb)``, made once per weight tensor and ``nb`` (and
+    again only after ``w`` or ``b`` changes in place): the fused kernel and
+    the chain may pack one weight at two NBs, each kept apart."""
+    return _packed(w, b, f"_cnn_sr_f32_nb{nb}", nb, lambda: pack_f32(w, b, nb))
 
 
 def f32_weights(params, nbs=FUSED_NB):
-    """The f32 fused kernel's ``(weights, bias)`` of its three layers
-    (``packed_f32`` at ``nbs``)."""
+    """The f32 kernels' ``(weights, bias)`` of each layer (``packed_f32``
+    at ``nbs``: the fused kernel's by default, or each chain plan's
+    ``nb``)."""
     return [packed_f32(layer["w"], layer["b"], nb) for layer, nb in zip(params, nbs)]
 
 

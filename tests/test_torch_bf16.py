@@ -203,10 +203,11 @@ def test_bf16_shared_memory_plan_matches_the_design():
     plan = entry.tc_layer_plan(3, 3, 32, first=True)
     assert 2 * (18 * 16 * 24 + 3 * 16 * 40) < 2 * 256 * 40
     assert (plan.kc, plan.tps, plan.smem) == (16, 3, 2 * 256 * 40)
-    # f=9 over 128 channels: refused in f32, admitted in bf16 (a 24²·136
-    # window beside two stages of six taps)
-    with pytest.raises(NotImplementedError, match="294912 shared bytes"):
-        entry.layer_plan(9, 128, 16)
+    # f=9 over 128 channels: admitted in f32 (its window streamed in
+    # chunks of 6 channels beside their weights, two stages) and in bf16
+    # (a 24²·136 window beside two stages of six taps)
+    plan32 = entry.layer_plan(9, 128, 16)
+    assert (plan32.kc, plan32.stages) == (6, 2) and plan32.smem <= entry.SMEM_LIMIT
     plan = entry.tc_layer_plan(9, 128, 16)
     assert (plan.kc, plan.tps) == (128, 6) and plan.smem == 2 * (24 * 24 * 136 + 12 * 128 * 24)
     kind, plans = entry.route(1, WIDE_F9, 2)

@@ -158,6 +158,31 @@ def test_tune_variants_rewrite_the_block_shape(name):
         tune.variant_source("// no shape here\n", threads, shape)
 
 
+@pytest.mark.parametrize("name", ["shipped"] + sorted(tune.CHAIN_VARIANTS))
+def test_tune_chain_variants_rewrite_the_classes(name):
+    """``ops/fused/tune.py`` builds each chain variant from the shipped
+    ``ffma_plan.cuh`` with only its width classes replaced ("shipped": the
+    header as it is, whose classes are ``entry.CHAIN_SHAPE``), and each
+    plans every checked layer within a block's shared memory, one item a
+    thread."""
+    src = (build.CSRC / "ffma_plan.cuh").read_text()
+    shapes = tune.chain_shapes(name)
+    got = tune.chain_variant_source(src, shapes)
+    for cls, vals in shapes.items():
+        decl = f"constexpr int kChain{cls.capitalize()}[5] = {{{', '.join(map(str, vals))}}};"
+        assert decl in got
+    assert len(got.splitlines()) == len(src.splitlines())
+    if name == "shipped":
+        assert got == src
+    for specs in [tune.RGB7] + tune.CHAIN_CHECKED:
+        for f, k, n in specs:
+            plan = tune.chain_plan(shapes, f, k, n)
+            assert plan.smem <= entry.SMEM_LIMIT
+            assert plan.items <= shapes[entry.chain_class(n)][2]
+    with pytest.raises(ValueError):
+        tune.chain_variant_source("// no classes here\n", shapes)
+
+
 def test_ptxas_entry_reads_one_kernels_report():
     log = "\n".join([
         "ptxas info    : Compiling entry function '_ZN2_118fused_srcnn_tc_kernelEv' for 'sm_90a'",
@@ -172,3 +197,6 @@ def test_ptxas_entry_reads_one_kernels_report():
     assert regs == 255 and spill.startswith("8 bytes stack frame, 4 bytes spill stores")
     assert build.ptxas_entry(log, "fused_srcnn_tc_kernel")[0] == 128
     assert build.ptxas_entry(log, "conv_layer_kernel") is None
+    # every instance, in the report's order
+    assert [e[1] for e in build.ptxas_entries(log, "fused_srcnn")] == [128, 255]
+    assert build.ptxas_entries(log, "fused_srcnn_kernel")[0][0] == "_ZN2_118fused_srcnn_kernelEv"

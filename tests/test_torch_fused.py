@@ -62,12 +62,17 @@ def test_cpu_matches_jax_pallas_interpret():
     ([(3, 3, 8), (3, 8, 8), (3, 8, 5)], (1, 30, 30, 3), None),
     ([(3, 5, 8), (3, 8, 8), (3, 8, 1)], (1, 30, 30, 5), None),
     ([(9, 1, 128), (5, 128, 64), (5, 64, 1)], (1, 30, 30, 1), None),
-    ([(3, 1, 128), (9, 128, 8), (3, 8, 1)], (1, 40, 40, 1), "shared bytes"),
-], ids=["2-layer", "4-layer", "n_out", "c_in", "smem", "f9_k128"])
+    ([(3, 1, 128), (9, 128, 8), (3, 8, 1)], (1, 40, 40, 1), None),
+    ([(3, 1, 8), (25, 8, 128), (3, 128, 1)], (1, 40, 40, 1), None),
+    ([(3, 1, 8), (55, 8, 128), (3, 128, 1)], (1, 64, 64, 1), "shared bytes"),
+], ids=["2-layer", "4-layer", "n_out", "c_in", "smem", "f9_k128", "f25_n128", "f55_n128"])
 def test_outside_envelope_raises_on_every_device(specs, shape, refusal):
     """Outside the fused kernel's envelope. A stack the layer chain takes
-    is routed to it and matches the JAX package's XLA forward; a stack
-    with a layer that fits no block's shared memory is refused on every
+    is routed to it and matches the JAX package's XLA forward (f9_k128:
+    its f=9 layer's window over 128 channels streams in channel chunks;
+    f25_n128: its f=25 layer takes 32 of 128 columns a block); a stack
+    with a layer one input channel of whose window and weights fits no
+    block's shared memory at NB columns a block is refused on every
     device, never served by the plain version instead."""
     from cnn_sr_tpu.models import forward as jforward
 
@@ -148,14 +153,15 @@ def test_build_names_library_by_source_hash_and_needs_nvcc(monkeypatch, tmp_path
 
 
 def test_library_hash_covers_headers(monkeypatch, tmp_path):
-    """The kernels include shared headers (``conv_stage.cuh``,
+    """The kernels include shared headers (``ffma_plan.cuh``,
     ``ffma_stage.cuh``): an edited header must rebuild, though only the
     ``.cu`` files are compiled."""
     assert [p.name for p in build._sources()] == ["conv_layer.cu", "fused_srcnn.cu",
                                                   "parity_copy.cu", "rowpair.cu", "wino5.cu",
                                                   "winograd.cu", "xpack.cu"]
     hashed = [p.name for p in build._hashed_files()]
-    assert "conv_stage.cuh" in hashed and "ffma_stage.cuh" in hashed
+    assert "ffma_plan.cuh" in hashed and "ffma_stage.cuh" in hashed
+    assert "conv_stage.cuh" not in hashed  # the f32 chain runs on ffma_stage.cuh
     (tmp_path / "k.cu").write_text('#include "s.cuh"\n')
     (tmp_path / "s.cuh").write_text("// one\n")
     (tmp_path / "notes.txt").write_text("one")
@@ -199,8 +205,10 @@ def test_kernel_matches_plain_on_card(cuda_device, specs, shape):
 
 @pytest.mark.cuda
 def test_cuda_outside_envelope_raises_without_launch(cuda_device):
-    params = params_to_torch(_params([(3, 1, 128), (9, 128, 8), (3, 8, 1)], 9), cuda_device)
+    # a layer one input channel of whose window and weights (f = 55 to
+    # 128 columns) fits no block's shared memory: refused before any launch
+    params = params_to_torch(_params([(3, 1, 8), (55, 8, 128), (3, 128, 1)], 9), cuda_device)
     before = (entry.LAUNCHES, chain.LAUNCHES)
-    with pytest.raises(NotImplementedError):
-        fused_forward(params, torch.zeros((1, 40, 40, 1), device=cuda_device))
+    with pytest.raises(NotImplementedError, match="shared bytes"):
+        fused_forward(params, torch.zeros((1, 64, 64, 1), device=cuda_device))
     assert (entry.LAUNCHES, chain.LAUNCHES) == before
