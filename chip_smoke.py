@@ -19,8 +19,9 @@ of the six probes (``cnn_sr_tpu_torch.probes``). Phases, one line each:
 
 1. device: card name and power limit, torch and CUDA versions;
 2. build: each source's ptxas report, the registers of the f32 fused
-   kernel and of every f32 chain kernel instance (none may spill), and the
-   HMMA instructions in the SASS of each bf16 entry point's kernels
+   kernel, of every f32 chain kernel instance and of every ``winograd.cu``
+   instance (none may spill), and the HMMA instructions in the SASS of
+   each bf16 entry point's kernels and of ``winograd_f2x3_forward``'s
    (``cuobjdump -sass``), > 0;
 3. kernel vs plain, f32: the fused kernel at the flagship (pretrained)
    and 9-1-5 (random, seed 0) stacks; the chain at the RGB (pretrained)
@@ -73,7 +74,8 @@ of the six probes (``cnn_sr_tpu_torch.probes``). Phases, one line each:
    just before and read just after; then the kernels against their plain versions: the strided
    roundtrip and the parity layouts bit-equal, the input transform
    bit-equal, ``winograd_f2x3`` in its three modes (three pairs, 24x256
-   outputs, and again at 1080p) and ``repack`` within 2^-7 of the
+   outputs, k = MAX_K on a ragged tile grid, and again at 1080p) and
+   ``repack`` within 2^-7 of the
    output's magnitude with ≥ 99.9% of the elements bit-equal; and times
    at the RGB model's 1080p L5/L6 shapes (64→128, 128→128, and 128→64 at
    L6's shape) of each of ``winograd.layer_variants``: each Winograd
@@ -412,14 +414,17 @@ def fused_vs_chain(params, x, smi, precision="f32") -> None:
 
 def sass_hmma() -> dict:
     """HMMA instructions in the SASS of each bf16 entry point's kernels in
-    the built library (``cuobjdump -sass``, beside ``nvcc``): the proof that
-    they run on the tensor cores."""
+    the built library (``cuobjdump -sass``, beside ``nvcc``), the Winograd
+    layer's six instances among them: the proof that they run on the
+    tensor cores."""
     tool = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
     sass = subprocess.run([tool, "-sass", build.library_path()], capture_output=True, text=True,
                           check=True, timeout=300).stdout
-    counts = {"fused_srcnn_forward_bf16": 0, "conv_layer_forward_bf16": 0}
+    counts = {"fused_srcnn_forward_bf16": 0, "conv_layer_forward_bf16": 0,
+              "winograd_f2x3_forward": 0}
     kernel = {"fused_srcnn_tc_kernel": "fused_srcnn_forward_bf16",
-              "conv_layer_tc_kernel": "conv_layer_forward_bf16"}
+              "conv_layer_tc_kernel": "conv_layer_forward_bf16",
+              "winograd_kernel": "winograd_f2x3_forward"}
     for part in sass.split("Function : ")[1:]:
         name = part.split("\n", 1)[0]
         for key, entry_point in kernel.items():
@@ -520,10 +525,25 @@ def probe_phase(smi) -> list:
                                         winograd.winograd_f2x3_plain(x, u, hw, mode)))
         gb = torch.from_numpy(g).to(dev, torch.bfloat16)
         agree_bf16(f"repack {k}->{n}", winograd.repack(act, gb), winograd.repack_plain(act, gb))
+    # the widest layer the kernel takes, where U streams in stages of part
+    # of a position, on a ragged tile grid (out 20x68: 10 x 34 tiles)
+    k, hw_r = winograd.MAX_K, (20, 68)
+    act = torch.from_numpy((rng.random((hw_r[0] + 2, hw_r[1] + 2, k), np.float32) - 0.5)
+                           .astype(np.float32)).to(dev, torch.bfloat16)
+    g = (rng.random((3, 3, k, 128), np.float32) - 0.5).astype(np.float32)
+    a_par = layout.pack_rows_cols(act)
+    u = winograd.weights_u(g, dev)
+    v = winograd.input_transform(a_par, hw_r)
+    check(torch.equal(v, winograd.input_transform_plain(a_par, hw_r)),
+          f"input transform direct {k}->128 {hw_r}")
+    for mode, x in (("direct", a_par), ("factored", a_par), ("pre", v)):
+        wino_errs.append(agree_bf16(f"winograd {mode} {k}->128 {hw_r}",
+                                    winograd.winograd_f2x3(x, u, hw_r, mode),
+                                    winograd.winograd_f2x3_plain(x, u, hw_r, mode)))
     print(f"[probe] kernel vs plain at the probes' shapes: strided roundtrip (24, 256, 128) "
           f"f32 bit-equal, error {max(copy_errs)}; input transforms bit-equal; winograd_f2x3 "
-          f"(3 modes x 3 pairs, 24x256 out) max |kernel - plain| {max(wino_errs):.3e}; "
-          f"repack within 2^-7")
+          f"(3 modes x 3 pairs, 24x256 out, and {k}->128 at 20x68 out) max |kernel - plain| "
+          f"{max(wino_errs):.3e}; repack within 2^-7")
 
     # every variant at 1080p, checked, then timed in turns: plain, kernel,
     # kernel, plain, library, library
@@ -1025,6 +1045,14 @@ def main() -> int:
         for name, _, spill in chain_kernels:
             check(" 0 bytes spill stores, 0 bytes spill loads" in spill,
                   f"conv_layer_kernel {name} spills: {spill}")
+        wino_kernels = build.ptxas_entries(info["logs"]["winograd.cu"], "winograd_")
+        check(len(wino_kernels) == 8, f"winograd.cu: {len(wino_kernels)} kernel instances in "
+              "the ptxas report, expected 8 (3 modes x 2 NB, 2 transforms)")
+        print("[build] winograd.cu (tensor cores), registers and spills of each instance: "
+              + ", ".join(f"{name} {regs} ({spill})" for name, regs, spill in wino_kernels))
+        for name, _, spill in wino_kernels:
+            check(" 0 bytes spill stores, 0 bytes spill loads" in spill,
+                  f"winograd.cu {name} spills: {spill}")
     build.load_library()
     hmma = sass_hmma()
     print("[build] HMMA instructions in the SASS (cuobjdump -sass): "

@@ -11,8 +11,9 @@ output:
   tensor-core implicit GEMM of ``csrc/tc_stage.cuh``), NHWC out; it
   takes any odd f (``probes/wino5.py`` runs it at f=5);
 * ``wino`` / ``winoF``: ``winograd_f2x3`` in mode "direct" / "factored"
-  (``csrc/winograd.cu``) on the parity input ``layout.pack_rows_cols``,
-  with the input transform in the kernel, parity output (2, 2, TR, TC, n);
+  (``csrc/winograd.cu``: the 16 position GEMMs on the tensor cores) on the
+  parity input ``layout.pack_rows_cols``, with the input transform in the
+  kernel, parity output (2, 2, TR, TC, n);
 * ``winoD``: mode "pre", on a V made beforehand (``input_transform``);
 * ``repack``: ``sep`` then ``layout.split_quadrants``, the cost of handing
   a direct layer's output to a Winograd consumer.
@@ -56,8 +57,9 @@ OUT_1080P = {(64, 128): (1070, 1910), (128, 128): (1068, 1908), (128, 64): (1068
 OUT_CPU = (24, 64)                 # the reduced output of --device cpu timing
 MODES = ("direct", "factored", "pre")
 REL_LIMIT = 1e-2                   # --check, against the float64 direct conv
-# a block of 128 output channels keeps 1,452 shared bytes per input
-# channel (window 680, V 260, U 512) within the 232,448 it may use
+# the most input channels a layer: kWinoMaxK of csrc/winograd_plan.cuh, the
+# kernel's block plan (at 160 U streams in three stages a position beside
+# the window, V and the output staging)
 MAX_K = 160
 
 # copies of the probe's matrices (tools/winograd_probe.py:59-68)

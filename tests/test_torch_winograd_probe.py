@@ -222,6 +222,95 @@ def test_malformed_layers_raise():
         w.input_transform(a_par, (10, 16), "pre")
 
 
+@pytest.fixture(scope="module")
+def c_plan(tmp_path_factory):
+    """``kWinoMaxK`` and ``WinoPlan`` of ``csrc/winograd_plan.cuh``, compiled
+    with the host's C++ compiler: the arithmetic the CUDA launch runs.
+    Returns (max_k, plan) with plan(k, nb, window) -> dict."""
+    import subprocess
+
+    from cnn_sr_tpu_torch.ops.fused import build
+
+    tmp = tmp_path_factory.mktemp("wino_plan")
+    src = tmp / "plan.cpp"
+    src.write_text(
+        '#include <cstdio>\n#include "winograd_plan.cuh"\nint main() {\n'
+        '  printf("%d\\n", kWinoMaxK);\n  int k, nb, window;\n'
+        '  while (scanf("%d %d %d", &k, &nb, &window) == 3) {\n'
+        '    const WinoPlan p(k, nb, window != 0);\n'
+        '    printf("%d %d %d %d %d %d %d %d %d %d\\n", p.kp, p.kblk, p.kc, p.nch, p.win, p.v,\n'
+        '           p.u, p.y, p.smem, p.ok ? 1 : 0);\n  }\n}\n')
+    exe = tmp / "plan"
+    subprocess.run(["g++", "-std=c++17", "-O1", f"-I{build.CSRC}", str(src), "-o", str(exe)],
+                   check=True, capture_output=True, timeout=120)
+    cache = {}
+
+    def plan(k, nb, window):
+        key = (k, nb, window)
+        if key not in cache:
+            out = subprocess.run([str(exe)], input=f"{k} {nb} {int(window)}\n", check=True,
+                                 capture_output=True, text=True, timeout=60).stdout.split("\n")
+            names = ("kp", "kblk", "kc", "nch", "win", "v", "u", "y", "smem", "ok")
+            cache[key] = dict(zip(names, map(int, out[1].split())))
+        return cache[key]
+
+    first = subprocess.run([str(exe)], input="", check=True, capture_output=True, text=True,
+                           timeout=60).stdout
+    return int(first.split()[0]), plan
+
+
+@pytest.mark.parametrize("window", [True, False], ids=["direct-factored", "pre"])
+@pytest.mark.parametrize("nb", [64, 128])
+def test_max_k_is_the_kernels_limit(c_plan, nb, window):
+    """``MAX_K`` is the C plan's ``kWinoMaxK``; every k up to it has a plan
+    that fits a block's shared memory (V in 64-lane blocks of 64 tiles, U
+    stages of 16-row multiples that cover kp and Y planes of 64 tiles, in
+    128-byte rows; 1,040 bytes for alignment and the mbarriers), and MAX_K
+    + 8 has none."""
+    max_k, plan = c_plan
+    assert max_k == w.MAX_K >= 160
+    for k in range(8, w.MAX_K + 1, 8):
+        p = plan(k, nb, window)
+        assert p["ok"] == 1, (k, p)
+        assert p["kp"] == -(-k // 16) * 16 and p["kblk"] == -(-p["kp"] // 64)
+        assert p["v"] == p["kblk"] * 64 * 128 and p["u"] == p["kc"] * nb * 2
+        assert p["kc"] % 16 == 0 and (p["nch"] - 1) * p["kc"] < p["kp"] <= p["nch"] * p["kc"]
+        assert p["win"] == (2 * 5 * 17 * 2 * k * 2 if window else 0)
+        assert p["y"] == 64 * nb * 2
+        assert p["smem"] == 1040 + p["win"] + 2 * (p["v"] + p["u"] + p["y"]) <= 232_448
+    assert plan(w.MAX_K + 8, nb, window)["ok"] == 0
+
+
+@pytest.mark.parametrize("mode", w.MODES)
+def test_layer_at_max_k_runs_the_plain_version(mode):
+    """k = MAX_K on CPU tensors: the plain version, within 1e-2 of the
+    float64 direct conv."""
+    k, n = w.MAX_K, 8
+    act, g = _inputs(k, n, 6, 8, seed=12)
+    a_par = layout.pack_rows_cols(_bf16(act))
+    x = w.input_transform(a_par, (4, 6)) if mode == "pre" else a_par
+    before = w.LAUNCHES
+    out = w.winograd_f2x3(x, w.weights_u(g), (4, 6), mode)
+    assert w.LAUNCHES == before and tuple(out.shape) == (2, 2, 2, 3, n)
+    ref = w.direct_conv_f64(act, g)
+    y = layout.merge_quadrants(out).double().numpy()
+    assert np.abs(y - ref).max() <= 1e-2 * np.abs(ref).max()
+
+
+@pytest.mark.parametrize("entry", ["direct", "factored", "pre", "input_transform"])
+def test_past_max_k_raises(entry):
+    k = w.MAX_K + 8
+    a_par = layout.pack_rows_cols(torch.zeros((6, 8, k), dtype=torch.bfloat16))
+    u = torch.zeros((16 * k, 8), dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match=f"up to {w.MAX_K} input channels"):
+        if entry == "input_transform":
+            w.input_transform(a_par, (4, 6))
+        elif entry == "pre":
+            w.winograd_f2x3(torch.zeros((16, 6, k), dtype=torch.bfloat16), u, (4, 6), "pre")
+        else:
+            w.winograd_f2x3(a_par, u, (4, 6), entry)
+
+
 def test_sep_is_the_bf16_streams_middle_layer():
     """Plain ``sep`` is a strict-f32 conv of bf16 values, ReLU, one bf16
     rounding: the float64 conv of the same bf16 values rounds to it but
@@ -256,20 +345,33 @@ def test_default_device_without_cuda_raises(monkeypatch):
         w.main(["--check"])
 
 
+# the card's cases: the probe's pairs at its chunk (parity input padded to
+# CHUNK_CWP columns), a ragged tile grid (out 20x68: 10 x 34 tiles against a
+# block's 4 x 16), k = MAX_K, where U streams in stages of part of a
+# position, and widths off the kernel's multiples: k of 8 and 8 mod 16 (V's
+# lanes padded to 16), n below a block's 64 channels and 8 past 128 (a
+# second channel group)
+CARD_CASES = [(k, n, CHUNK) for k, n in w.PAIRS] + [
+    (64, 128, (20, 68)), (w.MAX_K, 128, (20, 68)), (w.MAX_K, 64, CHUNK),
+    (8, 16, (10, 16)), (40, 24, (20, 68)), (136, 136, (20, 68))]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode", w.MODES)
-@pytest.mark.parametrize("pair", w.PAIRS, ids=lambda p: f"{p[0]}.{p[1]}")
+@pytest.mark.parametrize("pair", CARD_CASES, ids=lambda p: f"{p[0]}.{p[1]}" + (
+    "" if p[2] == CHUNK else f"-{p[2][0]}x{p[2][1]}"))
 def test_kernel_matches_plain_on_card(cuda_device, mode, pair):
     """Within 2^-7 of the output's magnitude and ≥ 99.9% bit-equal: V is
     the same to the bit, only the order of the f32 sums differs."""
-    k, n = pair
-    act, g = _inputs(k, n, 26, 258, seed=21)
-    a_par = layout.pack_rows_cols(_bf16(act).to(cuda_device), w.CHUNK_CWP)
+    k, n, out_hw = pair
+    act, g = _inputs(k, n, out_hw[0] + 2, out_hw[1] + 2, seed=21)
+    a_par = layout.pack_rows_cols(_bf16(act).to(cuda_device),
+                                  w.CHUNK_CWP if out_hw == CHUNK else None)
     u = w.weights_u(g, cuda_device)
-    x = w.input_transform(a_par, CHUNK) if mode == "pre" else a_par
+    x = w.input_transform(a_par, out_hw) if mode == "pre" else a_par
     before = w.LAUNCHES
-    y = w.winograd_f2x3(x, u, CHUNK, mode)
-    ref = w.winograd_f2x3_plain(x, u, CHUNK, mode)
+    y = w.winograd_f2x3(x, u, out_hw, mode)
+    ref = w.winograd_f2x3_plain(x, u, out_hw, mode)
     torch.cuda.synchronize()
     assert w.LAUNCHES == before + 1
     diff = (y.float() - ref.float()).abs()
