@@ -9,7 +9,8 @@ chain, one launch per layer, each in f32 on the CUDA cores
 (``ffma_stage.cuh``) and in the bf16 stream on the tensor cores
 (``tc_stage.cuh``, ``mma.sync``); and the
 probes' ``winograd.cu``, ``parity_copy.cu``, ``wino5.cu``, ``rowpair.cu``
-and ``xpack.cu``, the last on the tensor cores), holds each against its
+and ``xpack.cu``, of which ``winograd.cu``, ``wino5.cu`` and ``xpack.cu``
+run on the tensor cores), holds each against its
 plain PyTorch version on the card, then drives the port's main paths:
 three 1920x1080 requests of the in-repo flagship SRCNN 9-5-5 checkpoint
 and three of the in-repo 7-layer RGB checkpoint through
@@ -20,9 +21,10 @@ of the six probes (``cnn_sr_tpu_torch.probes``). Phases, one line each:
 1. device: card name and power limit, torch and CUDA versions;
 2. build: each source's ptxas report, the registers of the f32 fused
    kernel, of every f32 chain kernel instance and of every ``winograd.cu``
-   instance (none may spill), and the HMMA instructions in the SASS of
-   each bf16 entry point's kernels and of ``winograd_f2x3_forward``'s
-   (``cuobjdump -sass``), > 0;
+   and ``wino5.cu`` instance (as many as their plans make; none may
+   spill), and the HMMA instructions in the SASS of each bf16 entry point's
+   kernels, of ``winograd_f2x3_forward``'s and of ``wino5_forward``'s, in
+   each of its four modes (``cuobjdump -sass``), > 0;
 3. kernel vs plain, f32: the fused kernel at the flagship (pretrained)
    and 9-1-5 (random, seed 0) stacks; the chain at the RGB (pretrained)
    stack, a ragged batch of two, the wide 9-5-5 and a 4-layer stack with
@@ -84,7 +86,8 @@ of the six probes (``cnn_sr_tpu_torch.probes``). Phases, one line each:
    channels-last tensors) or ``.contiguous()`` of the strided view, and
    each one's own bound (``winograd_bound`` for the Winograd modes, with
    the direct form's beside it); ``wino5`` in its four modes within 2^-7
-   with ≥ 99.9% bit-equal at the probe's chunk and at the flagship's 1080p
+   with ≥ 99.9% bit-equal at the probe's chunk, at k = 16 and k = MAX_K
+   on a ragged grid of its 4 x 32 block and at the flagship's 1080p
    conv2 (the quad modes also against ``sep``), timed beside ``sep`` at
    f=5, cuDNN bf16 conv + ReLU and ``wino5_bound``, with ``sep / <mode>``,
    ``pack_quad`` beside ``.contiguous()``, and the L5 input pack over four
@@ -415,21 +418,25 @@ def fused_vs_chain(params, x, smi, precision="f32") -> None:
 def sass_hmma() -> dict:
     """HMMA instructions in the SASS of each bf16 entry point's kernels in
     the built library (``cuobjdump -sass``, beside ``nvcc``), the Winograd
-    layer's six instances among them: the proof that they run on the
-    tensor cores."""
+    layer's six instances among them, and of ``wino5_forward``'s, in all
+    and in each mode's instance: the proof that they run on the tensor
+    cores."""
     tool = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
     sass = subprocess.run([tool, "-sass", build.library_path()], capture_output=True, text=True,
                           check=True, timeout=300).stdout
-    counts = {"fused_srcnn_forward_bf16": 0, "conv_layer_forward_bf16": 0,
-              "winograd_f2x3_forward": 0}
-    kernel = {"fused_srcnn_tc_kernel": "fused_srcnn_forward_bf16",
-              "conv_layer_tc_kernel": "conv_layer_forward_bf16",
-              "winograd_kernel": "winograd_f2x3_forward"}
+    kernel = {"fused_srcnn_tc_kernel": ["fused_srcnn_forward_bf16"],
+              "conv_layer_tc_kernel": ["conv_layer_forward_bf16"],
+              "winograd_kernel": ["winograd_f2x3_forward"],
+              **{f"wino5_quad_kernelILi{code}E": ["wino5_forward", f"wino5_forward {mode}"]
+                 for code, mode in enumerate(("quad", "quadp", "quad1"))},
+              "wino5_w55f_kernel": ["wino5_forward", "wino5_forward w55f"]}
+    counts = {name: 0 for names in kernel.values() for name in names}
     for part in sass.split("Function : ")[1:]:
         name = part.split("\n", 1)[0]
-        for key, entry_point in kernel.items():
+        for key, entry_points in kernel.items():
             if key in name:
-                counts[entry_point] += part.count("HMMA")
+                for entry_point in entry_points:
+                    counts[entry_point] += part.count("HMMA")
     return counts
 
 
@@ -658,13 +665,15 @@ def turns(kern, plain, library) -> dict:
 
 def wino5_phase(smi, dev) -> dict:
     """``wino5`` in its four modes against its plain version at the probe's
-    chunk and at the flagship's 1080p conv2, where each mode, ``sep`` (the
+    chunk, at k = 16 and k = ``MAX_K`` on a ragged grid of its 4 x 32 block
+    and at the flagship's 1080p conv2, where each mode, ``sep`` (the
     shipped direct layer at f=5) and ``pack_quad`` are timed in turns
     beside cuDNN bf16 conv + ReLU (``.contiguous()`` of the strided view for
     the pack) and their bounds; and the L5 input pack (``pack_rows_cols``
     of the same bf16 input shape) over four turns before the variants are
     made, four after and four of a CUDA graph's replays (its device work
-    alone). Returns the w55f row."""
+    alone). Returns the w55f row with every mode's and ``sep``'s 1080p ms
+    beside it (``mode_ms``)."""
     from cnn_sr_tpu_torch.probes import layout, wino5
 
     g, a = wino5.probe_inputs()
@@ -674,8 +683,21 @@ def wino5_phase(smi, dev) -> dict:
                        wino5.wino5(x, wino5.weights(g, mode, dev), hw, mode),
                        wino5.wino5_plain(x, wino5.weights(g, mode, dev), hw, mode))
             for mode in wino5.MODES]
+    # k = 16 and k = MAX_K on a ragged grid of the 4 x 32 block (13 x 35
+    # quad outputs)
+    rng = np.random.default_rng(SEED + 60)
+    hw_r = (26, 70)
+    for k in (16, wino5.MAX_K):
+        act_k = torch.from_numpy(rng.random((hw_r[0] + 4, hw_r[1] + 4, k), np.float32) - 0.5)
+        g_k = (rng.random((5, 5, k, wino5.N), np.float32) - 0.5).astype(np.float32)
+        x_k = layout.pack_quad(act_k.to(dev))
+        for mode in wino5.MODES:
+            w_k = wino5.weights(g_k, mode, dev)
+            errs.append(agree_bf16(f"wino5 {mode} k={k} {hw_r}", wino5.wino5(x_k, w_k, hw_r, mode),
+                                   wino5.wino5_plain(x_k, w_k, hw_r, mode)))
     print(f"[probe] wino5 kernel vs plain at the probe's chunk (12x128 quad outputs, "
-          f"4 modes): max |kernel - plain| {max(errs):.3e}")
+          f"4 modes) and at k = 16 and {wino5.MAX_K} on 13x35 quad outputs: max |kernel - "
+          f"plain| {max(errs):.3e}")
 
     # the L5 input pack (pack_rows_cols of the same input shape in bf16),
     # four turns in a fresh process state and four after the 1080p variants
@@ -732,7 +754,8 @@ def wino5_phase(smi, dev) -> dict:
           + f" ms, bound {4 * act_l5.numel() / PEAK_BYTES * 1e3:.4f} ms (bytes)")
     del variants, inp
     row = {k: t["w55f"][k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
-    return {"err": max(errs), **row}
+    return {"err": max(errs), **row,
+            "mode_ms": {m: t[m]["ms"] for m in (*wino5.MODES, "sep")}}
 
 
 def rowpair_phase(smi, dev) -> dict:
@@ -1045,14 +1068,17 @@ def main() -> int:
         for name, _, spill in chain_kernels:
             check(" 0 bytes spill stores, 0 bytes spill loads" in spill,
                   f"conv_layer_kernel {name} spills: {spill}")
-        wino_kernels = build.ptxas_entries(info["logs"]["winograd.cu"], "winograd_")
-        check(len(wino_kernels) == 8, f"winograd.cu: {len(wino_kernels)} kernel instances in "
-              "the ptxas report, expected 8 (3 modes x 2 NB, 2 transforms)")
-        print("[build] winograd.cu (tensor cores), registers and spills of each instance: "
-              + ", ".join(f"{name} {regs} ({spill})" for name, regs, spill in wino_kernels))
-        for name, _, spill in wino_kernels:
-            check(" 0 bytes spill stores, 0 bytes spill loads" in spill,
-                  f"winograd.cu {name} spills: {spill}")
+        for src, key, expected, what in (
+                ("winograd.cu", "winograd_", 8, "3 modes x 2 NB, 2 transforms"),
+                ("wino5.cu", "wino5_", 4, "3 quad modes, w55f")):
+            kernels = build.ptxas_entries(info["logs"][src], key)
+            check(len(kernels) == expected, f"{src}: {len(kernels)} kernel instances in the "
+                  f"ptxas report, expected {expected} ({what})")
+            print(f"[build] {src} (tensor cores), registers and spills of each instance: "
+                  + ", ".join(f"{name} {regs} ({spill})" for name, regs, spill in kernels))
+            for name, _, spill in kernels:
+                check(" 0 bytes spill stores, 0 bytes spill loads" in spill,
+                      f"{src} {name} spills: {spill}")
     build.load_library()
     hmma = sass_hmma()
     print("[build] HMMA instructions in the SASS (cuobjdump -sass): "
@@ -1163,7 +1189,8 @@ def main() -> int:
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches, "max_abs_err": max(errs), "ms": t["ms"],
                 "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-                "bound_by": t["bound_by"], "library_ms": t["library_ms"]}
+                "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+                **{k: t[k] for k in ("mode_ms",) if k in t}}
 
     print(json.dumps({"kernels": [
         row("fused_srcnn", "cnn_sr_tpu_torch/csrc/fused_srcnn.cu",

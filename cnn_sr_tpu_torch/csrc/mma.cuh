@@ -1,6 +1,8 @@
-// PTX wrappers of the port's tensor-core kernels (xpack.cu, tc_stage.cuh):
-// cp.async copies into shared memory, ldmatrix fragment loads and the bf16
-// mma.sync m16n8k16 with f32 sums. One copy of each, included where used.
+// PTX wrappers of the port's tensor-core kernels (xpack.cu, tc_stage.cuh,
+// winograd.cu, wino5.cu): cp.async copies into shared memory, ldmatrix
+// fragment loads, the bf16 mma.sync m16n8k16 with f32 sums, and the named
+// barriers and mbarriers of the warp-specialised blocks. One copy of each,
+// included where used.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -25,10 +27,28 @@ __device__ __forceinline__ void cp_async_wait_1() { asm volatile("cp.async.wait_
 
 __device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::); }
 
+// wait until at most the N newest groups are still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
 __device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const __nv_bfloat16* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(smem_addr(p)));
+}
+
+// the same at a shared-space address
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], unsigned addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4], unsigned addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
 }
 
 __device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4], const __nv_bfloat16* p) {
@@ -53,6 +73,39 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4], 
       "{%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// named barriers: bar_sync waits until n threads have arrived (itself among
+// them), bar_arrive counts the thread in and goes on
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// mbarriers: an arrival, an arrival made when this thread's earlier cp.async
+// copies have landed (counted in the init count: .noinc), and a wait for the
+// phase of the given parity to complete
+__device__ __forceinline__ void mbar_init(unsigned long long* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count));
+}
+__device__ __forceinline__ void mbar_arrive(unsigned long long* bar) {
+  asm volatile("{\n.reg .b64 st;\nmbarrier.arrive.shared::cta.b64 st, [%0];\n}\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_mbar_arrive(unsigned long long* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_addr(bar))
+               : "memory");
+}
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar, unsigned parity) {
+  asm volatile(
+      "{\n.reg .pred p;\nWAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
 }
 
 }  // namespace

@@ -114,38 +114,12 @@ __device__ __forceinline__ void setmaxnreg_inc() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
 }
 
-// named barriers: bar_sync waits until n threads have arrived (itself among
-// them), bar_arrive counts the thread in and goes on
-__device__ __forceinline__ void bar_sync(int id, int n) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
-}
-__device__ __forceinline__ void bar_arrive(int id, int n) {
-  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
-}
-
-// mbarriers: an arrival, an arrival that also raises the phase's
-// transaction count by the bytes tensor copies will bring, and a wait for
-// the phase of the given parity to complete
-__device__ __forceinline__ void mbar_init(unsigned long long* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count));
-}
-__device__ __forceinline__ void mbar_arrive(unsigned long long* bar) {
-  asm volatile("{\n.reg .b64 st;\nmbarrier.arrive.shared::cta.b64 st, [%0];\n}\n" ::"r"(
-                   smem_addr(bar))
-               : "memory");
-}
+// an mbarrier arrival that also raises the phase's transaction count by the
+// bytes tensor copies will bring (the other barriers are mma.cuh's)
 __device__ __forceinline__ void mbar_arrive_expect_tx(unsigned long long* bar, unsigned bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
                "r"(bytes)
                : "memory");
-}
-__device__ __forceinline__ void mbar_wait(unsigned long long* bar, unsigned parity) {
-  asm volatile(
-      "{\n.reg .pred p;\nWAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@!p bra WAIT;\n}\n" ::"r"(smem_addr(bar)),
-      "r"(parity)
-      : "memory");
 }
 
 // tensor copies global -> shared of one box of the tensor map at the given

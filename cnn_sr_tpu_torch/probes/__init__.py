@@ -14,7 +14,8 @@ runs on. Here the same question is asked of the H100:
   conv2 (f=5, 64→32) in the half-resolution quad domain, the dense quad
   dot in three tap groupings and a 1-D F(2,5) row Winograd, against the
   direct form, through the ``csrc/wino5.cu`` kernel and the shipped
-  ``conv_layer_forward_bf16`` at f=5;
+  ``conv_layer_forward_bf16`` at f=5; ``wino5_parts`` times copies of that
+  kernel with parts of its work taken out, to show where its time goes;
 * ``rowpair`` (``tools/rowpair_probe.py``): a GEMM whose operand is read
   through a stride-2 leading dimension, the row-pair form of the parity
   exit, through the ``csrc/rowpair.cu`` kernel.

@@ -17,7 +17,8 @@ in the parity layout (2, 2, TR, TC, n):
 * ``sep``: the direct form, the shipped ``conv_layer_forward_bf16`` at
   f=5 (``winograd.sep``), NHWC out.
 
-``wino5`` is the wrapper of the ``csrc/wino5.cu`` kernel (all four modes);
+``wino5`` is the wrapper of the ``csrc/wino5.cu`` kernel (all four modes,
+on the tensor cores);
 ``wino5_plain`` its plain version, which follows each body's order of
 rounding: in the quad modes every operand is rounded from f32 to bf16 at
 its read, each group's dot is summed in strict f32 and the groups' partial
@@ -67,8 +68,8 @@ GROUP = {"quad": 1, "quadp": 2, "quad1": 9}
 # alike: its V, up to 10x an input in magnitude, is rounded once to bf16
 REL_LIMIT = 2e-2
 # the kernel's widths: 32 output channels, input channels a multiple of 16
-# up to 64 (the shared window and weight chunk at k = 64: 169,984 bytes in
-# the quad modes, 188,416 in w55f)
+# up to MAX_K, csrc/wino5_plan.cuh's kWino5MaxK (the quad modes' resident
+# bf16 window and three weight stages take 212,160 bytes at k = 64)
 KERNEL_N = 32
 MAX_K = 64
 

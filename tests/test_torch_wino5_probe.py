@@ -22,6 +22,7 @@ import torch
 from cnn_sr_tpu_torch.ops.fused import chain
 from cnn_sr_tpu_torch.probes import layout
 from cnn_sr_tpu_torch.probes import wino5 as w5
+from cnn_sr_tpu_torch.probes import wino5_parts
 from cnn_sr_tpu_torch.probes import winograd
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
@@ -229,26 +230,148 @@ def test_default_device_without_cuda_raises(monkeypatch):
         w5.main(["--check"])
 
 
+@pytest.fixture(scope="module")
+def c_plan(tmp_path_factory):
+    """``kWino5MaxK`` and ``Wino5Plan`` of ``csrc/wino5_plan.cuh``, compiled
+    with the host's C++ compiler: the arithmetic the CUDA launch runs.
+    Returns (max_k, plan) with plan(k, w55f) -> dict."""
+    import subprocess
+
+    from cnn_sr_tpu_torch.ops.fused import build
+
+    tmp = tmp_path_factory.mktemp("wino5_plan")
+    src = tmp / "plan.cpp"
+    src.write_text(
+        '#include <cstdio>\n#include "wino5_plan.cuh"\nint main() {\n'
+        '  printf("%d\\n", kWino5MaxK);\n  int k, w55f;\n'
+        '  while (scanf("%d %d", &k, &w55f) == 2) {\n'
+        '    const Wino5Plan p(k, w55f != 0);\n'
+        '    printf("%d %d %d %d %d %d %d %d\\n", p.as, p.kc, p.steps, p.nch, p.win, p.stage,\n'
+        '           p.smem, p.ok ? 1 : 0);\n  }\n}\n')
+    exe = tmp / "plan"
+    subprocess.run(["g++", "-std=c++17", "-O1", f"-I{build.CSRC}", str(src), "-o", str(exe)],
+                   check=True, capture_output=True, timeout=120)
+
+    def plan(k, w55f):
+        out = subprocess.run([str(exe)], input=f"{k} {int(w55f)}\n", check=True,
+                             capture_output=True, text=True, timeout=60).stdout.split("\n")
+        names = ("as", "kc", "steps", "nch", "win", "stage", "smem", "ok")
+        return dict(zip(names, map(int, out[1].split())))
+
+    first = subprocess.run([str(exe)], input="", check=True, capture_output=True, text=True,
+                           timeout=60).stdout
+    return int(first.split()[0]), plan
+
+
+@pytest.mark.parametrize("family", ["quad", "w55f"])
+def test_max_k_is_the_kernels_limit(c_plan, family):
+    """``MAX_K`` is the C plan's ``kWino5MaxK``; every k that is a multiple
+    of 16 up to it has a plan that fits a block's shared memory (quad: the
+    bf16 window of 6 x 34 cells of 4k + 8 lanes resident beside three
+    stages of Wq rows, 16-row multiples of at most 128 that cover 4k, 136
+    lanes a row; w55f: two chunk buffers of the six V_a, 4 x 34 cells of 40 lanes,
+    six Wf stages of 3 x 32 rows of 72 lanes, eight mbarriers), and MAX_K +
+    16 has none."""
+    max_k, plan = c_plan
+    assert max_k == w5.MAX_K >= 64
+    w55f = family == "w55f"
+    for k in range(16, w5.MAX_K + 1, 16):
+        p = plan(k, w55f)
+        assert p["ok"] == 1, (k, p)
+        if w55f:
+            assert p["nch"] == k // 16 and p["win"] == 0
+            assert p["smem"] == 2 * 6 * 136 * 40 * 2 + 6 * 3 * 32 * 72 * 2 + 64 <= 232_448
+        else:
+            k4 = 4 * k
+            assert p["as"] == k4 + 8 and (p["as"] * 2 // 16) % 2 == 1
+            assert p["kc"] % 16 == 0 and p["kc"] <= 128
+            assert (p["steps"] - 1) * p["kc"] < k4 <= p["steps"] * p["kc"]
+            assert p["win"] == 6 * 34 * (k4 + 8) * 2 and p["stage"] == p["kc"] * 136 * 2
+            assert p["smem"] == p["win"] + 3 * p["stage"] <= 232_448
+    assert plan(w5.MAX_K + 16, w55f)["ok"] == 0
+    assert plan(24, w55f)["ok"] == 0
+
+
+@pytest.mark.parametrize("mode", w5.MODES)
+def test_layer_at_max_k_runs_the_plain_version(mode):
+    """k = MAX_K on CPU tensors: the plain version, no launch, within
+    ``REL_LIMIT`` of the float64 direct conv."""
+    rng = np.random.default_rng(13)
+    out_hw = (6, 8)
+    act = (rng.random((out_hw[0] + 4, out_hw[1] + 4, w5.MAX_K), np.float32) - 0.5)
+    g = (rng.random((5, 5, w5.MAX_K, w5.N), np.float32) - 0.5) / 16
+    before = w5.LAUNCHES
+    out = w5.wino5(layout.pack_quad(torch.from_numpy(act)), w5.weights(g, mode), out_hw, mode)
+    assert w5.LAUNCHES == before and tuple(out.shape) == (2, 2, 3, 4, w5.N)
+    ref = winograd.direct_conv_f64(act, g)
+    y = layout.merge_quadrants(out).double().numpy()
+    assert np.abs(y - ref).max() <= w5.REL_LIMIT * np.abs(ref).max()
+
+
+@pytest.mark.parametrize("mode", w5.MODES)
+def test_past_max_k_raises(mode):
+    k = w5.MAX_K + 16
+    x = torch.zeros((4, 5, 4 * k))
+    rows, lanes = (9 * 4 * k, 4) if mode in w5.GROUP else (6 * 3 * 2 * k, 2)
+    wt = torch.zeros((rows, lanes * w5.N), dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match=f"up to {w5.MAX_K}"):
+        w5.wino5(x, wt, (4, 6), mode)
+
+
+@pytest.mark.parametrize("variant", list(wino5_parts.VARIANTS))
+def test_parts_edit_the_kernel_source(variant):
+    """Each copy of ``wino5_parts`` is the kernel's source with its parts'
+    texts found as often as the probe expects (``patched`` raises
+    otherwise) and edited; the kernel as it is stays unedited."""
+    parts = wino5_parts.VARIANTS[variant]
+    text = wino5_parts.SOURCE.read_text()
+    got = wino5_parts.patched(parts)
+    assert (got == text) == (not parts)
+    assert len(got.splitlines()) >= len(text.splitlines()) - 3
+    with pytest.raises(RuntimeError, match="expects 1 of"):
+        wino5_parts.patched(("window",), text.replace("load_quad_window(x, g", "load(x, g"))
+
+
+def test_parts_without_cuda_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        wino5_parts.main([])
+
+
+# the card's cases: the probe's chunk (k = 64, 12 x 128 quad outputs); each
+# k the kernel takes on a ragged grid of the 4 x 32 block (13 x 35 quad
+# outputs: 4 x 2 blocks, the last of each ragged); and k = MAX_K on a ragged
+# grid of more blocks than the card has SMs (68 x 330: 17 x 11 blocks), where
+# a persistent w55f block takes several
+CARD_CASES = [(w5.K, CHUNK)] + [(k, (26, 70)) for k in range(16, w5.MAX_K + 1, 16)] + [
+    (w5.MAX_K, (136, 660))]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode", w5.MODES)
-def test_kernel_matches_plain_on_card(cuda_device, mode):
-    """At the probe's chunk and at a ragged small shape: within 2^-7 of the
-    output's magnitude and ≥ 99.9% bit-equal (the operands' roundings are
-    the same, only the order of the f32 sums differs)."""
-    g, a = w5.probe_inputs()
-    act, gs = _small(7)
-    cases = [(torch.from_numpy(a).to(cuda_device), w5.weights(g, mode, cuda_device), CHUNK),
-             (layout.pack_quad(torch.from_numpy(act).to(cuda_device)),
-              w5.weights(gs, mode, cuda_device), SMALL_OUT)]
-    for x, wt, out_hw in cases:
-        before = w5.LAUNCHES
-        y = w5.wino5(x, wt, out_hw, mode)
-        ref = w5.wino5_plain(x, wt, out_hw, mode)
-        torch.cuda.synchronize()
-        assert w5.LAUNCHES == before + 1
-        diff = (y.float() - ref.float()).abs()
-        assert float(diff.max()) <= 2 ** -7 * float(ref.float().abs().max())
-        assert float((y == ref).float().mean()) >= 0.999
+@pytest.mark.parametrize("case", CARD_CASES, ids=lambda c: f"k{c[0]}-{c[1][0]}x{c[1][1]}")
+def test_kernel_matches_plain_on_card(cuda_device, mode, case):
+    """Within 2^-7 of the output's magnitude and ≥ 99.9% bit-equal (the
+    operands' roundings are the same, only the order of the f32 sums
+    differs)."""
+    k, out_hw = case
+    if out_hw == CHUNK:
+        g, a = w5.probe_inputs()
+        x = torch.from_numpy(a).to(cuda_device)
+    else:
+        rng = np.random.default_rng(7 + k)
+        act = (rng.random((out_hw[0] + 4, out_hw[1] + 4, k), np.float32) - 0.5)
+        g = (rng.random((5, 5, k, w5.N), np.float32) - 0.5).astype(np.float32)
+        x = layout.pack_quad(torch.from_numpy(act).to(cuda_device))
+    wt = w5.weights(g, mode, cuda_device)
+    before = w5.LAUNCHES
+    y = w5.wino5(x, wt, out_hw, mode)
+    ref = w5.wino5_plain(x, wt, out_hw, mode)
+    torch.cuda.synchronize()
+    assert w5.LAUNCHES == before + 1
+    diff = (y.float() - ref.float()).abs()
+    assert float(diff.max()) <= 2 ** -7 * float(ref.float().abs().max())
+    assert float((y == ref).float().mean()) >= 0.999
 
 
 @pytest.mark.cuda
