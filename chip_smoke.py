@@ -10,7 +10,8 @@ chain, one launch per layer, each in f32 on the CUDA cores
 (``tc_stage.cuh``, ``mma.sync``); and the
 probes' ``winograd.cu``, ``parity_copy.cu``, ``wino5.cu``, ``rowpair.cu``
 and ``xpack.cu``, of which ``winograd.cu``, ``wino5.cu`` and ``xpack.cu``
-run on the tensor cores), holds each against its
+run on the tensor cores by ``mma.sync`` and ``rowpair.cu`` by ``wgmma``),
+holds each against its
 plain PyTorch version on the card, then drives the port's main paths:
 three 1920x1080 requests of the in-repo flagship SRCNN 9-5-5 checkpoint
 and three of the in-repo 7-layer RGB checkpoint through
@@ -24,7 +25,9 @@ of the six probes (``cnn_sr_tpu_torch.probes``). Phases, one line each:
    and ``wino5.cu`` instance (as many as their plans make; none may
    spill), and the HMMA instructions in the SASS of each bf16 entry point's
    kernels, of ``winograd_f2x3_forward``'s and of ``wino5_forward``'s, in
-   each of its four modes (``cuobjdump -sass``), > 0;
+   each of its four modes (``cuobjdump -sass``), > 0; ``rowpair_kernel``'s
+   four instances (registers and spills: none, beside its plan's dynamic
+   shared bytes) and the HGMMA (``wgmma``) in their SASS, > 0;
 3. kernel vs plain, f32: the fused kernel at the flagship (pretrained)
    and 9-1-5 (random, seed 0) stacks; the chain at the RGB (pretrained)
    stack, a ragged batch of two, the wide 9-5-5 and a 4-layer stack with
@@ -91,10 +94,13 @@ of the six probes (``cnn_sr_tpu_torch.probes``). Phases, one line each:
    conv2 (the quad modes also against ``sep``), timed beside ``sep`` at
    f=5, cuDNN bf16 conv + ReLU and ``wino5_bound``, with ``sep / <mode>``,
    ``pack_quad`` beside ``.contiguous()``, and the L5 input pack over four
-   turns before and after them and as a CUDA graph's replays; ``rowpair_gemm`` within 1e-5 relative of its plain version in
-   the probe's four cases and at the 1080p exit (534x954xL, L = 128 and
-   64, bf16 and f32), timed as the strided read, the contiguous read, the
-   copy route and ``torch.matmul`` bf16 beside its bound; ``tap_gemm``
+   turns before and after them and as a CUDA graph's replays;
+   ``rowpair_gemm`` within 1e-5 relative of its plain version in the
+   probe's four cases and at the 1080p exit (534x954xL, L = 128 and 64,
+   bf16 and f32), its routes bit-equal, timed as the strided read (also as
+   CUDA graph replays: GB/s and share of the byte bound), the contiguous
+   read and the copy route beside ``torch.mm`` with an f32 output (the
+   same function), ``torch.matmul`` bf16 (bf16 out) and its bound; ``tap_gemm``
    in the 14 xpack variants at one step and a ragged case, then timed at a
    1080p layer's steps, eagerly and as CUDA graph replays, beside its
    plain version, cuDNN bf16 conv + ReLU of RGB L2/L3/L4 and
@@ -103,11 +109,13 @@ of the six probes (``cnn_sr_tpu_torch.probes``). Phases, one line each:
 Then one JSON line of the ten kernels, the ``nvidia-smi`` line, and as
 the last line ``{"ok": true, "device": {...}}``. Any failed check raises,
 so the script exits nonzero and prints no result; so does a machine
-without CUDA.
+without CUDA, and a run that outlasts ``WATCHDOG_S`` (a hung kernel): a
+watchdog then ends the process with code 1.
 """
 
 from __future__ import annotations
 
+import faulthandler
 import json
 import math
 import os
@@ -142,6 +150,8 @@ SEED = 0
 # the tensor cores (dense), HBM3
 PEAK_FLOPS = {"f32": 67e12, "bf16": 989e12}
 PEAK_BYTES = 3.35e12
+# the run's time limit, under the 1,200 s the script must end within
+WATCHDOG_S = 1140
 
 
 def check(cond: bool, msg: str) -> None:
@@ -415,12 +425,31 @@ def fused_vs_chain(params, x, smi, precision="f32") -> None:
           f"{errs[1]:.3e} chain)")
 
 
-def sass_hmma() -> dict:
+def rowpair_build(log: str) -> None:
+    """[build]: ``rowpair_kernel``'s four instances (L = 128, 64 x bf16, f32
+    A) from ptxas: registers and spills (none allowed), beside the dynamic
+    shared bytes of its plan (ptxas's own usage lines, static shared memory
+    among them, are on the ``[build] rowpair.cu`` line)."""
+    from cnn_sr_tpu_torch.probes import rowpair
+
+    kernels = build.ptxas_entries(log, "rowpair_kernel")
+    check(len(kernels) == 4, f"rowpair.cu: {len(kernels)} kernel instances in the ptxas "
+          "report, expected 4 (L = 128, 64 x bf16, f32)")
+    for name, regs, spill in kernels:
+        plan = rowpair.plan(128 if "Li128E" in name else 64)
+        print(f"[build] rowpair.cu (wgmma) {name}: {regs} registers; {spill}; dynamic shared "
+              f"memory {plan['smem']} bytes (plan, {plan['stages']} ring stages)")
+        check(" 0 bytes spill stores, 0 bytes spill loads" in spill, f"rowpair.cu {name} spills: "
+              f"{spill}")
+
+
+def sass_hmma() -> tuple:
     """HMMA instructions in the SASS of each bf16 entry point's kernels in
     the built library (``cuobjdump -sass``, beside ``nvcc``), the Winograd
     layer's six instances among them, and of ``wino5_forward``'s, in all
-    and in each mode's instance: the proof that they run on the tensor
-    cores."""
+    and in each mode's instance; and the HGMMA (``wgmma``) instructions in
+    ``rowpair_gemm``'s: the proof that they run on the tensor cores.
+    Returns ``({entry point: HMMA}, HGMMA)``."""
     tool = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
     sass = subprocess.run([tool, "-sass", build.library_path()], capture_output=True, text=True,
                           check=True, timeout=300).stdout
@@ -431,13 +460,16 @@ def sass_hmma() -> dict:
                  for code, mode in enumerate(("quad", "quadp", "quad1"))},
               "wino5_w55f_kernel": ["wino5_forward", "wino5_forward w55f"]}
     counts = {name: 0 for names in kernel.values() for name in names}
+    hgmma = 0
     for part in sass.split("Function : ")[1:]:
         name = part.split("\n", 1)[0]
         for key, entry_points in kernel.items():
             if key in name:
                 for entry_point in entry_points:
                     counts[entry_point] += part.count("HMMA")
-    return counts
+        if "rowpair_kernel" in name:
+            hgmma += part.count("HGMMA")
+    return counts, hgmma
 
 
 def agree_bf16(name, y, ref) -> float:
@@ -656,11 +688,12 @@ def wino5_bound(x, w, out_hw, mode) -> tuple:
 
 
 def turns(kern, plain, library) -> dict:
-    """Times in turns: plain, kernel, kernel, plain, library, library."""
+    """Times in turns: plain, kernel, kernel, plain, library, library (no
+    library times where ``library`` is None)."""
     p1, k1, k2, p2 = time_ms(plain), time_ms(kern), time_ms(kern), time_ms(plain)
-    l1, l2 = time_ms(library), time_ms(library)
+    l1, l2 = (time_ms(library), time_ms(library)) if library else (None, None)
     return {"k": (k1, k2), "p": (p1, p2), "l": (l1, l2), "ms": (k1 + k2) / 2,
-            "plain_ms": (p1 + p2) / 2, "library_ms": (l1 + l2) / 2}
+            "plain_ms": (p1 + p2) / 2, "library_ms": (l1 + l2) / 2 if library else None}
 
 
 def wino5_phase(smi, dev) -> dict:
@@ -762,8 +795,15 @@ def rowpair_phase(smi, dev) -> dict:
     """``rowpair_gemm`` against its plain version (rel ≤ 1e-5) in the
     probe's four cases and at the flagship's 1080p exit (a 534x954xL
     operand, L = 128 and 64, bf16 and f32), where the strided read, the
-    contiguous read, the copy route and ``torch.matmul`` bf16 are timed in
-    turns beside the bound. Returns the bf16 L=128 strided row."""
+    contiguous read and the copy route are timed in turns beside the plain
+    version, ``torch.mm`` with ``out_dtype=torch.float32`` (the same
+    function; "not measured" where this torch refuses it), ``torch.matmul``
+    bf16 (bf16 out) and the bound, the strided read and ``torch.mm`` also
+    as CUDA graph replays (their device work alone); each case with its
+    achieved GB/s and share of the byte bound. Returns the bf16 L=128
+    strided row: ``ms``, ``plain_ms`` and ``library_ms`` of calls in turns,
+    as every row, and the replays' ``graph_ms`` and ``library_graph_ms``
+    beside them."""
     from cnn_sr_tpu_torch.probes import rowpair
 
     errs = []
@@ -785,7 +825,8 @@ def rowpair_phase(smi, dev) -> dict:
         for dtype in rowpair.DTYPES:
             ways, plain, a, w = rowpair.routes(lanes, dtype, dev, seed=SEED)
             ref = plain()
-            outs = {kind: fn() for kind, fn in ways.items()}
+            outs = {kind: ways[kind]() for kind in ("strided", "contiguous", "copy")}
+            torch.cuda.synchronize()
             for y, r in zip(outs["strided"], ref):
                 errs.append(float((y - r).abs().max()))
                 check(errs[-1] <= 1e-5 * float(r.abs().max()),
@@ -793,24 +834,41 @@ def rowpair_phase(smi, dev) -> dict:
             check(all(torch.equal(s, c) for s, c in zip(outs["strided"], outs["contiguous"]))
                   and all(torch.equal(s, c) for s, c in zip(outs["strided"], outs["copy"])),
                   f"rowpair 1080p {dtype} {lanes}: the routes differ")
+            try:  # the yardstick: bf16 in, f32 out, the kernel's function
+                lib_err = max(float((l.view(r.shape) - r).abs().max())
+                              for l, r in zip(ways["library"](), ref))
+                library = f"max |mm - plain| {lib_err:.3e}"
+            except (TypeError, RuntimeError, NotImplementedError) as e:
+                library = f"not measured ({type(e).__name__}: {str(e).splitlines()[0][:120]})"
             del outs, ref
             m = a.shape[0] // 2
             macs = 2 * m * a.shape[1] * lanes * lanes
             moved = a.numel() * a.element_size() + 2 * w.numel() + 4 * 2 * m * a.shape[1] * lanes
             t_ops, t_bytes = 2 * macs / PEAK_FLOPS["bf16"] * 1e3, moved / PEAK_BYTES * 1e3
             bound = (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes")
-            t = turns(ways["strided"], plain, ways["library"])
+            t = turns(ways["strided"], plain,
+                      None if library.startswith("not measured") else ways["library"])
             c1, c2, n1, n2 = (time_ms(ways["contiguous"]), time_ms(ways["copy"]),
                               time_ms(ways["copy"]), time_ms(ways["contiguous"]))
+            b1, b2 = time_ms(ways["bf16_out"]), time_ms(ways["bf16_out"])
+            g1, g2 = graph_ms(ways["strided"]), graph_ms(ways["strided"])
+            t["graph_ms"], t["library_graph_ms"] = (g1 + g2) / 2, None
+            if t["library_ms"] is not None:
+                gl1, gl2 = graph_ms(ways["library"]), graph_ms(ways["library"])
+                t["library_graph_ms"] = (gl1 + gl2) / 2
+                library = (f"{t['l'][0]:.3f}/{t['l'][1]:.3f} ms (graph replays {gl1:.3f}/"
+                           f"{gl2:.3f} ms; {library})")
             print(f"[probe] {smi} | rowpair 1080p exit ({a.shape[0]}x{a.shape[1]}x{lanes} "
-                  f"{dtype}, both parities): strided {t['k'][0]:.3f}/{t['k'][1]:.3f} ms, "
-                  f"contiguous {c1:.3f}/{n2:.3f} ms, copy route {c2:.3f}/{n1:.3f} ms, plain "
-                  f"{t['p'][0]:.3f}/{t['p'][1]:.3f} ms, torch.matmul bf16 {t['l'][0]:.3f}/"
-                  f"{t['l'][1]:.3f} ms, bound {bound[0]:.4f} ms ({bound[1]})")
+                  f"{dtype}, both parities, {moved / 1e6:.1f} MB): strided {t['k'][0]:.3f}/"
+                  f"{t['k'][1]:.3f} ms ({moved / t['ms'] / 1e6:.0f} GB/s, "
+                  f"{bound[0] / t['ms']:.0%} of the {bound[1]} bound; graph replays {g1:.3f}/"
+                  f"{g2:.3f} ms: {moved / t['graph_ms'] / 1e6:.0f} GB/s, "
+                  f"{bound[0] / t['graph_ms']:.0%}), contiguous {c1:.3f}/{n2:.3f} ms, copy route "
+                  f"{c2:.3f}/{n1:.3f} ms, plain {t['p'][0]:.3f}/{t['p'][1]:.3f} ms, torch.mm "
+                  f"out_dtype=f32 {library}, torch.matmul bf16 (bf16 out) {b1:.3f}/{b2:.3f} ms, "
+                  f"bound {bound[0]:.4f} ms ({bound[1]})")
             if (lanes, dtype) == (128, "bf16"):
-                row = {"err": max(errs), "ms": t["ms"], "plain_ms": t["plain_ms"],
-                       "library_ms": t["library_ms"], "bound_ms": bound[0],
-                       "bound_by": bound[1]}
+                row = {**t, "bound_ms": bound[0], "bound_by": bound[1]}
             del ways, plain, a, w
     row["err"] = max(errs)
     return row
@@ -1042,6 +1100,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs on an NVIDIA card",
               file=sys.stderr)
         return 1
+    faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     smi = smi_line()
     dev = torch.device("cuda")
     print(f"[device] {smi} | torch {torch.__version__} CUDA {torch.version.cuda} "
@@ -1079,12 +1138,15 @@ def main() -> int:
             for name, _, spill in kernels:
                 check(" 0 bytes spill stores, 0 bytes spill loads" in spill,
                       f"{src} {name} spills: {spill}")
+        rowpair_build(info["logs"]["rowpair.cu"])
     build.load_library()
-    hmma = sass_hmma()
+    hmma, hgmma = sass_hmma()
     print("[build] HMMA instructions in the SASS (cuobjdump -sass): "
           + ", ".join(f"{k} {v}" for k, v in hmma.items()))
+    print(f"[build] HGMMA (wgmma) instructions in rowpair_gemm's SASS: {hgmma}")
     for k, v in hmma.items():
         check(v > 0, f"{k}: no HMMA in its kernels' SASS")
+    check(hgmma > 0, "rowpair_gemm: no HGMMA in its kernels' SASS")
 
     cfg = read_config(FLAGSHIP)
     params = params_to_torch(init_params(cfg)[0], dev)
@@ -1190,7 +1252,7 @@ def main() -> int:
                 "launches": launches, "max_abs_err": max(errs), "ms": t["ms"],
                 "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                 "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-                **{k: t[k] for k in ("mode_ms",) if k in t}}
+                **{k: t[k] for k in ("mode_ms", "graph_ms", "library_graph_ms") if k in t}}
 
     print(json.dumps({"kernels": [
         row("fused_srcnn", "cnn_sr_tpu_torch/csrc/fused_srcnn.cu",

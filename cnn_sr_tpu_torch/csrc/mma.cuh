@@ -1,5 +1,5 @@
 // PTX wrappers of the port's tensor-core kernels (xpack.cu, tc_stage.cuh,
-// winograd.cu, wino5.cu): cp.async copies into shared memory, ldmatrix
+// winograd.cu, wino5.cu, rowpair.cu): cp.async copies into shared memory, ldmatrix
 // fragment loads, the bf16 mma.sync m16n8k16 with f32 sums, and the named
 // barriers and mbarriers of the warp-specialised blocks. One copy of each,
 // included where used.

@@ -78,11 +78,11 @@
 // 80GB HBM3, 700 W; chip_smoke.py), against cuDNN bf16 conv + ReLU's 1.916
 // and 1.593.
 
-#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "mma.cuh"
+#include "tma.cuh"
 #include "winograd_plan.cuh"
 
 namespace {
@@ -112,58 +112,6 @@ __device__ __forceinline__ void setmaxnreg_dec() {
 template <int R>
 __device__ __forceinline__ void setmaxnreg_inc() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
-}
-
-// an mbarrier arrival that also raises the phase's transaction count by the
-// bytes tensor copies will bring (the other barriers are mma.cuh's)
-__device__ __forceinline__ void mbar_arrive_expect_tx(unsigned long long* bar, unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-// tensor copies global -> shared of one box of the tensor map at the given
-// coordinates (innermost first), counted off the mbarrier as they land;
-// elements outside the tensor arrive as zeros
-__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, int c0, int c1,
-                                            int c2, unsigned long long* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_addr(dst)),
-      "l"(reinterpret_cast<unsigned long long>(map)), "r"(c0), "r"(c1), "r"(c2),
-      "r"(smem_addr(bar))
-      : "memory");
-}
-__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, int c0, int c1,
-                                            int c2, int c3, unsigned long long* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_addr(dst)),
-      "l"(reinterpret_cast<unsigned long long>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
-      "r"(smem_addr(bar))
-      : "memory");
-}
-// tensor copy shared -> global of one box at the given coordinates, in a
-// bulk group; elements outside the tensor are not written
-__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, const void* src, int c0,
-                                             int c1, int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
-          reinterpret_cast<unsigned long long>(map)),
-      "r"(smem_addr(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-__device__ __forceinline__ void bulk_commit() { asm volatile("cp.async.bulk.commit_group;\n" ::); }
-// wait until at most N of this thread's bulk groups still read shared memory
-template <int N>
-__device__ __forceinline__ void bulk_wait_read() {
-  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
-}
-// order shared-memory accesses across the generic and the async proxy: the
-// reads a barrier ordered before a tensor copy's writes, or this thread's
-// writes before a tensor copy's reads
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // Element offset of lane c of row r in a swizzled block of 128-byte rows:
@@ -551,38 +499,6 @@ bool shape_ok(const Geo& g, bool window) {
   return g.k > 0 && g.k % 8 == 0 && g.k <= kWinoMaxK && g.TR > 0 && g.TC > 0 &&
          (!window || (g.RH >= g.TR + 1 && g.CWP >= g.TC + 1)) &&
          (g.TR + kWinoTBR - 1) / kWinoTBR <= 65535;
-}
-
-// cuTensorMapEncodeTiled, looked up through the runtime (nothing links
-// libcuda)
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = [] {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault,
-                                         &q) != cudaSuccess ||
-        q != cudaDriverEntryPointSuccess)
-      f = nullptr;
-    return reinterpret_cast<EncodeTiled>(f);
-  }();
-  return fn;
-}
-
-// A bf16 tensor map of `rank` dimensions (innermost first, strides in
-// bytes of dims 1 .. rank - 1), rows of 64 lanes swizzled by 128 bytes
-bool bf16_map(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
-              const cuuint64_t* strides, const cuuint32_t* box) {
-  const EncodeTiled encode = encode_tiled();
-  const cuuint32_t ones[4] = {1, 1, 1, 1};
-  return encode && encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base),
-                          dims, strides, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                          CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <int MODE, int NB>

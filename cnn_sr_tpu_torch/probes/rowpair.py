@@ -23,8 +23,13 @@ prints the probe's ``stride-2 leading-dim read, ...`` lines; it exits 1
 past the probe's relative 2e-2. ``routes`` gives the ways timed at the
 flagship's 1080p exit (an operand of 534 x 954 x L): the strided read; the
 same kernel on a contiguous copy of the rows, alone and after the
-``parity_copy`` of each row parity that makes the copy; and
-``torch.matmul`` in bf16 on that copy (the yardstick only).
+``parity_copy`` of each row parity that makes the copy; and, on that copy,
+``torch.mm(x, w, out_dtype=torch.float32)`` (bf16 in, f32 out: the same
+function, the yardstick) and ``torch.matmul`` in bf16 (bf16 out: half the
+bytes written), timed only.
+
+``plan`` mirrors the kernel's tile and shared-memory plan,
+``csrc/rowpair_plan.cuh``.
 """
 
 from __future__ import annotations
@@ -49,10 +54,40 @@ DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
 # count in layout.LAUNCHES
 LAUNCHES = 0
 
+# csrc/rowpair_plan.cuh: positions a tile, ring stages, the shared bytes a
+# block may opt into, the bytes of a ring stage (128 bytes of lanes a
+# position) and past the buffers (1024-byte alignment, the mbarriers)
+BM, STAGES, SMEM_LIMIT = 128, 2, 232448
+STAGE = BM * 128
+SLACK = 1024 + 8 * (2 * STAGES + 1)
+
+
+def plan(lanes: int) -> dict:
+    """``RowpairPlan(L)`` of ``csrc/rowpair_plan.cuh``: for lanes L, a
+    ring stage's bytes (``stage``: 128 positions x 128 bytes of lanes), the
+    ring's ``stages``, the bytes of W (``w``, L x L bf16), of the f32
+    staging of a tile (``ys``) and of the block (``smem``)."""
+    w, ys = lanes * lanes * 2, BM * lanes * 4
+    return {"stage": STAGE, "stages": STAGES, "w": w, "ys": ys,
+            "smem": SLACK + w + STAGES * STAGE + ys}
+
+
+def map_check(base: int, w_base: int, row_bytes: int) -> None:
+    """What the kernel's tensor maps need of a launch's addresses, raised
+    as a ValueError where they do not have it: the rows read (from
+    ``base``) and w (``w_base``) start 16-byte aligned, and the rows lie
+    ``row_bytes`` apart, a multiple of 16."""
+    if base % 16 or w_base % 16:
+        raise ValueError("the rows read and w must start 16-byte aligned")
+    if row_bytes % 16:
+        raise ValueError(f"the rows read must lie a multiple of 16 bytes apart, got {row_bytes}")
+
 
 def _operand(a: torch.Tensor, w: torch.Tensor, m: int, rt: int, step: int) -> torch.Tensor:
-    """Check the operands on every device alike; returns the view of the m
-    rows read, (m, W, L)."""
+    """Check the operands against what the kernel takes: a (rows, W, L) f32
+    or bf16 with each row W x L contiguous, L 64 or 128; w contiguous bf16
+    (L, L) on a's device; on CUDA tensors also ``map_check`` of the rows
+    read and w. Returns the view of the m rows read, (m, W, L)."""
     if a.dim() != 3 or a.dtype not in DTYPES.values():
         raise ValueError(f"a must be (rows, W, L) f32 or bf16, got {tuple(a.shape)} {a.dtype}")
     lanes = a.shape[2]
@@ -68,8 +103,8 @@ def _operand(a: torch.Tensor, w: torch.Tensor, m: int, rt: int, step: int) -> to
         raise ValueError(f"rows {rt}, {rt} + {step}, ... ({m} of them) are not all in a's "
                          f"{a.shape[0]}")
     v = a[rt:rt + step * (m - 1) + 1:step]
-    if a.is_cuda and (v.data_ptr() % 16 or w.data_ptr() % 16 or v.stride(0) % 8):
-        raise ValueError("the kernel needs 16-byte aligned rows")
+    if a.is_cuda:
+        map_check(v.data_ptr(), w.data_ptr(), v.stride(0) * v.element_size())
     return v
 
 
@@ -138,9 +173,12 @@ def routes(lanes: int, dtype: str, device, shape=EXIT_1080P, seed: int = 0):
     its two outputs: {"strided": two ``rowpair_gemm`` launches on the
     stride-2 rows; "contiguous": the same on a contiguous (2, rows/2, W, L)
     copy made beforehand; "copy": two ``parity_copy`` launches into that
-    buffer, then the two launches on it; "library": ``torch.matmul`` in
-    bf16 on the copy, the yardstick}, the plain version of the strided
-    route, the operand and the matrix."""
+    buffer, then the two launches on it; "library": ``torch.mm`` with
+    ``out_dtype=torch.float32`` on the copy, bf16 in and f32 out, the same
+    function (a torch without ``aten::mm.dtype`` for the device raises);
+    "bf16_out": ``torch.matmul`` in bf16 on the copy, which writes half the
+    bytes}, the plain version of the strided route, the operand and the
+    matrix."""
     rows, cols = shape
     gen = torch.Generator(device=device).manual_seed(seed)
     a = torch.randn((rows, cols, lanes), generator=gen, device=device).to(DTYPES[dtype])
@@ -163,12 +201,17 @@ def routes(lanes: int, dtype: str, device, shape=EXIT_1080P, seed: int = 0):
         return contiguous()
 
     def library():
+        return [torch.mm(buf16[rt].view(-1, lanes), w, out_dtype=torch.float32)
+                for rt in range(2)]
+
+    def bf16_out():
         return [torch.matmul(buf16[rt].view(-1, lanes), w) for rt in range(2)]
 
     def plain():
         return [rowpair_gemm_plain(a, w, m, rt) for rt in range(2)]
 
-    ways = {"strided": strided, "contiguous": contiguous, "copy": copy, "library": library}
+    ways = {"strided": strided, "contiguous": contiguous, "copy": copy, "library": library,
+            "bf16_out": bf16_out}
     return ways, plain, a, w
 
 

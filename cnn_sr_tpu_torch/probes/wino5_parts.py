@@ -12,9 +12,7 @@ is. The parts (``PARTS``), each a set of edits of the source text:
 A copy's outputs are wrong and only its time means anything: the time a
 part costs is at most the kernel's time less that of the copy without it,
 and what is left without every part but one is that part's own pace. The
-copies build with ``nvcc`` (the flags of ``ops/fused/build.py``) into
-``build/cnn_sr_tpu_torch/parts/`` at the checkout's root, one library
-each, and never replace the port's own.
+copies build as ``probes/parts.py`` builds them.
 
     python -m cnn_sr_tpu_torch.probes.wino5_parts [--reps N] [--rounds N]
 """
@@ -23,17 +21,16 @@ from __future__ import annotations
 
 import argparse
 import ctypes
-import subprocess
 import sys
 
 import torch
 
 from ..ops.fused import build
 from . import layout, wino5
+from . import parts as shared
 from .winograd import timer
 
 SOURCE = build.CSRC / "wino5.cu"
-PARTS_DIR = build.BUILD_DIR / "parts"
 
 # part -> (text of wino5.cu, its replacement, times the text occurs)
 PARTS = {
@@ -60,48 +57,16 @@ VARIANTS = {
 
 
 def patched(parts, text: str | None = None) -> str:
-    """The source of ``wino5.cu`` with ``parts`` taken out; raises if an
-    edit's text does not occur as often as ``PARTS`` says (the kernel has
-    changed under this probe)."""
-    text = SOURCE.read_text() if text is None else text
-    for part in parts:
-        for old, new, count in PARTS[part]:
-            if text.count(old) != count:
-                raise RuntimeError(f"wino5_parts: {part!r} expects {count} of {old!r} in "
-                                   f"wino5.cu, found {text.count(old)}")
-            text = text.replace(old, new)
-    return text
-
-
-def build_variants() -> dict:
-    """Each of ``VARIANTS`` built, all ``nvcc`` processes at once: {name:
-    the loaded library}."""
-    nvcc = build.find_nvcc()
-    PARTS_DIR.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for i, (name, parts) in enumerate(VARIANTS.items()):
-        src, lib = PARTS_DIR / f"wino5_{i}.cu", PARTS_DIR / f"libwino5_{i}.so"
-        src.write_text(patched(parts))
-        cmd = [nvcc, *build.NVCC_FLAGS, f"-I{build.CSRC}", "-shared", "-o", str(lib), str(src)]
-        procs[name] = (lib, cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                                  stderr=subprocess.PIPE, text=True))
-    libs = {}
-    for name, (path, cmd, proc) in procs.items():
-        _, err = proc.communicate()
-        if proc.returncode:
-            raise build.KernelBuildError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{err}")
-        lib = ctypes.CDLL(str(path))
-        lib.wino5_forward.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-        lib.wino5_forward.restype = ctypes.c_int
-        libs[name] = lib
-    return libs
+    """The source of ``wino5.cu`` (or ``text``) with ``parts`` taken out."""
+    return shared.patched(SOURCE, PARTS, parts, text)
 
 
 def time_parts(reps: int, rounds: int) -> dict:
     """ms of every mode of every copy at ``wino5.OUT_1080P``, in
     ``rounds`` interleaved rounds of ``reps`` calls: {name: {mode: [ms]}}."""
     dev = layout.device_of("cuda")
-    libs = build_variants()
+    libs = shared.build_variants(SOURCE, PARTS, VARIANTS, "wino5_forward",
+                                 [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
     out_hw = wino5.OUT_1080P
     act, g = wino5.layer_inputs(out_hw, dev)
     x = layout.pack_quad(act)
