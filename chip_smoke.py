@@ -9,8 +9,9 @@ chain, one launch per layer, each in f32 on the CUDA cores
 (``ffma_stage.cuh``) and in the bf16 stream on the tensor cores
 (``tc_stage.cuh``, ``mma.sync``); and the
 probes' ``winograd.cu``, ``parity_copy.cu``, ``wino5.cu``, ``rowpair.cu``
-and ``xpack.cu``, of which ``winograd.cu``, ``wino5.cu`` and ``xpack.cu``
-run on the tensor cores by ``mma.sync`` and ``rowpair.cu`` by ``wgmma``),
+and ``xpack.cu``, of which ``winograd.cu`` and ``wino5.cu`` run on the
+tensor cores by ``mma.sync`` and ``rowpair.cu`` and ``xpack.cu`` by
+``wgmma``),
 holds each against its
 plain PyTorch version on the card, then drives the port's main paths:
 three 1920x1080 requests of the in-repo flagship SRCNN 9-5-5 checkpoint
@@ -26,8 +27,9 @@ of the six probes (``cnn_sr_tpu_torch.probes``). Phases, one line each:
    spill), and the HMMA instructions in the SASS of each bf16 entry point's
    kernels, of ``winograd_f2x3_forward``'s and of ``wino5_forward``'s, in
    each of its four modes (``cuobjdump -sass``), > 0; ``rowpair_kernel``'s
-   four instances (registers and spills: none, beside its plan's dynamic
-   shared bytes) and the HGMMA (``wgmma``) in their SASS, > 0;
+   four instances and ``tap_gemm_kernel``'s six (registers and spills:
+   none, beside their plans' dynamic shared bytes) and the HGMMA
+   (``wgmma``) in the SASS of each, > 0;
 3. kernel vs plain, f32: the fused kernel at the flagship (pretrained)
    and 9-1-5 (random, seed 0) stacks; the chain at the RGB (pretrained)
    stack, a ragged batch of two, the wide 9-5-5 and a 4-layer stack with
@@ -101,10 +103,12 @@ of the six probes (``cnn_sr_tpu_torch.probes``). Phases, one line each:
    CUDA graph replays: GB/s and share of the byte bound), the contiguous
    read and the copy route beside ``torch.mm`` with an f32 output (the
    same function), ``torch.matmul`` bf16 (bf16 out) and its bound; ``tap_gemm``
-   in the 14 xpack variants at one step and a ragged case, then timed at a
-   1080p layer's steps, eagerly and as CUDA graph replays, beside its
-   plain version, cuDNN bf16 conv + ReLU of RGB L2/L3/L4 and
-   ``xpack_bound``, with packed / sep per pair.
+   in the 14 xpack variants at one step and the ragged and streamed cases,
+   then timed at a 1080p layer's steps, eagerly and as CUDA graph replays,
+   beside its plain version, ``torch.bmm`` of the gathered taps with batch
+   stride 0 (the same steps; two chunks through one block-placed weight)
+   and ``xpack_bound``,
+   with the share of the bound and packed / sep per pair.
 
 Then one JSON line of the ten kernels, the ``nvidia-smi`` line, and as
 the last line ``{"ok": true, "device": {...}}``. Any failed check raises,
@@ -443,13 +447,37 @@ def rowpair_build(log: str) -> None:
               f"{spill}")
 
 
+def xpack_build(log: str) -> None:
+    """[build]: ``tap_gemm_kernel``'s six instances (N = 32, 64, 128, with
+    and without the ring) from ptxas: registers and spills (none allowed),
+    beside the most dynamic shared bytes its plan gives the probes'
+    variants at that N; and any ptxas remark on its ``wgmma`` (a
+    serialised pipeline is named there)."""
+    from cnn_sr_tpu_torch.probes import xpack, xpack2
+
+    kernels = build.ptxas_entries(log, "tap_gemm_kernel")
+    check(len(kernels) == 6, f"xpack.cu: {len(kernels)} kernel instances in the ptxas report, "
+          "expected 6 (N = 32, 64, 128, with and without the ring)")
+    for name, regs, spill in kernels:
+        n = next(n for n in xpack.WIDTHS if f"ILi{n}E" in name)
+        smem = max(xpack.plan(v.taps)["smem"] for v in xpack.VARIANTS + xpack2.VARIANTS
+                   if v.taps.n == n)
+        print(f"[build] xpack.cu (wgmma) {name}: {regs} registers; {spill}; dynamic shared memory "
+              f"up to {smem} bytes (plan, the probes' variants)")
+        check(" 0 bytes spill stores, 0 bytes spill loads" in spill, f"xpack.cu {name} spills: "
+              f"{spill}")
+    remarks = [ln.strip() for ln in log.splitlines() if "gmma" in ln.lower()]
+    print("[build] xpack.cu ptxas remarks on wgmma: " + (" | ".join(remarks) or "none"))
+
+
 def sass_hmma() -> tuple:
     """HMMA instructions in the SASS of each bf16 entry point's kernels in
     the built library (``cuobjdump -sass``, beside ``nvcc``), the Winograd
     layer's six instances among them, and of ``wino5_forward``'s, in all
     and in each mode's instance; and the HGMMA (``wgmma``) instructions in
-    ``rowpair_gemm``'s: the proof that they run on the tensor cores.
-    Returns ``({entry point: HMMA}, HGMMA)``."""
+    ``rowpair_gemm``'s and in each of ``tap_gemm_bf16``'s six instances
+    (N = 32, 64, 128, resident or through the ring): the proof that they run on the tensor cores.
+    Returns ``({entry point: HMMA}, {kernel: HGMMA})``."""
     tool = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
     sass = subprocess.run([tool, "-sass", build.library_path()], capture_output=True, text=True,
                           check=True, timeout=300).stdout
@@ -460,15 +488,19 @@ def sass_hmma() -> tuple:
                  for code, mode in enumerate(("quad", "quadp", "quad1"))},
               "wino5_w55f_kernel": ["wino5_forward", "wino5_forward w55f"]}
     counts = {name: 0 for names in kernel.values() for name in names}
-    hgmma = 0
+    wgmma = {"rowpair_kernel": "rowpair_gemm",
+             **{f"tap_gemm_kernelILi{n}ELb{ring}E": f"tap_gemm_bf16 N={n} "
+                + ("ring" if ring else "resident") for n in (32, 64, 128) for ring in (0, 1)}}
+    hgmma = {name: 0 for name in wgmma.values()}
     for part in sass.split("Function : ")[1:]:
         name = part.split("\n", 1)[0]
         for key, entry_points in kernel.items():
             if key in name:
                 for entry_point in entry_points:
                     counts[entry_point] += part.count("HMMA")
-        if "rowpair_kernel" in name:
-            hgmma += part.count("HGMMA")
+        for key, entry_point in wgmma.items():
+            if key in name:
+                hgmma[entry_point] += part.count("HGMMA")
     return counts, hgmma
 
 
@@ -886,17 +918,60 @@ def xpack_bound(variant, steps: int) -> tuple:
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
+def xpack_library(v, a, w, steps):
+    """The one PyTorch call that computes a variant's ``steps``:
+    ``torch.bmm`` of the taps' windows, gathered once into a (rows·cols, ΣK)
+    bf16 operand and expanded with batch stride 0 over the steps, against
+    the taps' weight rows stacked into a (ΣK, chunks·N) matrix, then
+    ``relu_``. Tap t's rows sit in the columns of its chunk and are zero in
+    the others, so with two chunks every output lane also sums exact zero
+    products (``xpack_library_mac`` counts them) and each chunk's f32 sums
+    are unchanged. Returns ``(fn, copies)``: ``copies`` names the copy
+    kernels ``torch.profiler`` saw in one call; where there are any, ``fn``
+    takes a contiguous operand (made once) instead."""
+    taps = v.taps
+    op = torch.cat([a[t.dr:t.dr + taps.rows, t.dc:t.dc + taps.cols, t.l0:t.l0 + t.k]
+                    .reshape(-1, t.k) for t in taps.taps], dim=1)
+    wk = torch.zeros(op.shape[1], taps.chunks * taps.n, dtype=w.dtype, device=w.device)
+    k0 = 0
+    for t in taps.taps:
+        wk[k0:k0 + t.k, t.chunk * taps.n:(t.chunk + 1) * taps.n] = w[t.w0:t.w0 + t.k]
+        k0 += t.k
+    ops, ws = op.expand(steps, *op.shape), wk.expand(steps, *wk.shape)
+    fn = lambda: torch.bmm(ops, ws).relu_()  # noqa: E731
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    copies = sorted({e.key for e in prof.key_averages()
+                     if e.key in ("aten::copy_", "aten::clone") or "copy" in e.key.lower()})
+    if copies:
+        opc, wc = ops.contiguous(), ws.contiguous()
+        fn = lambda: torch.bmm(opc, wc).relu_()  # noqa: E731
+    return fn, copies
+
+
+def xpack_library_mac(taps) -> int:
+    """Multiply-adds a step of ``xpack_library``'s product: every tap's K
+    rows against all chunks·N columns."""
+    return taps.rows * taps.cols * sum(t.k for t in taps.taps) * taps.chunks * taps.n
+
+
 def xpack_phase(smi, dev) -> dict:
     """``tap_gemm`` (``csrc/xpack.cu``) against its plain version in the 14
-    variants of the two xpack probes at one step and in the ragged case
-    (``xpack.ragged``, 3 steps) at every N, one launch each; then each
-    variant at a 1080p layer's steps (338 or 85), timed in turns beside
-    its plain version and the cuDNN bf16 conv + ReLU (channels-last) of
-    the RGB layer its pair stands for (L2 32→32, L3 32→64, L4 64→64), and
-    as a CUDA graph's replays (its device work: a launch is 40–300 µs, near
-    the host's cost of one); printed with µs a step, ms per 1080p layer,
-    packed / sep and the bound. Returns each probe's kernel row: its 64→64
-    packed variant, graph ms."""
+    variants of the two xpack probes at one step, and in the ragged
+    (``xpack.ragged``) and streamed (``xpack.streamed``) cases at every N
+    at 3 steps, one launch each; then each variant at a 1080p layer's steps
+    (338 or 85), timed in turns beside its plain version and the one
+    PyTorch call that computes the same steps (``xpack_library``:
+    ``torch.bmm`` with batch stride 0, two chunks as one block-placed
+    weight), and both as CUDA graph replays (the device work: a launch is
+    40–300 µs, near the host's cost of one); printed with µs a step, ms per 1080p layer, the
+    bound and the kernel's share of it, and packed / sep. Returns each
+    probe's kernel row: its 64→64 packed variant, ``ms`` eager, its
+    ``graph_ms`` and ``library_graph_ms`` beside it."""
     from cnn_sr_tpu_torch.probes import xpack, xpack2
 
     probes = {"xpack": xpack, "xpack2": xpack2}
@@ -907,7 +982,8 @@ def xpack_phase(smi, dev) -> dict:
         for v in mod.VARIANTS:
             ops[v.name] = xpack.operands(v, *inputs[v.name], dev)
             cases.append((name, v.name, *ops[v.name], v.taps, 1))
-    cases += [("xpack", f"ragged N={n}", *xpack.ragged(n, dev, SEED), 3) for n in xpack.WIDTHS]
+    cases += [("xpack", f"{kind} N={n}", *getattr(xpack, kind)(n, dev, SEED), 3)
+              for kind in ("ragged", "streamed") for n in xpack.WIDTHS]
     for name, what, a, w, taps, steps in cases:
         before = xpack.LAUNCHES
         y = xpack.tap_gemm(a, w, taps, steps)
@@ -917,18 +993,10 @@ def xpack_phase(smi, dev) -> dict:
         err, equal, ok = xpack.agree(y, ref)
         check(ok, f"tap_gemm {what}: kernel vs plain max {err}, bit-equal {equal}")
         errs[name].append(err)
-    print(f"[probe] tap_gemm kernel vs plain, 14 variants at one step and the ragged case at N = "
-          f"32/64/128 (3 steps): max |kernel - plain| {max(max(e) for e in errs.values()):.3e}, "
-          f"within one bf16 ulp, >= 99.9% bit-equal")
+    print(f"[probe] tap_gemm kernel vs plain, 14 variants at one step and the ragged and streamed "
+          f"cases at N = 32/64/128 (3 steps): max |kernel - plain| "
+          f"{max(max(e) for e in errs.values()):.3e}, within one bf16 ulp, >= 99.9% bit-equal")
 
-    cudnn = {}
-    for (k, n), (layer, (oh, ow)) in xpack.LAYERS.items():
-        gen = torch.Generator(device=dev).manual_seed(SEED)
-        act = (torch.rand((1, oh + 2, ow + 2, k), generator=gen, device=dev) - 0.5).to(
-            torch.bfloat16)
-        g = (torch.rand((3, 3, k, n), generator=gen, device=dev) - 0.5) * (12.0 / (9 * k)) ** 0.5
-        lib_w = library_weights([{"w": g, "b": torch.zeros(n, device=dev)}], "bf16")
-        cudnn[(k, n)] = lambda lib_w=lib_w, act=act: library_convs(lib_w, act).relu_()
     rows = {}
     for name, mod in probes.items():
         steps = xpack.steps_1080p(mod.VARIANTS)
@@ -937,20 +1005,35 @@ def xpack_phase(smi, dev) -> dict:
             a, w = ops[v.name]
             kern = lambda: xpack.tap_gemm(a, w, v.taps, steps)  # noqa: E731
             plain = lambda: xpack.tap_gemm_plain(a, w, v.taps, steps)  # noqa: E731
-            t[v.name] = turns(kern, plain, cudnn[v.pair])
+            library, copies = xpack_library(v, a, w, steps)
+            ref = plain()
+            lib_err, lib_equal, _ = xpack.agree(library().view(ref.shape), ref)
+            del ref
+            extra = xpack_library_mac(v.taps) / v.taps.mac
+            lib_what = (f"torch.bmm batch stride 0 + relu_ (max |bmm - plain| {lib_err:.3e}, "
+                        f"{lib_equal:.2%} bit-equal to plain; {extra:.2f}x the kernel's "
+                        "multiply-adds; "
+                        + (f"copies seen {copies}: timed on a contiguous operand"
+                           if copies else "no copy of the expanded operand") + ")")
+            t[v.name] = turns(kern, plain, library)
             g1, g2 = graph_ms(kern), graph_ms(kern)
+            lg = graph_ms(library), graph_ms(library)
             bound, bound_by = xpack_bound(v, steps)
             layer, (oh, ow) = xpack.LAYERS[v.pair]
             per_layer = oh * ow / (v.positions * steps)
-            t[v.name].update(g=(g1, g2), graph_ms=(g1 + g2) / 2, bound_ms=bound, bound_by=bound_by,
-                             us_step=(g1 + g2) / 2 * 1e3 / steps)
             tv = t[v.name]
+            tv.update(g=(g1, g2), graph_ms=(g1 + g2) / 2, bound_ms=bound, bound_by=bound_by,
+                      library_graph_ms=(lg[0] + lg[1]) / 2,
+                      us_step=(g1 + g2) / 2 * 1e3 / steps, share=bound / ((g1 + g2) / 2))
+            lib_ms = (f"{tv['l'][0]:.4f}/{tv['l'][1]:.4f} ms eager, {lg[0]:.4f}/{lg[1]:.4f} ms "
+                      "as graph replays")
             print(f"[probe] {smi} | {name} {v.name} ({v.pair[0]}->{v.pair[1]}, {steps} steps, "
                   f"{v.taps.mac * steps / 1e9:.1f} G MAC): kernel {g1:.4f}/{g2:.4f} ms as graph "
-                  f"replays ({tv['us_step']:.3f} us/step, {tv['graph_ms'] * per_layer:.4f} ms per "
-                  f"1080p {layer}), {tv['k'][0]:.4f}/{tv['k'][1]:.4f} ms eager, plain "
-                  f"{tv['p'][0]:.3f}/{tv['p'][1]:.3f} ms, cuDNN bf16 {layer} conv + ReLU "
-                  f"{tv['l'][0]:.4f}/{tv['l'][1]:.4f} ms, bound {bound:.4f} ms ({bound_by})")
+                  f"replays ({tv['share']:.0%} of the bound; {tv['us_step']:.3f} us/step, "
+                  f"{tv['graph_ms'] * per_layer:.4f} ms per 1080p {layer}), {tv['k'][0]:.4f}/"
+                  f"{tv['k'][1]:.4f} ms eager ({bound / tv['ms']:.0%}), plain {tv['p'][0]:.3f}/"
+                  f"{tv['p'][1]:.3f} ms, library {lib_what} {lib_ms}, bound {bound:.4f} ms "
+                  f"({bound_by})")
         sep = None
         for v in mod.VARIANTS:
             if v.sep:
@@ -961,9 +1044,9 @@ def xpack_phase(smi, dev) -> dict:
                   f"{t[v.name]['ms'] / t[sep]['ms']:.3f}x eager; bound "
                   f"{t[v.name]['bound_ms'] / t[sep]['bound_ms']:.3f}x")
         l4 = t[mod.VARIANTS[-1].name]
-        rows[name] = {"err": max(errs[name]), "ms": l4["graph_ms"], "plain_ms": l4["plain_ms"],
-                      "library_ms": l4["library_ms"], "bound_ms": l4["bound_ms"],
-                      "bound_by": l4["bound_by"]}
+        rows[name] = {"err": max(errs[name]), **{k: l4[k] for k in (
+            "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "graph_ms",
+            "library_graph_ms", "share")}}
     return rows
 
 
@@ -1139,14 +1222,17 @@ def main() -> int:
                 check(" 0 bytes spill stores, 0 bytes spill loads" in spill,
                       f"{src} {name} spills: {spill}")
         rowpair_build(info["logs"]["rowpair.cu"])
+        xpack_build(info["logs"]["xpack.cu"])
     build.load_library()
     hmma, hgmma = sass_hmma()
     print("[build] HMMA instructions in the SASS (cuobjdump -sass): "
           + ", ".join(f"{k} {v}" for k, v in hmma.items()))
-    print(f"[build] HGMMA (wgmma) instructions in rowpair_gemm's SASS: {hgmma}")
+    print("[build] HGMMA (wgmma) instructions in the SASS: "
+          + ", ".join(f"{k} {v}" for k, v in hgmma.items()))
     for k, v in hmma.items():
         check(v > 0, f"{k}: no HMMA in its kernels' SASS")
-    check(hgmma > 0, "rowpair_gemm: no HGMMA in its kernels' SASS")
+    for k, v in hgmma.items():
+        check(v > 0, f"{k}: no HGMMA in its kernels' SASS")
 
     cfg = read_config(FLAGSHIP)
     params = params_to_torch(init_params(cfg)[0], dev)
@@ -1252,7 +1338,8 @@ def main() -> int:
                 "launches": launches, "max_abs_err": max(errs), "ms": t["ms"],
                 "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                 "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-                **{k: t[k] for k in ("mode_ms", "graph_ms", "library_graph_ms") if k in t}}
+                **{k: t[k] for k in ("mode_ms", "graph_ms", "library_graph_ms", "share")
+                   if k in t}}
 
     print(json.dumps({"kernels": [
         row("fused_srcnn", "cnn_sr_tpu_torch/csrc/fused_srcnn.cu",

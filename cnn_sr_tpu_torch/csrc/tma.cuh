@@ -1,8 +1,8 @@
-// Tensor copies (TMA) of the port's kernels (winograd.cu, rowpair.cu): the
-// PTX wrappers of the copies between global and shared memory, their bulk
-// groups and mbarrier transaction counts, and the host side that encodes a
-// tensor map. One copy of each, included where used; the other barriers
-// and smem_addr are mma.cuh's.
+// Tensor copies (TMA) of the port's kernels (winograd.cu, rowpair.cu,
+// xpack.cu): the PTX wrappers of the copies between global and shared
+// memory, their bulk groups and mbarrier transaction counts, and the host
+// side that encodes a tensor map. One copy of each, included where used;
+// the other barriers and smem_addr are mma.cuh's.
 #pragma once
 
 #include <cuda.h>
@@ -134,21 +134,24 @@ EncodeTiled encode_tiled() {
 
 // A tensor map of `rank` dimensions (innermost first, strides in bytes of
 // dims 1 .. rank - 1), each box row of 128 bytes swizzled by 128 bytes
-// (16-byte chunk c of box row r at c ^ (r % 8))
+// (16-byte chunk c of box row r at c ^ (r % 8)), or by the swizzle given
 bool swizzled_map(CUtensorMap* map, CUtensorMapDataType type, const void* base, int rank,
-                  const cuuint64_t* dims, const cuuint64_t* strides, const cuuint32_t* box) {
+                  const cuuint64_t* dims, const cuuint64_t* strides, const cuuint32_t* box,
+                  CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   const EncodeTiled encode = encode_tiled();
   const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
   return encode && encode(map, type, rank, const_cast<void*>(base), dims, strides, box, ones,
-                          CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                          CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                           CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                           CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// bf16: box rows of 64 lanes
+// bf16: box rows of 64 lanes (of 32 lanes under CU_TENSOR_MAP_SWIZZLE_64B)
 bool bf16_map(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
-              const cuuint64_t* strides, const cuuint32_t* box) {
-  return swizzled_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, rank, dims, strides, box);
+              const cuuint64_t* strides, const cuuint32_t* box,
+              CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
+  return swizzled_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, rank, dims, strides, box,
+                      swizzle);
 }
 
 // f32: box rows of 32 lanes

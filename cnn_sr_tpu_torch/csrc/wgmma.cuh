@@ -1,8 +1,8 @@
 // PTX wrappers of the warpgroup MMA (wgmma, sm_90a) of the port's kernels
-// (rowpair.cu): the shared-memory matrix descriptor, the fence, commit and
-// wait of the asynchronous products, and the bf16 products with f32 sums at
-// m64 n64 / n128 k16, A from shared memory or from registers, B from shared
-// memory. One copy of each, included where used.
+// (rowpair.cu, xpack.cu): the shared-memory matrix descriptors, the fence,
+// commit and wait of the asynchronous products, and the bf16 products with
+// f32 sums at m64 n32 / n64 / n128 k16, A from shared memory or from
+// registers, B from shared memory. One copy of each, included where used.
 #pragma once
 
 namespace {
@@ -23,6 +23,15 @@ __device__ __forceinline__ unsigned long long wgmma_desc(unsigned addr, unsigned
          (static_cast<unsigned long long>((sbo >> 4) & 0x3fff) << 32) | (1ull << 62);
 }
 
+// the same for rows of 64 bytes swizzled by 64 bytes (16-byte chunk c of row
+// r at c ^ (r / 2 % 4), CU_TENSOR_MAP_SWIZZLE_64B): an MN-major operand of
+// 32-element MN blocks LBO apart and 8-row K groups SBO (512) apart; period
+// 512 bytes
+__device__ __forceinline__ unsigned long long wgmma_desc_sw64(unsigned addr, unsigned lbo,
+                                                              unsigned sbo) {
+  return (wgmma_desc(addr, lbo, sbo) & ~(3ull << 62)) | (2ull << 62);
+}
+
 // order this warpgroup's register and shared-memory accesses before the
 // wgmma that follow
 __device__ __forceinline__ void wgmma_fence() {
@@ -41,6 +50,35 @@ __device__ __forceinline__ void wgmma_wait() {
 // the asynchronous products
 __device__ __forceinline__ void wgmma_fence_operand(float& r) {
   asm volatile("" : "+f"(r)::"memory");
+}
+
+// d (the m64 x n32 f32 accumulator fragment) += A (64 x 16) @ B (16 x 32),
+// bf16, A K-major and B MN-major in shared memory by their descriptors;
+// scale_d = 0 overwrites d instead
+__device__ __forceinline__ void wgmma_m64n32k16_ss(float (&d)[16], unsigned long long desc_a,
+                                                  unsigned long long desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+// the same with A from registers, as wgmma_m64n64k16_rs takes it
+__device__ __forceinline__ void wgmma_m64n32k16_rs(float (&d)[16], const unsigned (&a)[4],
+                                                  unsigned long long desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
 }
 
 // d (the m64 x n64 f32 accumulator fragment) += A (64 x 16) @ B (16 x 64),

@@ -5,14 +5,16 @@ layers (L2 32→32, L3 32→64, L4 64→64) run separated-phase dots: f=3 dots
 of (M, 3k) @ (3k, n), n/128 of the TPU's 128 MXU lanes. The probe asks
 whether packing P = 128/n positions into each lane group, (M/P, 128) @
 (128, 128) dots at full lanes with 1.33–2.67x the multiply-adds, is
-faster. On the H100 the question is how full an ``mma.sync`` m16n8k16
-tile runs at n = 32 and 64, and whether packing buys anything there.
+faster. On the H100 the question is how full a ``wgmma`` m64nNk16 runs
+at N = 32 and 64, and whether packing buys anything there.
 
 Every variant (``VARIANTS``, the probe's table at :88-105) computes, per
 step, the same 6,144 output positions from operands that every step
 shares: a sum of dots, bf16 × bf16 with f32 sums, then ReLU and one
 rounding to bf16. Each is a tap list (``TapList``) of ``tap_gemm``, the
-wrapper of the ``csrc/xpack.cu`` kernel: for each output chunk j,
+wrapper of the ``csrc/xpack.cu`` kernel (``wgmma``; its tile and
+shared-memory plan, ``csrc/xpack_plan.cuh``, is ``plan`` here): for each
+output chunk j,
 
     out[s, r, x, jN:(j+1)N] = bf16(relu(Σ_t a[r+dr, x+dc, l0:l0+K] @ w[w0:w0+K]))
 
@@ -66,6 +68,15 @@ MIN_EQUAL = 0.999        # agree: the bit-equal share
 
 # launches in this process of csrc/xpack.cu, from this probe and xpack2
 LAUNCHES = 0
+
+# csrc/xpack_plan.cuh: output positions a tile, output lanes a consumer
+# warpgroup computes at once (LANES / N steps), ring stages at most, the
+# shared bytes a block may opt into, an A box's bytes (64 positions x 128
+# bytes of lanes) and the bytes past the buffers (1024-byte alignment, the
+# mbarriers)
+ROWS, LANES, MAX_RING, SMEM_LIMIT = 64, 256, 16, 232448
+BOX = ROWS * 128
+SLACK = 1024 + 8 * (2 * MAX_RING + 4)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -192,6 +203,67 @@ def _check(a: torch.Tensor, w: torch.Tensor, taps: TapList, steps: int) -> None:
         raise ValueError("tap_gemm: the kernel needs 16-byte aligned a and w")
 
 
+def tables(taps: TapList):
+    """The boxes and slices of ``xpack_plan`` (``csrc/xpack_plan.cuh``), per
+    chunk in order: each tap's lanes in boxes of 64 and slices of 32, a
+    slice ``(box, half, w_row, k16)`` reading half ``half`` of box ``box``
+    of its chunk's distinct boxes ``(dr, dc, lane)`` over k16 = 1 or 2
+    steps of 16 lanes. Returns ``(boxes, slices)``, one list a chunk
+    each."""
+    boxes, slices = [], []
+    for j in range(taps.chunks):
+        bj, sj = [], []
+        for t in taps.taps:
+            if t.chunk != j:
+                continue
+            for k in range(0, t.k, KSTEP):
+                key = (t.dr, t.dc, t.l0 + k // 64 * 64)
+                if key not in bj:
+                    bj.append(key)
+                sj.append((bj.index(key), k // 32 % 2, t.w0 + k, min(32, t.k - k) // 16))
+        boxes.append(bj)
+        slices.append(sj)
+    return boxes, slices
+
+
+def plan(taps: TapList) -> dict:
+    """``xpack_plan`` of ``csrc/xpack_plan.cuh`` for a launch of ``taps``:
+    the tile (``tc`` columns x ``tr`` rows, 64 positions; ``tiles_c`` a
+    row of tiles, ``tiles`` in all), the most
+    boxes and slices of a chunk, whether A (a tile's boxes) and W (a
+    chunk's weight slices) stay resident or stream through a ring of
+    ``ring`` stages of ``stage`` bytes, the output stages a warpgroup, and
+    the bytes of each shared buffer (``zero_bytes``: 16 rows of zero
+    weights) and of the block (``smem``)."""
+    n = taps.n
+    tc = 1
+    while tc < taps.cols and tc < ROWS:
+        tc *= 2
+    boxes, slices = tables(taps)
+    tiles_c = -(-taps.cols // tc)
+    p = {"n": n, "tc": tc, "tr": ROWS // tc, "tiles_c": tiles_c,
+         "tiles": tiles_c * -(-taps.rows // (ROWS // tc)), "chunks": taps.chunks,
+         "boxes": max(map(len, boxes)), "slices": max(map(len, slices)),
+         "wslice": KSTEP * n * 2, "zero_bytes": max(1024, 16 * n * 2)}
+    a, w = p["boxes"] * BOX, p["slices"] * p["wslice"]
+    out = 2 * LANES * ROWS * 2  # an output stage of both warpgroups
+    budget = SMEM_LIMIT - SLACK - p["zero_bytes"]
+    p.update(a_res=1, w_res=1, ring=0, stage=0, out_stages=1)
+    if a + w + 2 * out <= budget:
+        p["out_stages"] = 2
+    elif a + w + out > budget:
+        p["w_res"] = 0
+        if a + out + 2 * p["wslice"] > budget:
+            p["a_res"] = 0
+        p["stage"] = (0 if p["a_res"] else BOX) + p["wslice"]
+        p["ring"] = min(MAX_RING, (budget - (a if p["a_res"] else 0) - out) // p["stage"])
+    p.update(a_bytes=a if p["a_res"] else 0, w_bytes=w if p["w_res"] else 0,
+             ring_bytes=p["ring"] * p["stage"], out_bytes=p["out_stages"] * out)
+    p["smem"] = (SLACK + p["a_bytes"] + p["w_bytes"] + p["ring_bytes"] + p["out_bytes"]
+                 + p["zero_bytes"])
+    return p
+
+
 def tap_gemm_plain(a: torch.Tensor, w: torch.Tensor, taps: TapList, steps: int = 1) -> torch.Tensor:
     """``tap_gemm`` in PyTorch: each chunk's dots in strict f32 on the bf16
     values (every product exact), summed in tap order, ReLU, one rounding
@@ -228,16 +300,24 @@ def tap_gemm(a: torch.Tensor, w: torch.Tensor, taps: TapList, steps: int = 1) ->
     lib = load_library()
     out = torch.empty((steps, taps.rows, taps.cols, taps.chunks * taps.n), dtype=torch.bfloat16,
                       device=a.device)
-    flat = [v for t in taps.taps for v in (t.dr, t.dc, t.l0, t.k, t.w0, t.chunk)]
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.tap_gemm_bf16(a.data_ptr(), w.data_ptr(), out.data_ptr(), *a.shape,
-                                w.shape[0], taps.n, taps.rows, taps.cols, taps.chunks,
-                                (ctypes.c_int * len(flat))(*flat), len(taps.taps), steps, stream)
+    err = launch(lib, a, w, out, taps, steps)
     if err:
         raise RuntimeError("tap_gemm launch failed: " + lib.cnn_sr_error_string(err).decode())
     LAUNCHES += 1
     return out
+
+
+def launch(lib, a: torch.Tensor, w: torch.Tensor, out: torch.Tensor, taps: TapList,
+           steps: int) -> int:
+    """One call of ``lib``'s ``tap_gemm_bf16`` on the current stream of
+    ``a``'s device, operands as ``_check`` passed them; returns its error
+    code (the build's library, or a copy of ``xpack_parts``)."""
+    flat = [v for t in taps.taps for v in (t.dr, t.dc, t.l0, t.k, t.w0, t.chunk)]
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        return lib.tap_gemm_bf16(a.data_ptr(), w.data_ptr(), out.data_ptr(), *a.shape,
+                                 w.shape[0], taps.n, taps.rows, taps.cols, taps.chunks,
+                                 (ctypes.c_int * len(flat))(*flat), len(taps.taps), steps, stream)
 
 
 def agree(got: torch.Tensor, ref: torch.Tensor):
@@ -293,6 +373,22 @@ def ragged(n: int, device="cpu", seed: int = 0):
     taps = TapList(7, 37, n, (Tap(0, 0, 8, 48, 0), Tap(2, 1, 24, 32, 48), Tap(1, 4, 0, 64, 80),
                               Tap(1, 1, 40, 32, 144, 1), Tap(0, 3, 16, 16, 176, 1)))
     return a.to(device, torch.bfloat16), w.to(device, torch.bfloat16), taps
+
+
+def streamed(n: int, device="cpu", seed: int = 0):
+    """A case whose boxes do not fit a block beside its output staging, so
+    that both A and W stream: a (12, 40, 64) operand, 5x33 outputs, one
+    chunk of 28 taps at distinct row and column offsets (K = 64, 32 at lane
+    32, 16 at lane 48). Returns (a, w, taps)."""
+    rng = np.random.default_rng(seed)
+    a = torch.from_numpy(rng.random((12, 40, 64), np.float32) - 0.5)
+    tap, w0 = [], 0
+    for i in range(28):
+        l0, k = ((0, 64), (32, 32), (48, 16))[i % 3]
+        tap.append(Tap(i % 7, i // 7, l0, k, w0))
+        w0 += k
+    w = torch.from_numpy(rng.random((w0, n), np.float32) - 0.5)
+    return a.to(device, torch.bfloat16), w.to(device, torch.bfloat16), TapList(5, 33, n, tuple(tap))
 
 
 def check(variants, inputs, device, steps: int) -> bool:
