@@ -13,7 +13,8 @@ and ``xpack.cu``, of which ``winograd.cu`` and ``wino5.cu`` run on the
 tensor cores by ``mma.sync`` and ``rowpair.cu`` and ``xpack.cu`` by
 ``wgmma``),
 holds each against its
-plain PyTorch version on the card, then drives the port's main paths:
+plain PyTorch version on the card, then drives the port's main paths
+(training among them, ``[train]``):
 three 1920x1080 requests of the in-repo flagship SRCNN 9-5-5 checkpoint
 and three of the in-repo 7-layer RGB checkpoint through
 ``api.upscale_image`` in f32, one round of the HTTP server's
@@ -71,7 +72,20 @@ of the six probes (``cnn_sr_tpu_torch.probes``). Phases, one line each:
    then the flagship in f32 and in bf16 through the fused kernel beside
    the same stack through the chain's three launches (whether fusion
    pays), and the 9-1-5 stack in both precisions;
-8. probe main path: ``strided_store.main``, ``winograd.main(["--check"])``
+8. io: the port's native library (``native.py``, built with ``g++`` from
+   ``native/cnnsr_native.cpp``), the codec that serves ``ops.image``
+   (native, or the zlib PNG codec ``ops/png.py`` where it does not
+   build) and a 1080p PNG round trip, bit-equal; a JPEG round trip
+   within tests/test_native.py's bound where a codec serves JPEG;
+9. train: the training path at full width (``train_phase``): 128 PNG
+   sample pairs of 128x128, the first epoch's gradient on the card
+   within 2e-4 of the CPU's, 16 epochs of ``train_loop`` in ``highest``,
+   ``high`` and ``bf16`` (ms per epoch, epochs/s, peak memory; the
+   validation error falls), the parameters file saved and loaded back
+   bit-exact, the trained weights' 1080p upscale (one ``fused_srcnn``
+   launch, within ±1 uint8 of plain), and ``cnn_torch.py train`` in a
+   subprocess;
+10. probe main path: ``strided_store.main``, ``winograd.main(["--check"])``
    (every Winograd mode and ``repack`` within 1e-2 of a float64 direct
    conv), ``wino5.main(["--check"])`` (every mode within 2e-2 of a float64
    direct 5x5 conv), ``rowpair.main([])`` (the probe's four cases within
@@ -125,6 +139,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -1178,6 +1193,219 @@ def serve_path(cfg, params, cfg_rgb, params_rgb, smi) -> tuple:
     return total
 
 
+def io_phase(smi) -> None:
+    """[io]: build the port's native library (``native.py``), name the codec
+    that serves ``ops.image`` (native, or the zlib PNG path where the
+    library does not build), and round-trip a 1080p frame through it: PNG
+    bit-equal; JPEG on tests/test_native.py's kind of image within its bound
+    (mean |error| < 6) where a JPEG codec serves, else the refusal must
+    name libjpeg."""
+    from cnn_sr_tpu_torch import native
+    from cnn_sr_tpu_torch.ops import image
+
+    t0 = time.perf_counter()
+    built = native.available()
+    secs = time.perf_counter() - t0
+    print(f"[io] native library (native/cnnsr_native.cpp, g++): "
+          f"{'built' if built else 'did not build'} in {secs:.1f} s; codec: {image.codec()}")
+    if not built:
+        err = native.build_error().strip().splitlines()
+        print("[io] build error: " + " | ".join(ln.strip() for ln in err[-4:]))
+    frame = make_image(1080, 1920, SEED)[..., :3].copy()
+    native.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=native.BUILD_DIR) as d:
+        path = os.path.join(d, "frame.png")
+        t0 = time.perf_counter()
+        image.write_image(path, frame)
+        t1 = time.perf_counter()
+        back = image.load_image(path)
+        t2 = time.perf_counter()
+        check(back.shape == (1080, 1920, 4) and np.array_equal(back[..., :3], frame)
+              and bool((back[..., 3] == 255).all()), "[io] 1080p PNG round trip not bit-equal")
+        print(f"[io] 1920x1080 PNG round trip bit-equal: encode {(t1 - t0) * 1e3:.1f} ms, "
+              f"decode {(t2 - t1) * 1e3:.1f} ms, {os.path.getsize(path)} bytes")
+        # JPEG on tests/test_native.py's image (a ramp plus N(0, 2) noise), at 1080p
+        yy, xx = np.mgrid[0:1080, 0:1920].astype(np.float32)
+        ramp = (yy * 255 / 1079 + xx * 255 / 1919) / 2
+        smooth = np.clip(ramp[..., None] + np.random.default_rng(SEED).normal(0, 2, frame.shape),
+                         0, 255).astype(np.uint8)
+        jpg = os.path.join(d, "frame.jpg")
+        try:
+            image.write_image(jpg, smooth)
+        except IOError as e:
+            check("libjpeg" in str(e), f"[io] JPEG refusal does not name libjpeg: {e}")
+            print(f"[io] JPEG: no codec here ({str(e).splitlines()[0][:200]})")
+            return
+        err = float(np.abs(image.load_image(jpg)[..., :3].astype(np.int32)
+                           - smooth.astype(np.int32)).mean())
+        check(err < 6.0, f"[io] 1080p JPEG round trip mean |error| {err}")
+        print(f"[io] 1920x1080 JPEG round trip (a ramp plus N(0, 2) noise) mean |error| "
+              f"{err:.3f} (bound 6)")
+
+
+def train_phase(smi, dev) -> None:
+    """[train]: the training path at full width, ``configs/srcnn_9-5-5.json``
+    (n1 = 64, n2 = 32, f 9/5/5) from random parameters at seed 0.
+
+    128 sample pairs of 128x128 written as PNG through ``ops.image``: the
+    larges are crops of two ``make_image`` 1080p frames, the smalls the
+    same crops down and up 2x with the port's bicubic (``ops.resize``).
+    Loaded by ``find_training_samples`` and ``load_sample_set``. The first
+    epoch's gradient on the card is held against the same ``_grads`` on the
+    CPU, TF32 off, within tests/test_backprop_parity.py's rtol = atol =
+    2e-4 of each tensor's largest entry. Then 16 epochs of ``train_loop``
+    (``mini_batch_count`` 2, ``epochs_per_dispatch`` 4,
+    ``validation_cadence`` 4; 25% validation, so that the 96 training
+    samples split into two chunks) in ``highest``, ``high`` and ``bf16``
+    from the same start: the validation error finite and lower at the end
+    than at epoch 0; ms per epoch of each dispatch of four (the first
+    holds the samples' upload and cuDNN's first plans), epochs/s, peak
+    device memory. The ``highest`` weights are saved with
+    ``save_parameters_file`` and loaded back bit-exact, then upscale one
+    1080p frame through ``api.upscale_image``: one ``fused_srcnn`` launch,
+    within ±1 uint8 of the plain version's pipeline. Last, the CLI:
+    ``cnn_torch.py train -c configs/srcnn_9-5-5.json -i <dir> -e 4 -o
+    p.json`` in a subprocess, rc 0, the file loadable."""
+    from cnn_sr_tpu_torch.ops.image import codec, write_image
+    from cnn_sr_tpu_torch.ops.resize import degrade
+    from cnn_sr_tpu_torch.training import samples as tsamples
+    from cnn_sr_tpu_torch.training import trainer
+    from cnn_sr_tpu_torch.utils.params_io import load_parameters_file, save_parameters_file
+
+    t_phase = time.perf_counter()
+    cfg_path = os.path.join(ROOT, "configs", "srcnn_9-5-5.json")
+    cfg = read_config(cfg_path)
+    rng = np.random.default_rng(SEED)
+    frames = [make_image(1080, 1920, SEED + 50 + i)[..., :3] for i in range(2)]
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as d:
+        sample_dir = os.path.join(d, "samples")
+        os.makedirs(sample_dir)
+        t0 = time.perf_counter()
+        for i in range(128):
+            y, x = rng.integers(0, 1080 - 128), rng.integers(0, 1920 - 128)
+            large = np.ascontiguousarray(frames[i % 2][y:y + 128, x:x + 128])
+            small = degrade(torch.from_numpy(large).to(dev, torch.float32), 2.0)
+            small = torch.clamp(torch.round(small), 0, 255).to(torch.uint8).cpu().numpy()
+            write_image(os.path.join(sample_dir, f"crop{i:03d}_large.png"), large)
+            write_image(os.path.join(sample_dir, f"crop{i:03d}_small.png"), small)
+        t1 = time.perf_counter()
+        pairs = tsamples.find_training_samples(sample_dir)
+        data = tsamples.load_sample_set(pairs)
+        t2 = time.perf_counter()
+        check(len(pairs) == 128 and data.input_luma.shape == (128, 128, 128, 1),
+              f"[train] samples: {len(pairs)} pairs, {data.input_luma.shape}")
+        print(f"[train] 128 pairs of 128x128 PNG written in {t1 - t0:.2f} s, found and loaded "
+              f"in {t2 - t1:.2f} s (codec: {codec()})")
+
+        # the first epoch's gradient, card against CPU, TF32 off
+        state0 = trainer.init_train_state(cfg, seed=SEED)
+        train_idx, _ = tsamples.divide_samples(128, 32, np.random.default_rng(SEED))
+        grads = {}
+        for name, gdev in (("cpu", torch.device("cpu")), ("card", dev)):
+            p = params_to_torch(state0.params, gdev)
+            x = torch.from_numpy(data.input_luma[train_idx]).to(gdev)
+            t = torch.from_numpy(data.expected_luma[train_idx]).to(gdev)
+            t0 = time.perf_counter()
+            g = trainer._grads(p, x, t, 2)
+            grads[name] = [{k: v.cpu().numpy() for k, v in layer.items()} for layer in g]
+            grads[name + "_s"] = time.perf_counter() - t0
+        rels = []
+        for i, (a, b) in enumerate(zip(grads["card"], grads["cpu"])):
+            for k in ("w", "b"):
+                scale = float(np.abs(b[k]).max())
+                err = np.abs(a[k] - b[k]) / scale
+                check(bool((err <= 2e-4 + 2e-4 * np.abs(b[k]) / scale).all()),
+                      f"[train] card gradient layer {i + 1} {k}: max {float(err.max())} of "
+                      f"the largest entry {scale}")
+                rels.append(f"L{i + 1}{k} {float(err.max()):.1e}")
+        print(f"[train] {smi} | first epoch's gradient (96 samples, 2 chunks), card vs CPU, "
+              f"TF32 off: max |diff| / max |grad| per tensor " + ", ".join(rels)
+              + f" (gate 2e-4) | card {grads['card_s'] * 1e3:.1f} ms (first call), "
+              f"CPU {grads['cpu_s']:.2f} s")
+
+        trained = None
+        for precision in ("highest", "high", "bf16"):
+            state = trainer.init_train_state(cfg, seed=SEED)
+            stamps, errs = [], []
+
+            def on_epoch(e, v):
+                if e % 4 == 0:
+                    stamps.append(time.perf_counter())
+                if v is not None:
+                    errs.append((e, v))
+
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            error = trainer.train_loop(
+                cfg, data, state, 16, validation_percent=25, mini_batch_count=2,
+                validation_cadence=4, epochs_per_dispatch=4, seed=SEED,
+                precision=None if precision == "highest" else precision, device=dev,
+                log=lambda *a: None, on_epoch=on_epoch)
+            total = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated()
+            check(not error and state.epochs == 16, f"[train] {precision}: error {error}, "
+                  f"epochs {state.epochs}")
+            check([e for e, _ in errs] == [0, 4, 8, 12, 15], f"[train] val epochs {errs}")
+            check(all(math.isfinite(v) for _, v in errs) and errs[-1][1] < errs[0][1],
+                  f"[train] {precision}: validation error did not fall: {errs}")
+            per = [(stamps[0] - t0) * 1e3 / 4] + [(b - a) * 1e3 / 4
+                                                  for a, b in zip(stamps, stamps[1:])]
+            med = float(np.median(per[1:]))
+            print(f"[train] {smi} | 9-5-5 full width, {precision}: ms per epoch of each "
+                  "dispatch of 4: " + ", ".join(f"{v:.2f}" for v in per)
+                  + f" (median of the warm three {med:.2f}; {1e3 / med:.1f} epochs/s; "
+                  f"16 epochs in {total:.2f} s) | mean validation error at epochs "
+                  + ", ".join(f"{e}: {v / 32:.4f}" for e, v in errs)
+                  + f" | peak device memory {peak / 2**20:.1f} MiB")
+            if trained is None:
+                trained = state
+
+        path = os.path.join(d, "trained.json")
+        save_parameters_file(path, trained.params, epochs=trained.epochs)
+        back, epochs = load_parameters_file(path, cfg.layer_specs())
+        check(epochs == 16 and all(a["w"].tobytes() == b["w"].tobytes()
+                                   and a["b"].tobytes() == b["b"].tobytes()
+                                   for a, b in zip(back, trained.params)),
+              "[train] the saved parameters file does not load back bit-exact")
+
+        params = params_to_torch(back, dev)
+        rgba = make_image(1080, 1920, SEED + 60)
+        reset_counts()
+        out = api.upscale_image(cfg, params, rgba)
+        made = counts()
+        check(made == (1, 0, 0, 0), f"[train] upscale launches {made}, expected (1, 0, 0, 0)")
+        plain = api._upscale_luma(lambda x: reference.fused_forward(params, x),
+                                  torch.from_numpy(rgba).to(dev), add_mean=cfg.zero_mean_target,
+                                  squared_mean=cfg.subtract_squared_mean).cpu().numpy()
+        diff = int(np.abs(out.astype(np.int16) - plain.astype(np.int16)).max())
+        border = border_mask(1080, 1920, cfg.total_padding())
+        check(out.shape == (1080, 1920, 3) and diff <= 1
+              and np.array_equal(out[border], rgba[..., :3][border]),
+              f"[train] trained upscale: {out.shape}, max diff {diff} uint8 vs plain")
+        print(f"[train] saved and loaded back bit-exact (epochs {epochs}); 1920x1080 upscale "
+              f"with the trained weights: launches (fused, chain, fused bf16, chain bf16) "
+              f"{made}, max diff vs plain pipeline {diff} uint8")
+
+        out_path = os.path.join(d, "cli.json")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, os.path.join(ROOT, "cnn_torch.py"), "train", "-c", cfg_path,
+             "-i", sample_dir, "-e", "4", "-o", out_path, "--seed", "0"],
+            capture_output=True, text=True, timeout=300)
+        secs = time.perf_counter() - t0
+        check(proc.returncode == 0, f"[train] cnn_torch.py train rc {proc.returncode}: "
+              f"{proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+        _, epochs = load_parameters_file(out_path, cfg.layer_specs())
+        check(epochs == 4, f"[train] cnn_torch.py train wrote epochs {epochs}")
+        timing = [ln for ln in proc.stdout.splitlines() if ln.startswith("Training time")]
+        print(f"[train] cnn_torch.py train -c configs/srcnn_9-5-5.json -i <128 pairs> -e 4: "
+              f"rc 0 in {secs:.1f} s, {timing[0] if timing else ''}; parameters file loads "
+              f"(epochs {epochs})")
+    print(f"[train] phase {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on an NVIDIA card",
@@ -1326,6 +1554,8 @@ def main() -> int:
     # the 9-1-5 stack (random, seed 0) beside its library time, both precisions
     for precision in ("f32", "bf16"):
         time_stack("fused_srcnn, 9-1-5", params915, x_luma, smi, precision)
+    io_phase(smi)
+    train_phase(smi, dev)
     probe_rows = probe_phase(smi)
     fused_errs.append(t_fused["err"])
     chain_errs.append(t_chain["err"])

@@ -6,13 +6,17 @@ names and public layouts: NHWC activations, HWIO ``(f, f, k, n)``
 weights, uint8 (H, W, 4) RGBA in and uint8 (H, W, 3) RGB out.
 
 Package layout:
-  utils/     config + parameters-file codecs, the numpy → torch bridge
-  models/    the layer-list SRCNN model (plain f32 forward, nn.Module)
-  ops/       color ops, image IO, bicubic resize, the conv-stack kernels
-             (fused, chain; f32 and bf16)
+  utils/     config + parameters-file codecs, the numpy → torch bridge, PSNR
+  models/    the layer-list SRCNN model (plain f32 forward, training loss,
+             nn.Module)
+  optim/     the reference's exact SGD + momentum + weight-decay update
+  training/  sample loading, the training loop, the full-state sidecar
+  ops/       color ops, image IO (and a zlib PNG codec), bicubic resize,
+             the conv-stack kernels (fused, chain; f32 and bf16)
   csrc/      CUDA sources of the hand-written kernels
+  native.py  the port's build of the native image/sample library
   api.py     luma or RGB upscale of one image (exact or bucketed) or a batch
-  cli.py     the forward-mode command line
+  cli.py     the command line: forward and train modes
   serve.py   the HTTP upscaling service (python -m cnn_sr_tpu_torch.serve)
 """
 

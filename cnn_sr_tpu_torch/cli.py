@@ -1,19 +1,39 @@
-"""The ``cnn_torch`` command line: forward mode of ``cnn_sr_tpu/cli.py``.
+"""The ``cnn_torch`` command line: ``cnn_sr_tpu/cli.py`` on PyTorch/CUDA.
 
     python cnn_torch.py [dry] -c cfg.json -i <image|dir> [-o <out>]
                         [--seed N] [--device cuda|cpu] [--precision f32|bf16]
                         [--bucket N] [--scale X]
+    python cnn_torch.py train [dry] -c cfg.json -i <samples dir> -e N [-o params.json]
+                        [--device cuda|cpu] [--train-precision highest|high|default|bf16]
+                        [--validation-percent P] [--mini-batch-count M]
+                        [--validation-cadence C] [--epochs-per-dispatch K]
+                        [--full-state] [--seed N]
 
-Decode → (bicubic pre-upscale by ``--scale``) → luma or RGB pipeline (by
-the config's ``channels``) → net → swap → encode, for one image or for
-every image of a directory (written as ``<stem>_sr.png``). ``dry`` runs
-without writing. ``--device cuda`` (the default) runs the CUDA kernels
-and fails without a card; ``cpu`` runs their plain version.
+Forward mode: decode → (bicubic pre-upscale by ``--scale``) → luma or RGB
+pipeline (by the config's ``channels``) → net → swap → encode, for one
+image or for every image of a directory (written as ``<stem>_sr.png``).
 ``--precision bf16`` runs the bf16 stream (the JAX CLI's ``--pallas``);
-``--bucket N`` pads shapes to multiples of N, as the JAX CLI's. Not
-ported yet (ROADMAP.md Queue 1): the ``train`` and ``profile`` modes,
-``--spatial-shard``, ``--data-parallel``, ``--packed-io`` and
-``--trace-dir``.
+``--bucket N`` pads shapes to multiples of N, as the JAX CLI's.
+
+Training mode (``train``): pair the samples of the directory, train for
+``-e`` epochs with the reference's exact update rule
+(``training.train_loop``) and write the parameters file, which ``cnn.py``
+and ``cnn_torch.py`` both load. The reference's hardcoded knobs are
+flags with its values as defaults (``--validation-percent`` 20,
+``--mini-batch-count`` 2, ``--validation-cadence`` 25);
+``--epochs-per-dispatch`` queues that many epochs per host round trip;
+``--full-state`` saves and resumes the momentum buffers and the shuffle
+RNG in ``<params>.state.npz``, the same sidecar as the JAX package's.
+``--train-precision``: ``highest`` is f32 with TF32 off; ``high`` and
+``default`` are TF32 convolutions on the card (plain f32 on the CPU);
+``bf16`` is mixed precision with f32 master weights.
+
+``dry`` runs without writing. ``--device cuda`` (the default) runs on the
+card and fails without one; ``cpu`` runs the plain versions.
+``--packed-io`` and ``--no-packed-io`` are accepted and do nothing: the
+JAX CLI's uint32-packed color ends change only the TPU's layout, not
+the output. Not ported yet (ROADMAP.md Queue 1): the ``profile`` mode,
+``--spatial-shard``, ``--data-parallel`` and ``--trace-dir``.
 """
 
 from __future__ import annotations
@@ -28,18 +48,39 @@ from typing import List, Optional
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="cnn_torch",
-        description="SRCNN super-resolution on PyTorch/CUDA: upscale images.",
+        description="SRCNN super-resolution on PyTorch/CUDA: train or upscale.",
     )
     p.add_argument("-c", "--config", required=True, help="CNN configuration file")
     p.add_argument("-i", "--in", dest="in_path", required=True,
-                   help="image, or a directory of images")
+                   help="image or directory of images (forward), samples directory "
+                   "(training)")
     p.add_argument("-o", "--out", dest="out_path", default=None,
-                   help="result image, or directory for a directory input")
+                   help="result image, directory for a directory input, or new "
+                   "parameters file (training)")
+    p.add_argument("-e", "--epochs", type=int, default=0, help="number of training epochs")
+    p.add_argument("--validation-percent", type=int, default=20)
+    p.add_argument("--mini-batch-count", type=int, default=2)
+    p.add_argument("--validation-cadence", type=int, default=25)
+    p.add_argument("--epochs-per-dispatch", type=int, default=8,
+                   help="training: queue this many epochs per host round trip and read "
+                   "their validation errors back once; the same results as 1")
+    p.add_argument("--full-state", action="store_true",
+                   help="training: also save and resume the momentum buffers and the "
+                   "shuffle RNG in a '<params>.state.npz' sidecar, so that an "
+                   "interrupted run equals a straight one")
+    p.add_argument("--train-precision", choices=("highest", "high", "default", "bf16"),
+                   default="highest",
+                   help="training convolutions: 'highest' is f32 with TF32 off (exact "
+                   "reference parity, the default); 'high' and 'default' are TF32 "
+                   "convolutions on the card (plain f32 on the CPU); 'bf16' is mixed "
+                   "precision (bf16 forward and backward, f32 master weights and "
+                   "gradients)")
     p.add_argument("--seed", type=int, default=None,
                    help="seed of the random weights when the config names no "
-                   "parameters file")
+                   "parameters file, and of the training shuffle")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
-                   help="cuda runs the CUDA kernels; cpu their plain version")
+                   help="cuda runs on the card (the CUDA kernels, cuDNN in training); "
+                   "cpu their plain version")
     p.add_argument("--precision", choices=("f32", "bf16"), default="f32",
                    help="conv-stack precision: f32, or the bf16 stream with the "
                    "int8 first layer (the JAX CLI's --pallas)")
@@ -49,7 +90,19 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--scale", type=float, default=1.0,
                    help="bicubic upscale of the input on the device by this "
                    "factor before the net")
+    p.add_argument("--packed-io", dest="packed_io", action="store_true", default=None,
+                   help="accepted for the JAX CLI's command lines; does nothing (the "
+                   "uint32-packed color ends change only the TPU's layout)")
+    p.add_argument("--no-packed-io", dest="packed_io", action="store_false",
+                   help="accepted for the JAX CLI's command lines; does nothing")
     return p
+
+
+def _check_device(args):
+    import torch
+
+    if args.device == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("--device cuda: no CUDA device is available")
 
 
 def _load_model(args, cfg):
@@ -57,8 +110,7 @@ def _load_model(args, cfg):
 
     from .utils.params_io import init_params, params_to_torch
 
-    if args.device == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("--device cuda: no CUDA device is available")
+    _check_device(args)
     params, _ = init_params(cfg, seed=args.seed)
     return params_to_torch(params, torch.device(args.device))
 
@@ -117,8 +169,69 @@ def _run_forward_dir(args, cfg, params) -> int:
     return 0
 
 
+def run_training(args, cfg) -> int:
+    import numpy as np
+
+    from .training.samples import find_training_samples, load_sample_set
+    from .training.trainer import init_train_state, train_loop
+    from .utils.params_io import save_parameters_file
+
+    _check_device(args)
+    print(
+        f"Training mode, epochs: {args.epochs}\n"
+        f"Training samples directory: {args.in_path}\n"
+        f"Output: {args.out_path or '-'}"
+    )
+    pairs = find_training_samples(args.in_path)
+    samples = load_sample_set(pairs, channels=cfg.channels,
+                              zero_mean_target=cfg.zero_mean_target,
+                              squared_mean=cfg.subtract_squared_mean)
+    print(f"Loaded {samples.count} samples of {samples.width}x{samples.height}")
+
+    state = init_train_state(cfg, seed=args.seed)
+
+    rng = None
+    if args.full_state:
+        from .training.checkpoint import load_full_state
+
+        if cfg.parameters_file:
+            rng = load_full_state(cfg.parameters_file, state)
+            if rng is not None:
+                print(f"Resumed full training state (momentum + RNG) from "
+                      f"'{cfg.parameters_file}.state.npz'")
+        if rng is None:
+            rng = np.random.default_rng(args.seed)
+
+    t0 = time.perf_counter()
+    error = train_loop(
+        cfg, samples, state, args.epochs,
+        validation_percent=args.validation_percent,
+        mini_batch_count=args.mini_batch_count,
+        validation_cadence=args.validation_cadence,
+        epochs_per_dispatch=args.epochs_per_dispatch,
+        precision=None if args.train_precision == "highest" else args.train_precision,
+        seed=args.seed, rng=rng, device=args.device,
+    )
+    dt = time.perf_counter() - t0
+    if args.epochs > 0:
+        print(f"Training time: {dt:.3f}s ({dt / args.epochs:.5f} s/epoch, "
+              f"{args.epochs / dt:.2f} epochs/s)")
+
+    if args.out_path and not error:
+        print(f"Saving parameters to: '{args.out_path}'")
+        save_parameters_file(args.out_path, state.params, epochs=state.epochs)
+        if args.full_state:
+            from .training.checkpoint import save_full_state
+
+            print(f"Saving full training state to: "
+                  f"'{save_full_state(args.out_path, state, rng)}'")
+    return 1 if error else 0
+
+
 _MODE_WORDS = {"train", "dry", "profile"}
-_VALUED_OPTS = {"-c", "--config", "-i", "--in", "-o", "--out", "--seed", "--device",
+_VALUED_OPTS = {"-c", "--config", "-i", "--in", "-o", "--out", "-e", "--epochs",
+                "--validation-percent", "--mini-batch-count", "--validation-cadence",
+                "--epochs-per-dispatch", "--train-precision", "--seed", "--device",
                 "--precision", "--bucket", "--scale"}
 
 
@@ -147,9 +260,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         argv = sys.argv[1:]
     modes, rest = _split_modes(list(argv))
     args = build_parser().parse_args(rest)
-    unported = modes & {"train", "profile"}
-    if unported:
-        print(f"mode(s) {sorted(unported)} are not ported yet; use cnn.py")
+    if "profile" in modes:
+        print("mode 'profile' is not ported yet; use cnn.py")
         return 1
     if "dry" in modes:
         args.out_path = None
@@ -169,8 +281,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         return 1
     print(cfg)
     try:
-        rc = run_forward(args, cfg)
-    except FileNotFoundError as e:
+        rc = run_training(args, cfg) if "train" in modes else run_forward(args, cfg)
+    except (FileNotFoundError, NotADirectoryError) as e:
         print(f"File not found: {e}")
         return 1
     except (ValueError, RuntimeError) as e:

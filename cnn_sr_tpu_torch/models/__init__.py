@@ -1,3 +1,25 @@
-from .srcnn import SRCNN, conv_layer, forward
+from .srcnn import (
+    SRCNN,
+    ReluBackpropGate,
+    center_crop,
+    conv_layer,
+    conv_precision,
+    forward,
+    forward_activations,
+    loss_sum,
+    luma_mse_metrics,
+    squared_error_sum,
+)
 
-__all__ = ["SRCNN", "conv_layer", "forward"]
+__all__ = [
+    "SRCNN",
+    "ReluBackpropGate",
+    "center_crop",
+    "conv_layer",
+    "conv_precision",
+    "forward",
+    "forward_activations",
+    "loss_sum",
+    "luma_mse_metrics",
+    "squared_error_sum",
+]

@@ -1,10 +1,16 @@
-"""The layer-list SRCNN model: plain f32 forward and the ``nn.Module``.
+"""The layer-list SRCNN model: plain f32 forward, training loss, ``nn.Module``.
 
-Counterpart of ``cnn_sr_tpu/models/srcnn.py`` (forward only; training
-comes later). Each layer is a VALID stride-1 cross-correlation + bias,
-with ReLU on every layer but the last. Weights stay HWIO
-``(f, f, k, n)`` and activations NHWC at the public functions, as in the
-JAX package; ``F.conv2d`` gets them as OIHW/NCHW.
+Counterpart of ``cnn_sr_tpu/models/srcnn.py``. Each layer is a VALID
+stride-1 cross-correlation + bias, with ReLU on every layer but the
+last. Weights stay HWIO ``(f, f, k, n)`` and activations NHWC at the
+public functions, as in the JAX package; ``F.conv2d`` gets them as
+OIHW/NCHW.
+
+Training differentiates ``loss_sum`` with autograd over ``F.conv2d``
+(cuDNN on the card), as the JAX package differentiates its XLA
+convolutions: no kernel of its own lies on that path. ``ReluBackpropGate``
+keeps the reference's last-layer quirk (last_layer_delta.cl:42-47): the
+linear last layer's delta is gated by ``(y > 0)``.
 """
 
 from __future__ import annotations
@@ -32,6 +38,30 @@ def strict_f32():
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev
 
 
+@contextlib.contextmanager
+def conv_precision(precision=None):
+    """The convolutions' precision on CUDA for the JAX trainer's
+    ``precision`` names: None or ``"highest"`` is ``strict_f32`` (TF32
+    off); ``"high"`` and ``"default"``, the MXU's reduced passes on the
+    TPU, are TF32 convolutions and matmuls, the card's nearest
+    counterpart; ``"bf16"`` (mixed precision, ``loss_sum``'s
+    ``compute_dtype``) leaves the f32 ones strict. On the CPU every name
+    computes plain f32."""
+    if precision not in (None, "highest", "high", "default", "bf16"):
+        raise ValueError(f"unknown training precision {precision!r}")
+    if precision not in ("high", "default"):
+        with strict_f32():
+            yield
+        return
+    prev = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev
+
+
 def conv_layer(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                relu: bool) -> torch.Tensor:
     """One layer on NHWC ``x`` with HWIO ``w`` (f, f, K, n) and ``b`` (n,)."""
@@ -40,13 +70,90 @@ def conv_layer(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return torch.relu(y) if relu else y
 
 
+def _stack(params, x: torch.Tensor) -> torch.Tensor:
+    last = len(params) - 1
+    for i, layer in enumerate(params):
+        x = conv_layer(x, layer["w"], layer["b"], relu=i != last)
+    return x
+
+
 def forward(params, x: torch.Tensor) -> torch.Tensor:
     """(N, H, W, C) → (N, H−s, W−s, n_out), s = Σ(f−1), in strict f32."""
-    last = len(params) - 1
+    with strict_f32():
+        return _stack(params, x).contiguous()
+
+
+def forward_activations(params, x: torch.Tensor):
+    """Every layer's output, in strict f32 (for tests and debugging)."""
+    acts, last = [], len(params) - 1
     with strict_f32():
         for i, layer in enumerate(params):
             x = conv_layer(x, layer["w"], layer["b"], relu=i != last)
-    return x.contiguous()
+            acts.append(x)
+    return acts
+
+
+class ReluBackpropGate(torch.autograd.Function):
+    """Identity whose backward multiplies the gradient by ``(y > 0)``:
+    the reference's ReLU' on the linear last layer's delta
+    (last_layer_delta.cl:42-47 against the SKIP_RELU forward)."""
+
+    @staticmethod
+    def forward(ctx, y):
+        ctx.save_for_backward((y > 0).to(y.dtype))
+        return y.view_as(y)
+
+    @staticmethod
+    def backward(ctx, g):
+        (mask,) = ctx.saved_tensors
+        return g * mask
+
+
+def center_crop(gt: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """Crop NHWC ground truth to the net output size at the symmetric
+    offset ``(gt_w − out_w) // 2`` (last_layer_delta.cl:30-36)."""
+    pad_h = (gt.shape[-3] - out_h) // 2
+    pad_w = (gt.shape[-2] - out_w) // 2
+    return gt[..., pad_h:pad_h + out_h, pad_w:pad_w + out_w, :]
+
+
+def loss_sum(params, x: torch.Tensor, gt: torch.Tensor, precision=None,
+             relu_gate: bool = True, compute_dtype=None) -> torch.Tensor:
+    """``0.5 · Σ (y − crop(gt))²`` over pixels, channels and samples: the
+    training loss whose gradient is the reference's raw-sum backprop.
+
+    ``precision``: see ``conv_precision``; differentiate inside the same
+    ``conv_precision`` so that the backward convolutions take it too.
+    ``relu_gate=False`` (config ``last_layer_relu_gate``) drops the
+    last-layer ReLU' quirk. ``compute_dtype=torch.bfloat16`` is mixed
+    precision: the parameters and the input are cast to it for the
+    forward and its backward, the output is cast back to f32 before the
+    gate, the difference and the sum, so that the gradients reaching the
+    f32 masters (through the casts) are f32.
+    """
+    if compute_dtype is not None:
+        params = [{k: v.to(compute_dtype) for k, v in layer.items()} for layer in params]
+        y = _stack(params, x.to(compute_dtype)).to(torch.float32)
+    else:
+        with conv_precision(precision):
+            y = _stack(params, x)
+    if relu_gate:
+        y = ReluBackpropGate.apply(y)
+    d = y - center_crop(gt, y.shape[-3], y.shape[-2])
+    return 0.5 * torch.sum(d * d)
+
+
+def squared_error_sum(y: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
+    """Validation metric: Σ (y − crop(gt))² over pixels and samples
+    (squared_error.cl:63-91); the caller divides by the set's size."""
+    d = y - center_crop(gt, y.shape[-3], y.shape[-2])
+    return torch.sum(d * d)
+
+
+def luma_mse_metrics(params, x: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
+    """Strict-f32 forward + squared-error sum, for validation batches."""
+    with torch.no_grad():
+        return squared_error_sum(forward(params, x), gt)
 
 
 class SRCNN(nn.Module):

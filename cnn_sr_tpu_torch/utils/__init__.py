@@ -1,5 +1,10 @@
 from .config import Config, LayerSpec, ParametersDistribution, read_config
-from .params_io import load_parameters_file, params_to_torch, random_parameters
+from .params_io import (
+    load_parameters_file,
+    params_to_torch,
+    random_parameters,
+    save_parameters_file,
+)
 
 __all__ = [
     "Config",
@@ -9,4 +14,5 @@ __all__ = [
     "load_parameters_file",
     "params_to_torch",
     "random_parameters",
+    "save_parameters_file",
 ]

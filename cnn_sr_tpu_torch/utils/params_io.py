@@ -1,8 +1,7 @@
-"""Reader for the reference's JSON parameters file, and the bridge to torch.
+"""Codec for the reference's JSON parameters file, and the bridge to torch.
 
-The port's own copy of the loading half of
-``cnn_sr_tpu/utils/params_io.py`` (numpy only; writing waits for
-training). The file holds ``"layer<i>": {"weights": [...], "bias": [...]}``
+The port's own copy of ``cnn_sr_tpu/utils/params_io.py`` (numpy only):
+it reads and writes the same bytes. The file holds ``"layer<i>": {"weights": [...], "bias": [...]}``
 with the weights flat in the reference's ``[f, f, k, n]`` order, ``n``
 fastest (layer_uber_kernel.cl:3-12): HWIO, which the port keeps at its
 public functions. ``params_to_torch`` carries a loaded list onto a device.
@@ -37,6 +36,11 @@ def flat_to_hwio(flat: Sequence[float], f: int, k: int, n: int) -> np.ndarray:
             f"(f={f}, k={k}, n={n})"
         )
     return arr.reshape(f, f, k, n)
+
+
+def hwio_to_flat(w: np.ndarray) -> np.ndarray:
+    """Flatten an HWIO weight array back to the reference's order."""
+    return np.asarray(w, dtype=np.float32).ravel()
 
 
 def load_parameters_file(path: str, specs: Sequence[LayerSpec]) -> Tuple[Params, int]:
@@ -80,6 +84,35 @@ def load_parameters_file(path: str, specs: Sequence[LayerSpec]) -> Tuple[Params,
     return params, epochs
 
 
+def _fmt_floats(arr: np.ndarray) -> str:
+    # round-trip-exact decimal per float32 value, comma-separated: the
+    # native formatter ("%.9g") where the port's native library builds,
+    # else repr(float(v)); both read back bit-exact
+    values = np.asarray(arr, dtype=np.float32).ravel()
+    from .. import native
+
+    if native.available():
+        return native.format_floats(values)
+    return ", ".join(repr(float(v)) for v in values)
+
+
+def save_parameters_file(path: str, params: Params, epochs: int = 0) -> None:
+    """Write numpy params in the reference's file layout
+    (ConfigBasedDataPipeline.cpp:432-465), byte for byte as the JAX
+    package writes them."""
+    chunks = ["{", f'  "epochs": {int(epochs)},', ""]
+    for i, layer in enumerate(params):
+        key = f"layer{i + 1}"
+        chunks.append(f'  "{key}":{{')
+        chunks.append(f'    "weights": [{_fmt_floats(hwio_to_flat(layer["w"]))}],')
+        chunks.append(f'    "bias": [{_fmt_floats(layer["b"])}]')
+        tail = "  }," if i + 1 < len(params) else "  }"
+        chunks.append(tail)
+    chunks.append("}")
+    with open(path, "w") as fh:
+        fh.write("\n".join(chunks))
+
+
 def random_parameters(
     specs: Sequence[LayerSpec],
     distributions,
@@ -103,8 +136,8 @@ def random_parameters(
 
 def init_params(cfg: Config, seed: Optional[int] = None) -> Tuple[Params, int]:
     """Load ``cfg.parameters_file`` if it exists, else random-init from
-    ``seed`` (the parameter half of ``init_train_state``,
-    ``cnn_sr_tpu/training/trainer.py``). Returns ``(params, epochs)``."""
+    ``seed`` (the parameter half of ``training.trainer.init_train_state``).
+    Returns ``(params, epochs)``."""
     specs = cfg.layer_specs()
     if cfg.parameters_file and os.path.isfile(cfg.parameters_file):
         return load_parameters_file(cfg.parameters_file, specs)

@@ -2,6 +2,8 @@
 """Launcher for the PyTorch/CUDA port's CLI (counterpart of ``cnn.py``):
 
     python cnn_torch.py [dry] -c cfg.json -i <in> [-o <out>] [--device cuda|cpu]
+    python cnn_torch.py train [dry] -c cfg.json -i <samples dir> -e N [-o params.json]
+                        [--device cuda|cpu]
 """
 import os
 import sys

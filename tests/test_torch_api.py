@@ -184,7 +184,9 @@ def test_cli_refusals(tmp_path, monkeypatch, capsys):
     img = tmp_path / "in.png"
     Image.fromarray(np.zeros((24, 24, 3), np.uint8), "RGB").save(img)
     assert cli.main(["-c", cfg_path, "-i", str(img)]) == 1  # no -o, not dry
-    assert cli.main(["train", "-c", cfg_path, "-i", str(img), "-o", "p.json"]) == 1
+    # train mode needs a directory of samples, not an image
+    assert cli.main(["train", "-c", cfg_path, "-i", str(img), "-o", "p.json",
+                     "--device", "cpu"]) == 1
     missing = _write_config(tmp_path, {**NARROW, "parameters_file": "nowhere.json"},
                             "missing.json")
     assert cli.main(["dry", "-c", missing, "-i", str(img), "--device", "cpu"]) == 1

@@ -1,0 +1,119 @@
+"""Port parity: ``cnn_torch.py``'s train mode and the JAX CLI's command
+lines, against ``cnn.py``, on the CPU."""
+
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+from PIL import Image
+
+from cnn_sr_tpu.cli import main as jmain
+from cnn_sr_tpu_torch import cli
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CFG = {
+    "n1": 8, "n2": 4, "f1": 9, "f2": 5, "f3": 5,
+    "momentum": 0.9, "weight_decay_parameter": 0.0001,
+    "learning_rates": [0.001, 0.001, 0.0001],
+    **{f"parameters_distribution_{i}": {"mean_w": 0.0, "mean_b": 0.0,
+                                        "std_deviation_w": 0.05, "std_deviation_b": 0.0}
+       for i in (1, 2, 3)},
+}
+
+
+def _setup(tmp_path, n=6, size=24):
+    cfg_path = str(tmp_path / "cfg.json")
+    with open(cfg_path, "w") as fh:
+        json.dump(CFG, fh)
+    d = tmp_path / "samples"
+    os.makedirs(str(d))
+    rng = np.random.default_rng(1)
+    for i in range(n):
+        large = rng.integers(0, 256, (size, size, 3), dtype=np.uint8)
+        small = ((large.astype(np.float32) + np.roll(large, 1, 0)) / 2).astype(np.uint8)
+        Image.fromarray(large, "RGB").save(str(d / f"s{i}_large.png"))
+        Image.fromarray(small, "RGB").save(str(d / f"s{i}_small.png"))
+    return cfg_path, str(d)
+
+
+def test_train_matches_cnn_py(tmp_path):
+    """``cnn_torch.py train --device cpu`` and ``cnn.py train`` on the same
+    samples, seed and flags: parameters within 1e-5 of each tensor's
+    largest entry, the same ``epochs``, the same messages."""
+    cfg_path, d = _setup(tmp_path)
+    flags = ["-e", "5", "--seed", "2", "--mini-batch-count", "2", "--validation-cadence", "2",
+             "--epochs-per-dispatch", "3"]
+    outs = {}
+    for name, launcher, extra in (("jax", "cnn.py", []),
+                                  ("port", "cnn_torch.py", ["--device", "cpu"])):
+        out = str(tmp_path / f"{name}.json")
+        proc = subprocess.run([sys.executable, os.path.join(ROOT, launcher), "train", "-c",
+                               cfg_path, "-i", d, "-o", out, *flags, *extra],
+                              capture_output=True, text=True, timeout=300,
+                              env=dict(os.environ, JAX_PLATFORMS="cpu"))
+        assert proc.returncode == 0, proc.stdout + proc.stderr
+        outs[name] = (json.load(open(out)), proc.stdout)
+    (jp, jout), (tp, tout) = outs["jax"], outs["port"]
+    assert tp["epochs"] == jp["epochs"] == 5 and set(tp) == set(jp)
+    for key in ("layer1", "layer2", "layer3"):
+        for field in ("weights", "bias"):
+            a, b = np.asarray(tp[key][field]), np.asarray(jp[key][field])
+            assert np.abs(a - b).max() <= 1e-5 * np.abs(b).max(), (key, field)
+    for line in ("Training mode, epochs: 5", "Loaded 6 samples of 24x24",
+                 "validation_set_size: 1/6", "Training time: ", "Saving parameters to: ",
+                 "DONE"):
+        assert line in jout and line in tout, line
+
+
+def test_train_dry_writes_nothing_and_full_state_writes_the_sidecar(tmp_path, capsys):
+    cfg_path, d = _setup(tmp_path, n=5, size=20)
+    before = set(os.listdir(tmp_path))
+    assert cli.main(["train", "dry", "-c", cfg_path, "-i", d, "-e", "2", "--device", "cpu",
+                     "-o", str(tmp_path / "never.json")]) == 0
+    assert set(os.listdir(tmp_path)) == before
+    assert "mean validation error" in capsys.readouterr().out
+
+    out = str(tmp_path / "p.json")
+    assert cli.main(["train", "-c", cfg_path, "-i", d, "-e", "2", "-o", out, "--device", "cpu",
+                     "--full-state", "--seed", "0", "--train-precision", "bf16"]) == 0
+    assert os.path.isfile(out + ".state.npz")
+    with open(cfg_path, "w") as fh:
+        json.dump({**CFG, "parameters_file": out}, fh)
+    assert cli.main(["train", "-c", cfg_path, "-i", d, "-e", "1", "-o", out + ".2",
+                     "--device", "cpu", "--full-state"]) == 0
+    text = capsys.readouterr().out
+    assert "Resumed full training state" in text
+    assert json.load(open(out + ".2"))["epochs"] == 3
+
+
+def test_train_refusals(tmp_path, monkeypatch, capsys):
+    cfg_path, d = _setup(tmp_path, n=2, size=20)
+    assert cli.main(["train", "-c", cfg_path, "-i", str(tmp_path / "none"), "-e", "1",
+                     "--device", "cpu", "-o", "p.json"]) == 1
+    assert "File not found" in capsys.readouterr().out
+    assert cli.main(["profile", "-c", cfg_path, "-i", d, "--device", "cpu", "-o", "p"]) == 1
+    monkeypatch.setattr("torch.cuda.is_available", lambda: False)
+    assert cli.main(["train", "-c", cfg_path, "-i", d, "-e", "1", "-o", "p.json"]) == 1
+    assert "no CUDA device" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("flag", ["--packed-io", "--no-packed-io"])
+def test_jax_command_line_with_packed_io_parses_and_upscales_identically(tmp_path, flag):
+    """Both flags are accepted and change nothing (ROADMAP Queue 3 #2)."""
+    cfg_path, _ = _setup(tmp_path, n=0)
+    img = np.random.default_rng(5).integers(0, 256, (30, 36, 3), dtype=np.uint8)
+    src = str(tmp_path / "in.png")
+    Image.fromarray(img).save(src)
+    line = ["-c", cfg_path, "-i", src, "--seed", "3", flag]
+    assert jmain([*line, "-o", str(tmp_path / "j.png")]) == 0
+    assert cli.main([*line, "-o", str(tmp_path / "t.png"), "--device", "cpu"]) == 0
+    assert cli.main(["-c", cfg_path, "-i", src, "--seed", "3", "-o", str(tmp_path / "d.png"),
+                     "--device", "cpu"]) == 0
+    got = np.asarray(Image.open(str(tmp_path / "t.png")))
+    np.testing.assert_array_equal(got, np.asarray(Image.open(str(tmp_path / "d.png"))))
+    want = np.asarray(Image.open(str(tmp_path / "j.png")))
+    assert np.abs(got.astype(np.int16) - want.astype(np.int16)).max() <= 1
+    assert "does nothing" in cli.build_parser().format_help()
