@@ -74,9 +74,10 @@ of the six probes (``cnn_sr_tpu_torch.probes``). Phases, one line each:
    pays), and the 9-1-5 stack in both precisions;
 8. io: the port's native library (``native.py``, built with ``g++`` from
    ``native/cnnsr_native.cpp``), the codec that serves ``ops.image``
-   (native, or the zlib PNG codec ``ops/png.py`` where it does not
-   build) and a 1080p PNG round trip, bit-equal; a JPEG round trip
-   within tests/test_native.py's bound where a codec serves JPEG;
+   (native, or Pillow where it does not build), a 1080p PNG round trip,
+   bit-equal, the decode of a 1080p PNG that Pillow wrote (adaptive row
+   filters), bit-equal and timed, and a JPEG round trip within
+   tests/test_native.py's bound where a codec serves JPEG;
 9. train: the training path at full width (``train_phase``): 128 PNG
    sample pairs of 128x128, the first epoch's gradient on the card
    within 2e-4 of the CPU's, 16 epochs of ``train_loop`` in ``highest``,
@@ -1195,11 +1196,15 @@ def serve_path(cfg, params, cfg_rgb, params_rgb, smi) -> tuple:
 
 def io_phase(smi) -> None:
     """[io]: build the port's native library (``native.py``), name the codec
-    that serves ``ops.image`` (native, or the zlib PNG path where the
-    library does not build), and round-trip a 1080p frame through it: PNG
-    bit-equal; JPEG on tests/test_native.py's kind of image within its bound
-    (mean |error| < 6) where a JPEG codec serves, else the refusal must
-    name libjpeg."""
+    that serves ``ops.image`` (native, or Pillow where the library does not
+    build), and round-trip a 1080p frame through it: PNG bit-equal; a PNG
+    of the same frame written by Pillow (whose adaptive row filters user
+    files carry) decoded bit-equal, and its decode timed; JPEG on
+    tests/test_native.py's kind of image within its bound (mean |error| <
+    6) where a JPEG codec serves, else the refusal must name libjpeg."""
+    import PIL
+    from PIL import Image
+
     from cnn_sr_tpu_torch import native
     from cnn_sr_tpu_torch.ops import image
 
@@ -1224,6 +1229,18 @@ def io_phase(smi) -> None:
               and bool((back[..., 3] == 255).all()), "[io] 1080p PNG round trip not bit-equal")
         print(f"[io] 1920x1080 PNG round trip bit-equal: encode {(t1 - t0) * 1e3:.1f} ms, "
               f"decode {(t2 - t1) * 1e3:.1f} ms, {os.path.getsize(path)} bytes")
+        pil_path = os.path.join(d, "frame_pillow.png")
+        Image.fromarray(frame, mode="RGB").save(pil_path)
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            back = image.load_image(pil_path)
+            times.append(time.perf_counter() - t0)
+        check(np.array_equal(back[..., :3], frame) and bool((back[..., 3] == 255).all()),
+              "[io] Pillow-written 1080p PNG not decoded bit-equal")
+        print(f"[io] 1920x1080 PNG written by Pillow {PIL.__version__} (adaptive filters, "
+              f"{os.path.getsize(pil_path)} bytes) decoded bit-equal by load_image: "
+              f"{', '.join(f'{t * 1e3:.1f}' for t in times)} ms")
         # JPEG on tests/test_native.py's image (a ramp plus N(0, 2) noise), at 1080p
         yy, xx = np.mgrid[0:1080, 0:1920].astype(np.float32)
         ramp = (yy * 255 / 1079 + xx * 255 / 1919) / 2

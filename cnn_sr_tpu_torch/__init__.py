@@ -11,7 +11,7 @@ Package layout:
              nn.Module)
   optim/     the reference's exact SGD + momentum + weight-decay update
   training/  sample loading, the training loop, the full-state sidecar
-  ops/       color ops, image IO (and a zlib PNG codec), bicubic resize,
+  ops/       color ops, image IO, bicubic resize,
              the conv-stack kernels (fused, chain; f32 and bf16)
   csrc/      CUDA sources of the hand-written kernels
   native.py  the port's build of the native image/sample library

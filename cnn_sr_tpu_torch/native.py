@@ -8,22 +8,28 @@ the same C signatures.
 
 The port builds its own copy with ``g++`` at first use, into
 ``build/cnn_sr_tpu_torch/`` at the checkout's root, under a name keyed on
-a hash of the source and the flags, and keeps the compiler's log beside
-it (``ops/fused/build.py`` does the same for the CUDA kernels). It never
-loads, makes or overwrites ``native/libcnnsr_native.so``, which the JAX
-package loads and rebuilds in place with ``-march=native``. This build
-takes no ``-march``: the AVX2 luma path carries its own target attribute.
+a hash of the source, the flags, the compiler (``$CXX``, else ``g++``,
+and its ``--version``) and the machine's architecture, and keeps the
+compiler's log beside it (``ops/fused/build.py`` does the same for the
+CUDA kernels). It never loads, makes or overwrites
+``native/libcnnsr_native.so``, which the JAX package loads and rebuilds
+in place with ``-march=native``. This build takes no ``-march``: the
+AVX2 luma path carries its own target attribute.
 
-A failed build is not silent: ``available()`` is False, ``build_error()``
-holds the compiler's message, and ``ops.image.codec()`` names the codec
-that serves instead.
+A library found in the build directory that does not load (one copied
+from another machine, linked against libraries this one lacks) is built
+again once before the failure counts. A failed build is not silent:
+``available()`` is False, ``build_error()`` holds the compiler's message,
+and ``ops.image.codec()`` names the codec that serves instead.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
+import platform
 import subprocess
 import tempfile
 import threading
@@ -45,8 +51,23 @@ class NativeBuildError(RuntimeError):
     libjpeg or libpng headers)."""
 
 
+def _cxx() -> str:
+    return os.environ.get("CXX", "g++")
+
+
+@functools.lru_cache(maxsize=None)
+def _compiler_id(cxx: str) -> str:
+    try:
+        version = subprocess.run([cxx, "--version"], capture_output=True, text=True,
+                                 timeout=60).stdout
+    except (OSError, subprocess.TimeoutExpired):
+        version = "(no compiler)"
+    return f"{cxx}\n{version}\n{platform.machine()}"
+
+
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(CXX_FLAGS + LDLIBS).encode())
+    h.update(_compiler_id(_cxx()).encode())
     h.update(SOURCE.read_bytes())
     return BUILD_DIR / f"libcnnsr_native_{h.hexdigest()[:16]}.so"
 
@@ -61,7 +82,7 @@ def build() -> dict:
         log = log_path.read_text() if log_path.is_file() else ""
         return {"path": str(path), "seconds": 0.0, "log": log}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cxx = os.environ.get("CXX", "g++")
+    cxx = _cxx()
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         lib = os.path.join(tmp, "lib.so")
@@ -85,8 +106,9 @@ _BUILD_ERROR: Optional[str] = None
 
 def load_library() -> ctypes.CDLL:
     """Build if needed, load once per process, and declare the C entry
-    points' signatures (those of ``cnn_sr_tpu/native.py``). A failed build
-    or load raises ``NativeBuildError`` now and on every later call,
+    points' signatures (those of ``cnn_sr_tpu/native.py``). A reused
+    library that does not load is removed and built again, once. A failed
+    build or load raises ``NativeBuildError`` now and on every later call,
     without building again."""
     global _LIB, _BUILD_ERROR
     with _LOCK:
@@ -95,7 +117,14 @@ def load_library() -> ctypes.CDLL:
         if _BUILD_ERROR is not None:
             raise NativeBuildError(_BUILD_ERROR)
         try:
-            lib = ctypes.CDLL(build()["path"])
+            info = build()
+            try:
+                lib = ctypes.CDLL(info["path"])
+            except OSError:
+                if info["seconds"] != 0.0:
+                    raise
+                os.remove(info["path"])
+                lib = ctypes.CDLL(build()["path"])
         except (NativeBuildError, OSError) as e:
             _BUILD_ERROR = str(e)
             raise NativeBuildError(_BUILD_ERROR) from e

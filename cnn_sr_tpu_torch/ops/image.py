@@ -7,10 +7,10 @@ Counterpart of ``cnn_sr_tpu/ops/image.py``:
 * ``write_greyscale_image`` — a float (H, W) array, min-max normalised to
   0..255, as a greyscale image (UtilsOpenCL.cpp:97-123).
 
-Codecs, in order: the port's build of the native library (libpng,
-libjpeg; ``native.py``); where it does not build, the zlib PNG codec
-(``ops/png.py``) for PNG; then Pillow, imported inside the functions, for
-what neither takes. ``codec()`` names the codec that serves. Where none
+Codecs, in the JAX package's order: the port's build of the native
+library (libpng, libjpeg; ``native.py``), then Pillow, imported inside
+the functions, for what the native library does not take or where it
+does not build. ``codec()`` names the codec that serves. Where neither
 can, the error names what is missing.
 """
 
@@ -21,7 +21,6 @@ import os
 import numpy as np
 
 from .. import native
-from . import png
 
 
 def codec() -> str:
@@ -36,7 +35,7 @@ def codec() -> str:
         other = f"Pillow {PIL.__version__}"
     except ImportError:
         other = "none (Pillow is not installed)"
-    return f"zlib PNG (the native library did not build: {why}); JPEG and other formats: {other}"
+    return f"{other} (the native library did not build: {why})"
 
 
 def _pillow(path: str, what: str):
@@ -45,8 +44,7 @@ def _pillow(path: str, what: str):
     except ImportError as e:
         raise IOError(
             f"cannot {what} '{path}': the native library (libpng, libjpeg) did not build "
-            f"({native.build_error()}), the zlib PNG codec takes 8-bit non-interlaced "
-            "PNG only, and Pillow is not installed") from e
+            f"({native.build_error()}) and Pillow is not installed") from e
     return Image
 
 
@@ -57,11 +55,6 @@ def load_image(path: str) -> np.ndarray:
             return native.decode_rgba(path)
         except IOError:
             pass  # a format the native layer does not take -> Pillow
-    elif png.is_png(path):
-        try:
-            return png.decode_rgba(path)
-        except png.PngUnsupported:
-            pass
     Image = _pillow(path, "decode")
     with Image.open(path) as im:
         return np.asarray(im.convert("RGBA"), dtype=np.uint8)
@@ -71,21 +64,19 @@ def write_image(path: str, rgb: np.ndarray) -> None:
     """Encode a uint8 (H, W, 3) array; the format follows the extension."""
     arr = np.ascontiguousarray(rgb, dtype=np.uint8)
     lower = path.lower()
-    if lower.endswith(".png"):
-        if native.available():
+    if native.available():
+        if lower.endswith(".png"):
             native.encode_png(path, arr)
-        else:
-            png.encode(path, arr)
-        return
-    if lower.endswith((".jpg", ".jpeg")) and native.available():
-        native.encode_jpeg(path, arr)
-        return
+            return
+        if lower.endswith((".jpg", ".jpeg")):
+            native.encode_jpeg(path, arr)
+            return
     _pillow(path, "encode").fromarray(arr, mode="RGB").save(path)
 
 
 def write_greyscale_image(path: str, data: np.ndarray) -> None:
     """Min-max-normalize a float array (H, W) to 0..255 greyscale and
-    write it (UtilsOpenCL.cpp:97-123)."""
+    write it through Pillow, as the JAX package does (UtilsOpenCL.cpp:97-123)."""
     arr = np.asarray(data, dtype=np.float32)
     lo, hi = float(arr.min()), float(arr.max())
     if hi > lo:
@@ -93,7 +84,4 @@ def write_greyscale_image(path: str, data: np.ndarray) -> None:
     else:
         norm = np.full_like(arr, 0.5)
     grey = (norm * 255.0).astype(np.uint8)
-    if path.lower().endswith(".png"):
-        png.encode(path, grey)
-    else:
-        _pillow(path, "encode").fromarray(grey, mode="L").save(path)
+    _pillow(path, "encode").fromarray(grey, mode="L").save(path)

@@ -1,9 +1,10 @@
-"""Port parity: the port's build of the native library, its zlib PNG codec
-and ``ops.image`` against ``cnn_sr_tpu.native`` and Pillow, on the CPU."""
+"""Port parity: the port's build of the native library and ``ops.image``
+(native, else Pillow) against ``cnn_sr_tpu.native`` and Pillow, on the CPU."""
 
 import glob
 import hashlib
 import os
+import re
 import subprocess
 import sys
 import textwrap
@@ -14,7 +15,7 @@ from PIL import Image
 
 from cnn_sr_tpu import native as jnative
 from cnn_sr_tpu_torch import native
-from cnn_sr_tpu_torch.ops import image, png
+from cnn_sr_tpu_torch.ops import image
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 REF_IMAGES = sorted(glob.glob(os.path.join(ROOT, "tests", "refdata", "*.png"))
@@ -60,8 +61,6 @@ def test_decode_bit_equal_to_jax_native(path):
     np.testing.assert_array_equal(got, jnative.decode_rgba(path))
     np.testing.assert_array_equal(image.load_image(path), got)
     assert native.image_size(path) == jnative.image_size(path)
-    if path.endswith(".png"):
-        np.testing.assert_array_equal(png.decode_rgba(path), got)
 
 
 def test_png_roundtrip_bit_exact_and_jpeg_within_bound(tmp_path):
@@ -111,13 +110,22 @@ def test_float_codec_strings_identical():
         native.parse_floats(text, vals.size + 1)
 
 
+def _without_native(monkeypatch):
+    monkeypatch.setattr(native, "_LIB", None)
+    monkeypatch.setattr(native, "_BUILD_ERROR", "g++ failed (1): fatal error: jpeglib.h: "
+                        "No such file or directory")
+    assert not native.available()
+
+
 @pytest.mark.parametrize("mode,shape", [("L", (19, 23)), ("LA", (19, 23, 2)),
                                         ("RGB", (21, 17, 3)), ("RGBA", (21, 17, 4))])
 @pytest.mark.parametrize("content", ["noise", "smooth"])
-def test_zlib_png_reader_matches_native_on_pillow_files(tmp_path, mode, shape, content):
+def test_pillow_written_pngs_decode_alike_on_both_codecs(tmp_path, monkeypatch, mode, shape,
+                                                         content):
     """Pillow's encoder picks its row filters adaptively, so its files
     hold all five filters: smooth content favours Sub, Up, Average and
-    Paeth, noise None."""
+    Paeth, noise None. The native decode and the Pillow fallback give the
+    same RGBA."""
     arr = _rgb(shape, 7)
     if content == "smooth":
         yy, xx = np.mgrid[0:shape[0], 0:shape[1]]
@@ -125,13 +133,17 @@ def test_zlib_png_reader_matches_native_on_pillow_files(tmp_path, mode, shape, c
         arr = ramp if arr.ndim == 2 else np.stack([ramp + 40 * c for c in range(shape[2])], -1)
     p = str(tmp_path / "p.png")
     Image.fromarray(arr.astype(np.uint8), mode).save(p)
-    np.testing.assert_array_equal(png.decode_rgba(p), native.decode_rgba(p))
+    want = native.decode_rgba(p)
+    np.testing.assert_array_equal(want, np.asarray(Image.open(p).convert("RGBA")))
+    np.testing.assert_array_equal(image.load_image(p), want)
+    _without_native(monkeypatch)
+    np.testing.assert_array_equal(image.load_image(p), want)
 
 
-def test_zlib_png_reader_takes_all_five_filters(tmp_path):
+def test_native_decoder_takes_all_five_filters(tmp_path):
     rgb = _rgb((6, 7, 3), 8)
     p = str(tmp_path / "f.png")
-    png.encode(p, rgb)
+    native.encode_png(p, rgb)
     data = open(p, "rb").read()
     # re-filter the rows of the written file with filters 0..4 in turn
     import struct
@@ -166,48 +178,38 @@ def test_zlib_png_reader_takes_all_five_filters(tmp_path):
     iend = data[-12:]
     open(p, "wb").write(head + idat + iend)
     np.testing.assert_array_equal(native.decode_rgba(p)[..., :3], rgb)
-    np.testing.assert_array_equal(png.decode_rgba(p)[..., :3], rgb)
+    np.testing.assert_array_equal(np.asarray(Image.open(p).convert("RGB")), rgb)
 
 
-def test_zlib_png_writer_and_trns(tmp_path):
-    for arr in (_rgb((9, 11), 1), _rgb((9, 11, 3), 2), _rgb((9, 11, 4), 3)):
-        p = str(tmp_path / "w.png")
-        png.encode(p, arr)
-        want = np.asarray(Image.open(p).convert("RGBA"))
-        np.testing.assert_array_equal(native.decode_rgba(p), want)
-        np.testing.assert_array_equal(png.decode_rgba(p), want)
+def test_trns_and_palette_files_decode_like_pillow(tmp_path):
     rgb = _rgb((8, 8, 3), 4)
     rgb[2, 3] = (10, 20, 30)
     p = str(tmp_path / "t.png")
     Image.fromarray(rgb, "RGB").save(p, transparency=(10, 20, 30))
-    got = png.decode_rgba(p)
-    np.testing.assert_array_equal(got, native.decode_rgba(p))
+    got = image.load_image(p)
+    np.testing.assert_array_equal(got, np.asarray(Image.open(p).convert("RGBA")))
     assert got[2, 3, 3] == 0
     pal = str(tmp_path / "pal.png")
     Image.fromarray(rgb, "RGB").convert("P").save(pal)
-    with pytest.raises(png.PngUnsupported):
-        png.decode_rgba(pal)
+    np.testing.assert_array_equal(image.load_image(pal),
+                                  np.asarray(Image.open(pal).convert("RGBA")))
 
 
-def test_without_the_native_library_png_goes_through_zlib(tmp_path, monkeypatch):
+def test_without_the_native_library_pillow_serves(tmp_path, monkeypatch):
     """Where the library does not build (the card has no libpng or libjpeg
-    headers), ``codec()`` names the zlib PNG path with the reason, PNG
-    reads and writes through it bit for bit, and JPEG without Pillow
-    fails naming what is missing."""
-    monkeypatch.setattr(native, "_LIB", None)
-    monkeypatch.setattr(native, "_BUILD_ERROR", "g++ failed (1): fatal error: jpeglib.h: "
-                        "No such file or directory")
-    assert not native.available()
-    assert image.codec().startswith("zlib PNG (the native library did not build: g++ failed")
+    headers), ``codec()`` names Pillow with the reason, PNG reads and
+    writes through it bit for bit, the greyscale writer matches the JAX
+    package's, and without Pillow too the error names what is missing."""
     rgb = _rgb((30, 41, 3), 9)
+    _without_native(monkeypatch)
+    assert re.match(r"Pillow \S+ \(the native library did not build: g\+\+ failed",
+                    image.codec())
     p = str(tmp_path / "z.png")
     image.write_image(p, rgb)
+    np.testing.assert_array_equal(image.load_image(p)[..., :3], rgb)
     monkeypatch.setattr(native, "_BUILD_ERROR", None)
-    want = native.decode_rgba(p)
-    monkeypatch.setattr(native, "_LIB", None)
-    monkeypatch.setattr(native, "_BUILD_ERROR", "g++ failed")
-    np.testing.assert_array_equal(image.load_image(p), want)
-    np.testing.assert_array_equal(want[..., :3], rgb)
+    np.testing.assert_array_equal(native.decode_rgba(p)[..., :3], rgb)
+    _without_native(monkeypatch)
     from cnn_sr_tpu.ops.image import write_greyscale_image
 
     data = np.random.default_rng(4).standard_normal((13, 17)).astype(np.float32)
@@ -216,5 +218,27 @@ def test_without_the_native_library_png_goes_through_zlib(tmp_path, monkeypatch)
     np.testing.assert_array_equal(np.asarray(Image.open(str(tmp_path / "g.png"))),
                                   np.asarray(Image.open(str(tmp_path / "gj.png"))))
     monkeypatch.setitem(sys.modules, "PIL", None)
+    assert image.codec().startswith("none (Pillow is not installed) (the native library")
     with pytest.raises(IOError, match="libpng, libjpeg.*Pillow is not installed"):
         image.write_image(str(tmp_path / "z.jpg"), rgb)
+    with pytest.raises(IOError, match="libpng, libjpeg.*Pillow is not installed"):
+        image.load_image(p)
+
+
+def test_library_key_names_the_compiler_and_a_foreign_copy_is_rebuilt(monkeypatch, tmp_path):
+    """The build's name changes with the compiler, and a library in the
+    build directory that does not load (built on another machine) is
+    built again once rather than cached as a failure."""
+    base = native.library_path()
+    monkeypatch.setenv("CXX", "clang++-none")
+    assert native.library_path() != base
+    monkeypatch.delenv("CXX")
+    assert native.library_path() == base
+
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(native, "_LIB", None)
+    monkeypatch.setattr(native, "_BUILD_ERROR", None)
+    foreign = native.library_path()
+    foreign.write_bytes(b"not a shared object")
+    assert native.available(), native.build_error()
+    assert foreign.read_bytes()[:4] == b"\x7fELF"

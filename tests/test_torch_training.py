@@ -100,7 +100,7 @@ def test_loss_and_gradients_match_jax_f32(stack, gate):
 
 @pytest.mark.parametrize("gate", [True, False], ids=["gate", "nogate"])
 @pytest.mark.parametrize("stack", sorted(STACKS))
-def test_bf16_gradients_within_bf16_envelope_of_jax(stack, gate):
+def test_bf16_gradients_within_bf16_envelope_of_jax(stack, gate, monkeypatch):
     """Mixed precision against JAX's mixed precision. Both round the same
     f32 computation to bf16 (2^-8 relative a rounding) at different
     points: torch adds the bias inside the bf16 convolution and reduces
@@ -110,15 +110,35 @@ def test_bf16_gradients_within_bf16_envelope_of_jax(stack, gate):
     |port − JAX| ≤ 2·|JAX − f32| + 2^-6, i.e. the port is no further
     from the f32 gradient than JAX's own bf16 gradient is, give or take a
     few bf16 rounding steps (2^-6 = 4 of them) through three layers. And
-    each is f32-typed and points the f32 gradient's way."""
+    each is f32-typed and points the f32 gradient's way.
+
+    That bound holds for an f32 computation too, so the test also shows
+    that the port computes in bf16: every convolution of the forward gets
+    bf16 operands, and on some tensor the gradient differs from the
+    port's own f32 gradient by at least half a bf16 step (2^-9) of that
+    tensor's largest entry."""
     c = 1 if stack == "luma" else 3
     params = _params(STACKS[stack], seed=len(stack) + 1)
     x, t = _data(3, c, seed=6)
     g32 = _jax_grads(params, x, t, relu_gate=gate)
     j16 = _jax_grads(params, x, t, relu_gate=gate, compute_dtype=jnp.bfloat16)
+    p32 = _torch_grads(params, x, t, relu_gate=gate)
     tp = _t(params, grad=True)
+    conv_dtypes = []
+    conv2d = torch.nn.functional.conv2d
+
+    def recording_conv2d(inp, weight, *args, **kwargs):
+        conv_dtypes.append((inp.dtype, weight.dtype))
+        return conv2d(inp, weight, *args, **kwargs)
+
+    monkeypatch.setattr(torch.nn.functional, "conv2d", recording_conv2d)
     srcnn.loss_sum(tp, torch.from_numpy(x), torch.from_numpy(t), relu_gate=gate,
                    compute_dtype=torch.bfloat16).backward()
+    monkeypatch.undo()
+    assert conv_dtypes == [(torch.bfloat16, torch.bfloat16)] * len(params)
+    gap = max(float(np.abs(a[k].grad.numpy() - f[k]).max() / np.abs(f[k]).max())
+              for a, f in zip(tp, p32) for k in ("w", "b"))
+    assert gap >= 2.0 ** -9, gap
     for i, (a, j, f) in enumerate(zip(tp, j16, g32)):
         for k in ("w", "b"):
             g = a[k].grad
@@ -397,7 +417,7 @@ def test_training_modules_import_neither_jax_nor_the_jax_package(tmp_path):
         import sys
         for name in ("jax", "jaxlib", "cnn_sr_tpu", "PIL"):
             sys.modules[name] = None
-        import cnn_sr_tpu_torch.native, cnn_sr_tpu_torch.ops.png
+        import cnn_sr_tpu_torch.native, cnn_sr_tpu_torch.ops.image
         import cnn_sr_tpu_torch.optim, cnn_sr_tpu_torch.utils.metrics
         import cnn_sr_tpu_torch.training.checkpoint
         from cnn_sr_tpu_torch import cli
