@@ -86,7 +86,16 @@ of the six probes (``cnn_sr_tpu_torch.probes``). Phases, one line each:
    bit-exact, the trained weights' 1080p upscale (one ``fused_srcnn``
    launch, within ±1 uint8 of plain), and ``cnn_torch.py train`` in a
    subprocess;
-10. probe main path: ``strided_store.main``, ``winograd.main(["--check"])``
+10. parallel (``parallel_phase``, ``cuda:0`` named several times): three
+   1080p flagship requests through ``api.upscale_image_spatial`` at 4
+   shards in bf16 and in f32 (4 fused launches each, ±1 uint8 of the
+   unsharded request, the conv stack's float difference, ms beside the
+   unsharded request's, halo bytes, peak memory), a 7-layer RGB request
+   at 2 shards in f32 and bf16 (14 chain launches), one data-parallel
+   training step at ``n_data`` 2 and one over two processes on ``gloo``
+   (this script again, ``--multihost-worker``) against one device's, and
+   ``upscale_rgba`` in each resize method on the card against the CPU;
+11. probe main path: ``strided_store.main``, ``winograd.main(["--check"])``
    (every Winograd mode and ``repack`` within 1e-2 of a float64 direct
    conv), ``wino5.main(["--check"])`` (every mode within 2e-2 of a float64
    direct 5x5 conv), ``rowpair.main([])`` (the probe's four cases within
@@ -125,8 +134,10 @@ of the six probes (``cnn_sr_tpu_torch.probes``). Phases, one line each:
    and ``xpack_bound``,
    with the share of the bound and packed / sep per pair.
 
-Then one JSON line of the ten kernels, the ``nvidia-smi`` line, and as
-the last line ``{"ok": true, "device": {...}}``. Any failed check raises,
+Then one JSON line of the ten kernels (the shipped four also with their
+launches on the ``[parallel]`` path, ``parallel_launches``), the
+``nvidia-smi`` line, and as the last line ``{"ok": true, "device":
+{...}}``. Any failed check raises,
 so the script exits nonzero and prints no result; so does a machine
 without CUDA, and a run that outlasts ``WATCHDOG_S`` (a hung kernel): a
 watchdog then ends the process with code 1.
@@ -1260,7 +1271,7 @@ def io_phase(smi) -> None:
               f"{err:.3f} (bound 6)")
 
 
-def train_phase(smi, dev) -> None:
+def train_phase(smi, dev):
     """[train]: the training path at full width, ``configs/srcnn_9-5-5.json``
     (n1 = 64, n2 = 32, f 9/5/5) from random parameters at seed 0.
 
@@ -1282,7 +1293,8 @@ def train_phase(smi, dev) -> None:
     1080p frame through ``api.upscale_image``: one ``fused_srcnn`` launch,
     within ±1 uint8 of the plain version's pipeline. Last, the CLI:
     ``cnn_torch.py train -c configs/srcnn_9-5-5.json -i <dir> -e 4 -o
-    p.json`` in a subprocess, rc 0, the file loadable."""
+    p.json`` in a subprocess, rc 0, the file loadable. Returns the loaded
+    sample set (``[parallel]`` trains on it)."""
     from cnn_sr_tpu_torch.ops.image import codec, write_image
     from cnn_sr_tpu_torch.ops.resize import degrade
     from cnn_sr_tpu_torch.training import samples as tsamples
@@ -1421,6 +1433,281 @@ def train_phase(smi, dev) -> None:
               f"rc 0 in {secs:.1f} s, {timing[0] if timing else ''}; parameters file loads "
               f"(epochs {epochs})")
     print(f"[train] phase {time.perf_counter() - t_phase:.1f} s")
+    return data
+
+
+# the card-vs-card tolerance of [train] (tests/test_backprop_parity.py's
+# rtol = atol, of each tensor's largest entry)
+TRAIN_GATE = 2e-4
+
+
+def spatial_requests(name, cfg, params, rgba, shards, precision, want, tol, smi, n=3) -> tuple:
+    """``n`` requests of ``rgba`` through ``api.upscale_image_spatial`` over
+    ``shards`` bands on ``cuda:0`` named ``shards`` times, beside ``n``
+    unsharded ``api.upscale_image`` requests (each side warmed once, out of
+    the counted run): each sharded request makes exactly ``want`` launches
+    (see ``counts``) and is within ``tol`` uint8 of the unsharded one.
+    Returns the launches of the sharded run (counts set to 0 just before
+    it and read just after), the outputs' max uint8 difference, and the
+    ms and peak bytes of both sides."""
+    cards = [torch.device("cuda", 0)] * shards
+    side = {}
+    for label, fn in (("single", lambda: api.upscale_image(cfg, params, rgba,
+                                                           precision=precision)),
+                      ("sharded", lambda: api.upscale_image_spatial(
+                          cfg, params, rgba, shards, precision=precision, devices=cards))):
+        fn()
+        if label == "sharded":
+            reset_counts()
+        outs, ms, peak = [], [], 0
+        for _ in range(n):
+            before = counts()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            outs.append(fn())
+            ms.append((time.perf_counter() - t0) * 1e3)
+            peak = max(peak, torch.cuda.max_memory_allocated())
+            made = tuple(a - b for a, b in zip(counts(), before))
+            if label == "sharded":
+                check(made == want, f"[parallel] {name} {precision}: a sharded request made "
+                      f"launches {made}, expected {want}")
+        side[label] = (outs, ms, peak, counts())
+    (ref, *_), single_ms, single_peak, _ = side["single"]
+    outs, ms, peak, made = side["sharded"]
+    h, w = rgba.shape[:2]
+    border = border_mask(h, w, cfg.total_padding())
+    diff = 0
+    for out in outs:
+        check(out.shape == (h, w, 3) and out.dtype == np.uint8
+              and np.array_equal(out[border], rgba[..., :3][border]),
+              f"[parallel] {name} {precision}: output {out.shape}, border")
+        check(np.array_equal(out, outs[0]), f"[parallel] {name} {precision}: requests disagree")
+        diff = max(diff, int(np.abs(out.astype(np.int16) - ref.astype(np.int16)).max()))
+    check(diff <= tol, f"[parallel] {name} {precision}: sharded vs unsharded max diff {diff} "
+          f"uint8 > {tol}")
+    return made, diff, ms, single_ms, peak, single_peak
+
+
+def halo_bytes(params, x: torch.Tensor, n_spatial: int) -> int:
+    """Bytes ``sharded_forward``'s halo exchange copies: the stack's shrink
+    rows of every band but the last."""
+    shrink = sum(layer["w"].shape[0] - 1 for layer in params)
+    n, _, w, c = x.shape
+    return (n_spatial - 1) * n * shrink * w * c * x.element_size()
+
+
+def spatial_float_diff(params, x, shards, precision) -> float:
+    """Max |sharded − unsharded| of the conv stack's f32 output on ``x``:
+    ``sharded_forward`` with each band through ``SRCNN`` against one
+    ``entry.fused_forward`` over the whole input (outside any counted run)."""
+    from cnn_sr_tpu_torch.models.srcnn import SRCNN
+    from cnn_sr_tpu_torch.parallel import make_mesh, sharded_forward
+
+    mesh = make_mesh(1, shards, devices=[torch.device("cuda", 0)] * shards)
+    y = sharded_forward(mesh, params, x, forward_fn=lambda p, band: SRCNN(p, precision)(band))
+    ref = entry.fused_forward(params, x, precision)
+    check(y.shape == ref.shape, f"[parallel] sharded stack {tuple(y.shape)} vs {tuple(ref.shape)}")
+    return float((y - ref).abs().max())
+
+
+def rel_diff(got, want) -> float:
+    """Max over the tensors of two layer lists (numpy) of max |got − want|
+    / max |want|: ``[train]``'s card-vs-card measure."""
+    worst = 0.0
+    for g, w in zip(got, want):
+        for k in ("w", "b"):
+            rel = float(np.abs(g[k] - w[k]).max() / max(float(np.abs(w[k]).max()), 1e-30))
+            worst = max(worst, rel if math.isfinite(rel) else math.inf)
+    return worst
+
+
+def multihost_worker(argv) -> int:
+    """``chip_smoke.py --multihost-worker <rank> <port> <dir>``: one of the
+    two processes of ``[parallel]``'s multi-process step. Joins a ``gloo``
+    group on 127.0.0.1:<port> (NCCL refuses two ranks on one card), takes
+    its half of ``<dir>/mh_in.npz``'s samples on a one-replica mesh of
+    ``cuda:0``, runs one step of ``make_train_step(cfg, mesh=…)`` over the
+    9-5-5 at full width and writes the new parameters and momentum to
+    ``<dir>/mh_out<rank>.npz``."""
+    import torch.distributed as dist
+
+    from cnn_sr_tpu_torch.parallel import initialize_multihost, make_mesh, process_count
+    from cnn_sr_tpu_torch.training import trainer
+
+    rank, port, d = int(argv[0]), argv[1], argv[2]
+    dev = torch.device("cuda", 0)
+    check(initialize_multihost(f"127.0.0.1:{port}", 2, rank, backend="gloo")
+          and process_count() == 2, "[parallel] process group")
+    cfg = read_config(os.path.join(ROOT, "configs", "srcnn_9-5-5.json"))
+    state = trainer.init_train_state(cfg, seed=SEED)
+    data = np.load(os.path.join(d, "mh_in.npz"))
+    half = data["x"].shape[0] // 2
+    x = torch.from_numpy(data["x"][rank * half:(rank + 1) * half]).to(dev)
+    t = torch.from_numpy(data["t"][rank * half:(rank + 1) * half]).to(dev)
+    p, prev = params_to_torch(state.params, dev), params_to_torch(state.prev_delta, dev)
+    step = trainer.make_train_step(cfg, mesh=make_mesh(1, devices=[dev]))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step(p, prev, x, t)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    np.savez(os.path.join(d, f"mh_out{rank}.npz"),
+             **{f"{k}{i}": l[k].cpu().numpy() for i, l in enumerate(p) for k in ("w", "b")},
+             **{f"d{k}{i}": l[k].cpu().numpy() for i, l in enumerate(prev) for k in ("w", "b")})
+    dist.destroy_process_group()
+    print(f"worker {rank}: step {ms:.1f} ms", flush=True)
+    return 0
+
+
+def parallel_phase(smi, dev, cfg, params, cfg_rgb, params_rgb, data) -> dict:
+    """[parallel]: the port's parallelism on the card, ``cuda:0`` named
+    several times (the machine has one card).
+
+    Spatial: three 1920x1080 requests of the flagship checkpoint through
+    ``api.upscale_image_spatial`` at 4 shards, in bf16 and in f32: exactly
+    4 fused launches each (one a band, ragged: 270 + 16 rows), within ±1
+    uint8 of ``api.upscale_image`` on the same frame, with the conv stack's
+    max float difference, ms per request beside the unsharded request's,
+    the halo bytes and the peak device memory of both. RGB: one 7-layer
+    request at 2 shards, 14 chain launches, within ±1 (f32) or ±2 (bf16)
+    of the unsharded request. Data parallel: one full-width 9-5-5 step on
+    ``[train]``'s 96-sample train split with ``n_data = 2`` (``cuda:0``
+    twice) against one step on ``cuda:0`` alone, TF32 off: the change of
+    parameters and the momentum (the step's undivided delta) within
+    ``TRAIN_GATE`` of each tensor's largest entry; timed. Multihost: two processes (``multihost_worker``), each
+    half the samples, one step over ``gloo``: equal to each other bit for
+    bit and to the single step within ``TRAIN_GATE``. Resize:
+    ``upscale_rgba`` of a 540x960 frame by 2 in each method on the card
+    against the CPU, within 1 uint8. Returns the sharded runs' launches."""
+    from cnn_sr_tpu_torch.ops.color import extract_luma, subtract_mean
+    from cnn_sr_tpu_torch.ops.resize import upscale_rgba
+    from cnn_sr_tpu_torch.parallel import make_mesh
+    from cnn_sr_tpu_torch.training import samples as tsamples
+    from cnn_sr_tpu_torch.training import trainer
+
+    t_phase = time.perf_counter()
+    launches = {}
+    rgba = make_image(1080, 1920, SEED)
+    img = torch.from_numpy(rgba).to(dev)
+    x = subtract_mean(extract_luma(img))[0][None, ..., None].contiguous()
+    for precision, want in (("bf16", (0, 0, 4, 0)), ("f32", (4, 0, 0, 0))):
+        made, diff, ms, single_ms, peak, single_peak = spatial_requests(
+            "flagship 9-5-5", cfg, params, rgba, 4, precision, want, 1, smi)
+        launches[f"flagship {precision}"] = made
+        fdiff = spatial_float_diff(params, x, 4, precision)
+        print(f"[parallel] {smi} | spatial, flagship 9-5-5 {precision}, 1920x1080 over 4 bands "
+              f"of cuda:0: ms per request " + ", ".join(f"{v:.2f}" for v in ms)
+              + " (unsharded " + ", ".join(f"{v:.2f}" for v in single_ms)
+              + f") | launches (fused, chain, fused bf16, chain bf16) {made} | max diff vs "
+              f"unsharded {diff} uint8, conv stack max |float diff| {fdiff:.3e} | halo "
+              f"{halo_bytes(params, x, 4)} bytes | peak device memory {peak / 2**20:.1f} MiB "
+              f"(unsharded {single_peak / 2**20:.1f})")
+    rgb = img[..., :3].to(torch.float32) / 255.0
+    x_rgb = (rgb - rgb.mean(dim=(0, 1), keepdim=True))[None].contiguous()
+    for precision, want, tol in (("f32", (0, 14, 0, 0), 1), ("bf16", (0, 0, 0, 14), 2)):
+        made, diff, ms, single_ms, peak, single_peak = spatial_requests(
+            "RGB 7-layer", cfg_rgb, params_rgb, rgba, 2, precision, want, tol, smi, n=1)
+        launches[f"RGB {precision}"] = made
+        fdiff = spatial_float_diff(params_rgb, x_rgb, 2, precision)
+        print(f"[parallel] {smi} | spatial, RGB 7-layer {precision}, 1920x1080 over 2 bands: "
+              f"{ms[0]:.2f} ms (unsharded {single_ms[0]:.2f}) | launches {made} | max diff vs "
+              f"unsharded {diff} uint8 (gate {tol}), conv stack max |float diff| {fdiff:.3e} "
+              f"| halo {halo_bytes(params_rgb, x_rgb, 2)} bytes | peak device memory "
+              f"{peak / 2**20:.1f} MiB (unsharded {single_peak / 2**20:.1f})")
+
+    # data parallel: one step of the 9-5-5 at full width on [train]'s split
+    cfg_t = read_config(os.path.join(ROOT, "configs", "srcnn_9-5-5.json"))
+    state0 = trainer.init_train_state(cfg_t, seed=SEED)
+    start = [{k: l[k].copy() for k in ("w", "b")} for l in state0.params]
+    train_idx, _ = tsamples.divide_samples(128, 32, np.random.default_rng(SEED))
+    xs, ts = data.input_luma[train_idx], data.expected_luma[train_idx]
+    xt, tt = torch.from_numpy(xs).to(dev), torch.from_numpy(ts).to(dev)
+    results = {}
+    for label, mesh in (("single", None), ("n_data 2", make_mesh(2, devices=[dev, dev]))):
+        step = trainer.make_train_step(cfg_t, mesh=mesh)
+        ms = []
+        for _ in range(4):
+            # copies: the step updates them in place
+            p = params_to_torch([{k: l[k].copy() for k in ("w", "b")} for l in start], dev)
+            prev = params_to_torch([{k: np.zeros_like(l[k]) for k in ("w", "b")}
+                                    for l in start], dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(p, prev, xt, tt)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        results[label] = ([{k: l[k].cpu().numpy().copy() for k in ("w", "b")} for l in p],
+                          [{k: l[k].cpu().numpy().copy() for k in ("w", "b")} for l in prev], ms)
+    (p1, d1, ms1), (p2, d2, ms2) = results["single"], results["n_data 2"]
+    rel_p, rel_d = rel_diff(p2, p1), rel_diff(d2, d1)
+    check(rel_p <= TRAIN_GATE and rel_d <= TRAIN_GATE,
+          f"[parallel] data-parallel step vs single: parameters {rel_p}, momentum {rel_d} "
+          f"of the largest entry (gate {TRAIN_GATE})")
+    print(f"[parallel] {smi} | data parallel, 9-5-5 full width, 96 samples of 128x128, TF32 "
+          f"off: n_data 2 (cuda:0 twice) vs one device, max |diff| / max |entry| parameters "
+          f"{rel_p:.2e}, momentum {rel_d:.2e} (gate {TRAIN_GATE}) | ms per step (first, then "
+          f"warm) single " + ", ".join(f"{v:.2f}" for v in ms1) + ", n_data 2 "
+          + ", ".join(f"{v:.2f}" for v in ms2))
+
+    # two processes on cuda:0 over gloo, each half the samples
+    import socket
+
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as d, socket.socket() as sock:
+        np.savez(os.path.join(d, "mh_in.npz"), x=xs, t=ts)
+        sock.bind(("127.0.0.1", 0))
+        port = str(sock.getsockname()[1])
+        sock.close()
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                                   "--multihost-worker", str(r), port, d],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for r in range(2)]
+        logs = []
+        try:
+            for proc in procs:
+                logs.append(proc.communicate(timeout=240)[0])
+        except subprocess.TimeoutExpired:
+            logs.append("timed out after 240 s")
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        secs = time.perf_counter() - t0
+        check(len(logs) == 2 and all(proc.returncode == 0 for proc in procs),
+              "[parallel] multihost workers: " + " | ".join(log[-1500:] for log in logs))
+        outs = [np.load(os.path.join(d, f"mh_out{r}.npz")) for r in range(2)]
+        for k in outs[0].files:
+            check(np.array_equal(outs[0][k], outs[1][k]),
+                  f"[parallel] multihost: {k} differs across the two processes")
+        mp = [{k: outs[0][f"{k}{i}"] for k in ("w", "b")} for i in range(len(p1))]
+        md = [{k: outs[0][f"d{k}{i}"] for k in ("w", "b")} for i in range(len(p1))]
+        rel_mp, rel_md = rel_diff(mp, p1), rel_diff(md, d1)
+        check(rel_mp <= TRAIN_GATE and rel_md <= TRAIN_GATE,
+              f"[parallel] multihost step vs single: parameters {rel_mp}, momentum {rel_md}")
+    steps = [ln.strip() for log in logs for ln in log.splitlines() if "step" in ln]
+    print(f"[parallel] {smi} | multihost: 2 processes on cuda:0 over gloo, 48 samples each, "
+          f"one step: equal across processes bit for bit; vs one device max |diff| / max |entry| "
+          f"parameters {rel_mp:.2e}, momentum {rel_md:.2e} | {'; '.join(steps)} | both "
+          f"processes in {secs:.1f} s")
+
+    frame = make_image(540, 960, SEED + 70)
+    on_card = torch.from_numpy(frame).to(dev)
+    parts = []
+    for method in ("bicubic", "linear", "nearest", "lanczos"):
+        want = upscale_rgba(torch.from_numpy(frame), 2.0, method).numpy()
+        got = upscale_rgba(on_card, 2.0, method).cpu().numpy()
+        check(got.shape == want.shape == (1080, 1920, 4), f"[parallel] resize {method} shape")
+        diff = int(np.abs(got.astype(np.int16) - want.astype(np.int16)).max())
+        check(diff <= 1, f"[parallel] resize {method}: card vs CPU max diff {diff} uint8")
+        parts.append(f"{method} {time_ms(lambda: upscale_rgba(on_card, 2.0, method), 5):.3f} ms "
+                     f"(max diff {diff}, {int((got != want).sum())} bytes differ)")
+    print(f"[parallel] {smi} | resize: upscale_rgba 960x540 → 1920x1080 on the card vs the "
+          f"CPU: " + ", ".join(parts))
+    print(f"[parallel] phase {time.perf_counter() - t_phase:.1f} s")
+    return launches
 
 
 def main() -> int:
@@ -1428,6 +1715,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs on an NVIDIA card",
               file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--multihost-worker"]:
+        return multihost_worker(sys.argv[2:])
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     smi = smi_line()
     dev = torch.device("cuda")
@@ -1572,17 +1861,19 @@ def main() -> int:
     for precision in ("f32", "bf16"):
         time_stack("fused_srcnn, 9-1-5", params915, x_luma, smi, precision)
     io_phase(smi)
-    train_phase(smi, dev)
+    train_data = train_phase(smi, dev)
+    parallel_counts = parallel_phase(smi, dev, cfg, params, cfg_rgb, params_rgb, train_data)
     probe_rows = probe_phase(smi)
     fused_errs.append(t_fused["err"])
     chain_errs.append(t_chain["err"])
     fused_bf16_errs.append(t_fused_bf16["err"])
     chain_bf16_errs.append(t_chain_bf16["err"])
 
-    def row(name, source, replaces, launches, errs, t):
+    def row(name, source, replaces, launches, errs, t, parallel=None):
         check(launches > 0, f"{name}: no launch on its main path")
+        extra = {} if parallel is None else {"parallel_launches": parallel}
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                "launches": launches, "max_abs_err": max(errs), "ms": t["ms"],
+                "launches": launches, **extra, "max_abs_err": max(errs), "ms": t["ms"],
                 "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                 "bound_by": t["bound_by"], "library_ms": t["library_ms"],
                 **{k: t[k] for k in ("mode_ms", "graph_ms", "library_graph_ms", "share")
@@ -1591,16 +1882,16 @@ def main() -> int:
     print(json.dumps({"kernels": [
         row("fused_srcnn", "cnn_sr_tpu_torch/csrc/fused_srcnn.cu",
             "cnn_sr_tpu/ops/pallas_fused/kernel.py:38", flagship_counts[0], fused_errs,
-            t_fused),
+            t_fused, parallel_counts["flagship f32"][0]),
         row("conv_layer", "cnn_sr_tpu_torch/csrc/conv_layer.cu",
             "cnn_sr_tpu/ops/pallas_fused/kernel.py:499", rgb_counts[1], chain_errs,
-            t_chain),
+            t_chain, parallel_counts["RGB f32"][1]),
         row("fused_srcnn_bf16", "cnn_sr_tpu_torch/csrc/fused_srcnn.cu",
             "cnn_sr_tpu/ops/pallas_fused/kernel.py:730", serve_counts[2], fused_bf16_errs,
-            t_fused_bf16),
+            t_fused_bf16, parallel_counts["flagship bf16"][2]),
         row("conv_layer_bf16", "cnn_sr_tpu_torch/csrc/conv_layer.cu",
             "cnn_sr_tpu/ops/pallas_fused/wino_kernel.py:25", serve_counts[3], chain_bf16_errs,
-            t_chain_bf16),
+            t_chain_bf16, parallel_counts["RGB bf16"][3]),
         *(row(r["name"], r["source"], r["replaces"], r["launches"], [r["err"]], r)
           for r in probe_rows),
     ]}))

@@ -11,11 +11,14 @@ Package layout:
              nn.Module)
   optim/     the reference's exact SGD + momentum + weight-decay update
   training/  sample loading, the training loop, the full-state sidecar
-  ops/       color ops, image IO, bicubic resize,
+  ops/       color ops, image IO, resize (bicubic, linear, nearest, lanczos),
              the conv-stack kernels (fused, chain; f32 and bf16)
+  parallel/  the (data, spatial) device mesh, data-parallel gradients,
+             halo-exchange spatial sharding, the multi-process group
   csrc/      CUDA sources of the hand-written kernels
   native.py  the port's build of the native image/sample library
-  api.py     luma or RGB upscale of one image (exact or bucketed) or a batch
+  api.py     luma or RGB upscale of one image (exact, bucketed or spatially
+             sharded) or a batch
   cli.py     the command line: forward and train modes
   serve.py   the HTTP upscaling service (python -m cnn_sr_tpu_torch.serve)
 """

@@ -4,7 +4,8 @@ device.
 Counterpart of ``cnn_sr_tpu/api.py``: ``upscale_image`` (exact shapes,
 ``_upscale_luma_jit`` / ``_upscale_rgb_jit``, or shape buckets,
 ``_upscale_luma_bucketed`` / ``_upscale_rgb_bucketed``) and
-``upscale_batch`` (``_upscale_luma_batch_jit`` / ``_upscale_rgb_batch_jit``).
+``upscale_batch`` (``_upscale_luma_batch_jit`` / ``_upscale_rgb_batch_jit``)
+and ``upscale_image_spatial`` (one image's rows over several devices).
 The uint8 images go to the device once and uint8 RGB comes back once; in
 between, the color ops, the means, the conv stack and the swap all run on
 the device, and no mean visits the host.
@@ -170,4 +171,57 @@ def upscale_batch(cfg: Config, params, rgbas: np.ndarray,
     else:
         out = _upscale_luma_batch(net, imgs, add_mean=cfg.zero_mean_target,
                                   squared_mean=cfg.subtract_squared_mean)
+    return out.cpu().numpy()
+
+
+def upscale_image_spatial(cfg: Config, params, rgba: np.ndarray, n_shards: int,
+                          precision: str = "f32", devices=None) -> np.ndarray:
+    """``upscale_image`` of one image with its rows split over ``n_shards``
+    devices: halo-exchange spatial parallelism
+    (``parallel.spatial.sharded_forward``), each band through
+    ``SRCNN(params, precision)`` on its device (the fused kernel or the
+    chain, f32 or bf16). The luma (or, for RGB, each channel's) mean is
+    taken over the whole image; the image is bottom-padded with zeros to a
+    multiple of ``n_shards`` and the padded rows' outputs are cut off
+    before the swap, so the result is the single-device one.
+
+    ``devices`` (default: ``parallel.available_devices`` of the
+    parameters' device kind, every card, or the CPU named once per core)
+    lists the devices the bands go to, the first holding the parameters
+    and the image; it may name one card several times. The JAX function
+    has no such argument: its mesh is ``jax.devices()``, and its tests'
+    eight virtual CPU devices play the part a repeated device plays here.
+    """
+    from .parallel.mesh import available_devices, make_mesh
+    from .parallel.spatial import sharded_forward
+
+    if devices is None:
+        devices = available_devices(params[0]["w"].device.type)
+    if n_shards > len(devices):
+        raise ValueError(f"--spatial-shard {n_shards} > {len(devices)} devices")
+    h, w = rgba.shape[0], rgba.shape[1]
+    shrink = cfg.total_padding()
+    if (h - shrink) <= 0 or (w - shrink) <= 0:
+        raise ValueError(f"image {w}x{h} smaller than the receptive field")
+    pad_rows = (-h) % n_shards
+    shard_rows = (h + pad_rows) // n_shards
+    if shard_rows < shrink:
+        raise ValueError(f"shard height {shard_rows} < receptive-field shrink {shrink}; "
+                         f"use fewer shards for this image")
+    mesh = make_mesh(n_data=1, n_spatial=n_shards, devices=devices[:n_shards])
+    img = _upload(params, rgba)
+
+    def net(x: torch.Tensor) -> torch.Tensor:
+        # bottom-pad the rows to a multiple of the shards; the padded rows
+        # feed only outputs past the valid region, cut off here
+        x = torch.nn.functional.pad(x, (0, 0, 0, 0, 0, pad_rows))
+        y = sharded_forward(mesh, params, x,
+                            forward_fn=lambda p, band: SRCNN(p, precision)(band))
+        return y[:, :h - shrink]
+
+    if cfg.channels == 3:
+        out = _upscale_rgb(net, img, add_mean=cfg.zero_mean_target)
+    else:
+        out = _upscale_luma(net, img, add_mean=cfg.zero_mean_target,
+                            squared_mean=cfg.subtract_squared_mean)
     return out.cpu().numpy()

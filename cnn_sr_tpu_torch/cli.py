@@ -2,18 +2,20 @@
 
     python cnn_torch.py [dry] -c cfg.json -i <image|dir> [-o <out>]
                         [--seed N] [--device cuda|cpu] [--precision f32|bf16]
-                        [--bucket N] [--scale X]
+                        [--bucket N] [--scale X] [--spatial-shard N]
     python cnn_torch.py train [dry] -c cfg.json -i <samples dir> -e N [-o params.json]
                         [--device cuda|cpu] [--train-precision highest|high|default|bf16]
                         [--validation-percent P] [--mini-batch-count M]
                         [--validation-cadence C] [--epochs-per-dispatch K]
-                        [--full-state] [--seed N]
+                        [--full-state] [--seed N] [--data-parallel N]
 
 Forward mode: decode → (bicubic pre-upscale by ``--scale``) → luma or RGB
 pipeline (by the config's ``channels``) → net → swap → encode, for one
 image or for every image of a directory (written as ``<stem>_sr.png``).
 ``--precision bf16`` runs the bf16 stream (the JAX CLI's ``--pallas``);
 ``--bucket N`` pads shapes to multiples of N, as the JAX CLI's.
+``--spatial-shard N`` splits each image's rows over N devices of
+``--device``'s kind with one halo exchange (``api.upscale_image_spatial``).
 
 Training mode (``train``): pair the samples of the directory, train for
 ``-e`` epochs with the reference's exact update rule
@@ -26,14 +28,19 @@ flags with its values as defaults (``--validation-percent`` 20,
 RNG in ``<params>.state.npz``, the same sidecar as the JAX package's.
 ``--train-precision``: ``highest`` is f32 with TF32 off; ``high`` and
 ``default`` are TF32 convolutions on the card (plain f32 on the CPU);
-``bf16`` is mixed precision with f32 master weights.
+``bf16`` is mixed precision with f32 master weights. ``--data-parallel N``
+splits the samples over N devices (``parallel.make_mesh``) and sums the
+replicas' gradients; the train and validation splits must divide by N.
 
 ``dry`` runs without writing. ``--device cuda`` (the default) runs on the
 card and fails without one; ``cpu`` runs the plain versions.
 ``--packed-io`` and ``--no-packed-io`` are accepted and do nothing: the
 JAX CLI's uint32-packed color ends change only the TPU's layout, not
-the output. Not ported yet (ROADMAP.md Queue 1): the ``profile`` mode,
-``--spatial-shard``, ``--data-parallel`` and ``--trace-dir``.
+the output. Not ported yet (ROADMAP.md Queue 1): the ``profile`` mode
+and ``--trace-dir``.
+
+A device count N of -1 means every device of the kind: every card, or on
+the CPU the CPU named once per core (``parallel.available_devices``).
 """
 
 from __future__ import annotations
@@ -90,6 +97,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--scale", type=float, default=1.0,
                    help="bicubic upscale of the input on the device by this "
                    "factor before the net")
+    p.add_argument("--spatial-shard", type=int, default=0, metavar="N",
+                   help="forward: split the image's rows over N devices (-1 = all) "
+                   "with one halo exchange per image; results are identical to "
+                   "single-device")
+    p.add_argument("--data-parallel", type=int, default=0, metavar="N",
+                   help="training: split the sample batch over N devices (-1 = all) "
+                   "and sum their gradients. The train and validation split sizes "
+                   "must divide by N")
     p.add_argument("--packed-io", dest="packed_io", action="store_true", default=None,
                    help="accepted for the JAX CLI's command lines; does nothing (the "
                    "uint32-packed color ends change only the TPU's layout)")
@@ -103,6 +118,18 @@ def _check_device(args):
 
     if args.device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda: no CUDA device is available")
+
+
+def _resolve_devices(n: int, device: str) -> int:
+    """-1 → every device of ``device``'s kind; checks 1 ≤ n ≤ that count."""
+    from .parallel.mesh import available_devices
+
+    avail = len(available_devices(device))
+    if n == -1:
+        return avail
+    if n < 1 or n > avail:
+        raise SystemExit(f"need 1..{avail} devices, got {n}")
+    return n
 
 
 def _load_model(args, cfg):
@@ -131,7 +158,14 @@ def _upscale_file(args, cfg, params, src: str, dst: Optional[str]) -> None:
                               device=params[0]["w"].device)
         rgba = upscale_rgba(img, args.scale).cpu().numpy()
         print(f"Pre-scaled by {args.scale}x to {rgba.shape[1]}x{rgba.shape[0]}")
-    out = upscale_image(cfg, params, rgba, bucket=args.bucket, precision=args.precision)
+    if args.spatial_shard:
+        from .api import upscale_image_spatial
+
+        out = upscale_image_spatial(cfg, params, rgba,
+                                    _resolve_devices(args.spatial_shard, args.device),
+                                    precision=args.precision)
+    else:
+        out = upscale_image(cfg, params, rgba, bucket=args.bucket, precision=args.precision)
     dt = time.perf_counter() - t0
     print(f"{src}: {rgba.shape[1]}x{rgba.shape[0]} upscaled in {dt * 1e3:.1f} ms")
     if dst:
@@ -202,13 +236,28 @@ def run_training(args, cfg) -> int:
         if rng is None:
             rng = np.random.default_rng(args.seed)
 
+    mesh = None
+    if args.data_parallel:
+        from .parallel.mesh import available_devices, make_mesh
+
+        n = _resolve_devices(args.data_parallel, args.device)
+        v = int(samples.count * args.validation_percent / 100.0)
+        t = samples.count - v
+        if t % n or (v and v % n):
+            raise SystemExit(
+                f"--data-parallel {n}: train split {t} and validation "
+                f"split {v} must both divide by the device count")
+        mesh = make_mesh(n_data=n, devices=available_devices(args.device))
+        print(f"Data-parallel training over {n} devices "
+              f"(batch split; gradients summed on the first)")
+
     t0 = time.perf_counter()
     error = train_loop(
         cfg, samples, state, args.epochs,
         validation_percent=args.validation_percent,
         mini_batch_count=args.mini_batch_count,
         validation_cadence=args.validation_cadence,
-        epochs_per_dispatch=args.epochs_per_dispatch,
+        epochs_per_dispatch=args.epochs_per_dispatch, mesh=mesh,
         precision=None if args.train_precision == "highest" else args.train_precision,
         seed=args.seed, rng=rng, device=args.device,
     )
@@ -232,7 +281,8 @@ _MODE_WORDS = {"train", "dry", "profile"}
 _VALUED_OPTS = {"-c", "--config", "-i", "--in", "-o", "--out", "-e", "--epochs",
                 "--validation-percent", "--mini-batch-count", "--validation-cadence",
                 "--epochs-per-dispatch", "--train-precision", "--seed", "--device",
-                "--precision", "--bucket", "--scale"}
+                "--precision", "--bucket", "--scale", "--spatial-shard",
+                "--data-parallel"}
 
 
 def _split_modes(argv: List[str]):

@@ -10,7 +10,9 @@ Training differentiates ``loss_sum`` with autograd over ``F.conv2d``
 (cuDNN on the card), as the JAX package differentiates its XLA
 convolutions: no kernel of its own lies on that path. ``ReluBackpropGate``
 keeps the reference's last-layer quirk (last_layer_delta.cl:42-47): the
-linear last layer's delta is gated by ``(y > 0)``.
+linear last layer's delta is gated by ``(y > 0)``. The hidden layers' ReLU
+(``Relu``) passes half the incoming gradient at y = 0, as ``jnp.maximum``
+does in the JAX package (the reference's hand-written deltas take 0 there).
 """
 
 from __future__ import annotations
@@ -65,9 +67,38 @@ def conv_precision(precision=None):
 def conv_layer(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                relu: bool) -> torch.Tensor:
     """One layer on NHWC ``x`` with HWIO ``w`` (f, f, K, n) and ``b`` (n,)."""
-    y = F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1), b)
+    wt = w.permute(3, 2, 0, 1)
+    if w.requires_grad and w.device.type == "cpu":
+        # the CPU backward (slow_conv2d) refuses the channels-last weight
+        # gradient that the permuted weight gets for a one-sample batch
+        # into one output channel
+        wt = wt.contiguous()
+    y = F.conv2d(x.permute(0, 3, 1, 2), wt, b)
     y = y.permute(0, 2, 3, 1)
-    return torch.relu(y) if relu else y
+    if not relu:
+        return y
+    return Relu.apply(y) if y.requires_grad else torch.relu(y)
+
+
+class Relu(torch.autograd.Function):
+    """ReLU whose gradient at exactly 0 is half the incoming one, as that of
+    the JAX package's ``jnp.maximum(y, 0.0)`` (``torch.relu``'s is 0; zero
+    biases put a pixel there whenever a layer's whole input is 0). Saves
+    the output, which the next layer saves anyway, and a bool mask of the
+    ties (``torch.maximum`` would keep the input alive beside the output),
+    and adds the ties' half in place: one more pass over the gradient than
+    ``torch.relu``'s backward."""
+
+    @staticmethod
+    def forward(ctx, y):
+        out = torch.relu(y)
+        ctx.save_for_backward(out, y == 0)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        out, tie = ctx.saved_tensors
+        return torch.ops.aten.threshold_backward(g, out, 0.0).addcmul_(g, tie, value=0.5)
 
 
 def _stack(params, x: torch.Tensor) -> torch.Tensor:

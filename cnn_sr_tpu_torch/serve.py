@@ -13,6 +13,9 @@ Counterpart of ``tools/serve.py``, run as ``python -m cnn_sr_tpu_torch.serve``:
   ``api.upscale_batch`` (one conv-stack call over the group, the same
   output as the single-image path), and runs the rest through
   ``api.upscale_image`` with ``--bucket`` shape buckets.
+* **spatial latency mode** (``--spatial-shard N``): instead of batching,
+  every request runs alone with its rows split over N devices
+  (``api.upscale_image_spatial``: one halo exchange per image).
 * **latency SLO policy** (``--deadline S``): admission control answers
   **503 + Retry-After** when the EWMA-estimated queue wait exceeds the
   deadline; jobs whose queue wait crossed the deadline are answered 503
@@ -26,6 +29,7 @@ Counterpart of ``tools/serve.py``, run as ``python -m cnn_sr_tpu_torch.serve``:
     python -m cnn_sr_tpu_torch.serve -c cfg.json [--model rgb=rgb.json ...]
         [--port 8200] [--precision f32|bf16] [--device cuda|cpu]
         [--scale 2] [--max-batch 8] [--batch-wait-ms 3] [--bucket 64]
+        [--spatial-shard N]
 
     curl -s --data-binary @photo.png localhost:8200/upscale > photo_sr.png
     curl -s --data-binary @a.png 'localhost:8200/upscale?model=rgb' > b.png
@@ -34,9 +38,7 @@ Counterpart of ``tools/serve.py``, run as ``python -m cnn_sr_tpu_torch.serve``:
 ``--precision bf16`` runs the bf16 stream of the conv kernels (the JAX
 server's ``--pallas``); ``--device cuda`` (the default) needs a card and
 ``cpu`` runs the kernels' plain version. Pillow is imported only by the
-HTTP handler, so the worker runs where Pillow is missing. The JAX
-server's ``--spatial-shard`` is refused: spatial parallelism is not
-ported yet.
+HTTP handler, so the worker runs where Pillow is missing.
 """
 
 from __future__ import annotations
@@ -52,8 +54,6 @@ import urllib.parse
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
-
-_PARALLEL = "ROADMAP.md Queue 1 #11"
 
 
 class DeadlineExceeded(Exception):
@@ -92,7 +92,9 @@ class DeviceWorker(threading.Thread):
     Pulls jobs from the queue; after the first job of a round, waits up
     to ``batch_wait_ms`` for more (max ``max_batch``), groups them by
     (model, image shape) and dispatches each group of two or more as one
-    ``upscale_batch``, each single through ``upscale_image``.
+    ``upscale_batch``, each single through ``upscale_image``. With
+    ``spatial_shard`` > 0 (latency mode) every job runs alone through
+    ``upscale_image_spatial`` over that many devices of its slot's kind.
     """
 
     def __init__(self, slots: dict, precision: str = "f32",
@@ -104,12 +106,11 @@ class DeviceWorker(threading.Thread):
                  deadline_s: float = 0.0,
                  max_queue: int = 0):
         super().__init__(daemon=True, name="device-worker")
-        if spatial_shard:
-            raise NotImplementedError(
-                f"spatial sharding (--spatial-shard {spatial_shard}) is not ported yet "
-                f"({_PARALLEL}, parallelism)")
         self.slots = slots
         self.precision = precision
+        # >0: latency mode, every image's rows over this many devices
+        # (halo-exchange spatial sharding) instead of batching requests
+        self.spatial_shard = spatial_shard
         self.max_body_bytes = max_body_bytes
         self.scale = scale
         self.max_batch = max(1, max_batch)
@@ -274,13 +275,18 @@ class DeviceWorker(threading.Thread):
         self._drain_queue()
 
     def _process_group(self, jobs) -> None:
-        from .api import upscale_batch, upscale_image
+        from .api import upscale_batch, upscale_image, upscale_image_spatial
 
         try:
             slot = self.slots[jobs[0].model]
             cfg, params = slot["cfg"], slot["params"]
             rgbas = [self._pre_scale(j.rgba, params) for j in jobs]
-            if len(jobs) > 1:
+            if self.spatial_shard:
+                # latency mode: one image at a time, its rows over the mesh
+                for j, rgba in zip(jobs, rgbas):
+                    j.result = upscale_image_spatial(cfg, params, rgba, self.spatial_shard,
+                                                     precision=self.precision)
+            elif len(jobs) > 1:
                 # one batched dispatch per same-shape group, luma and RGB
                 outs = upscale_batch(cfg, params, np.stack(rgbas),
                                      precision=self.precision)
@@ -480,7 +486,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="pad single-image shapes to multiples of this "
                         "(0 = exact shapes)")
     p.add_argument("--spatial-shard", type=int, default=0, metavar="N",
-                   help=f"refused: spatial sharding is not ported yet ({_PARALLEL})")
+                   help="latency mode: split every image's rows over N devices "
+                        "(halo exchange) instead of batching requests, for hosts "
+                        "with several cards serving large frames (0 = off)")
     p.add_argument("--max-body-mb", type=int, default=64,
                    help="reject request bodies larger than this (413)")
     p.add_argument("--job-timeout", type=float, default=600.0,
@@ -501,8 +509,6 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> int:
     p = build_parser()
     args = p.parse_args(argv)
-    if args.spatial_shard:
-        p.error(f"--spatial-shard: spatial sharding is not ported yet ({_PARALLEL})")
     import torch
 
     if args.device == "cuda" and not torch.cuda.is_available():
@@ -526,7 +532,7 @@ def main(argv=None) -> int:
         slots, args.host, args.port, precision=args.precision,
         scale=args.scale, max_batch=args.max_batch,
         batch_wait_ms=args.batch_wait_ms, bucket=args.bucket,
-        job_timeout_s=args.job_timeout,
+        job_timeout_s=args.job_timeout, spatial_shard=args.spatial_shard,
         max_body_bytes=args.max_body_mb * 1024 * 1024,
         deadline_s=args.deadline, max_queue=args.max_queue)
     worker.start()

@@ -117,3 +117,47 @@ def test_jax_command_line_with_packed_io_parses_and_upscales_identically(tmp_pat
     want = np.asarray(Image.open(str(tmp_path / "j.png")))
     assert np.abs(got.astype(np.int16) - want.astype(np.int16)).max() <= 1
     assert "does nothing" in cli.build_parser().format_help()
+
+
+def test_forward_spatial_shard_matches_single(tmp_path):
+    """``--spatial-shard N`` on the CPU (the CPU named N times): the image's
+    rows over N bands with one halo exchange, within ±1 uint8 of the
+    single-device run (78 rows: the bottom-pad path at 4 shards)."""
+    cfg_path, _ = _setup(tmp_path, n=0)
+    img = np.random.default_rng(6).integers(0, 256, (78, 40, 3), dtype=np.uint8)
+    src = str(tmp_path / "in.png")
+    Image.fromarray(img).save(src)
+    line = ["-c", cfg_path, "-i", src, "--seed", "0", "--device", "cpu"]
+    ref = str(tmp_path / "ref.png")
+    assert cli.main([*line, "-o", ref]) == 0
+    b = np.asarray(Image.open(ref)).astype(int)
+    for n in ("2", "4"):
+        out = str(tmp_path / f"out_s{n}.png")
+        assert cli.main([*line, "-o", out, "--spatial-shard", n]) == 0
+        assert np.abs(np.asarray(Image.open(out)).astype(int) - b).max() <= 1, n
+    with pytest.raises(SystemExit, match="devices"):
+        cli.main([*line, "-o", ref, "--spatial-shard", "-2"])
+
+
+def test_train_data_parallel_matches_single(tmp_path, capsys):
+    """``--data-parallel 2``: 10 samples, train 8 and validation 2 split over
+    two replicas; the parameters of the single-device run within rtol
+    1e-5, atol 1e-7 (tests/test_cli.py's)."""
+    cfg_path, d = _setup(tmp_path, n=10)
+    line = ["train", "-c", cfg_path, "-i", d, "-e", "3", "--seed", "7", "--device", "cpu"]
+    p1, p2 = str(tmp_path / "p1.json"), str(tmp_path / "p2.json")
+    assert cli.main([*line, "-o", p1]) == 0
+    assert cli.main([*line, "-o", p2, "--data-parallel", "2"]) == 0
+    assert "Data-parallel training over 2 devices" in capsys.readouterr().out
+    w1, w2 = json.load(open(p1)), json.load(open(p2))
+    for layer in ("layer1", "layer2", "layer3"):
+        for field in ("weights", "bias"):
+            np.testing.assert_allclose(w2[layer][field], w1[layer][field], rtol=1e-5,
+                                       atol=1e-7)
+
+
+def test_train_data_parallel_indivisible_split_errors(tmp_path):
+    cfg_path, d = _setup(tmp_path, n=5)  # train 4 / validation 1: 1 % 2 != 0
+    with pytest.raises(SystemExit, match="must both divide"):
+        cli.main(["train", "-c", cfg_path, "-i", d, "-o", str(tmp_path / "p.json"), "-e", "1",
+                  "--device", "cpu", "--data-parallel", "2"])

@@ -2,7 +2,7 @@
 counterparts of ``tests/test_serve_slo.py`` (admission control, deadlines,
 the stall flag) and of the serve tests of ``tests/test_serve_and_evaluate.py``
 (round trip, model slots, the batching queue for luma and RGB, the body
-limit), plus the refusal of spatial sharding. The SLO tests drive the
+limit, the spatial latency mode). The SLO tests drive the
 admission and deadline paths deterministically by seeding the worker's
 EWMA and dispatch markers (the real signals are timing-based)."""
 
@@ -334,12 +334,49 @@ def test_serve_scale_pre_upscales(cfg_path):
         server.shutdown()
 
 
-def test_spatial_shard_is_refused(cfg_path, capsys):
-    with pytest.raises(NotImplementedError, match="Queue 1 #11"):
-        serve.make_server({"default": _slot(cfg_path)}, "127.0.0.1", 0, spatial_shard=4)
-    with pytest.raises(SystemExit):
-        serve.main(["-c", cfg_path, "--device", "cpu", "--spatial-shard", "2"])
-    assert "not ported yet" in capsys.readouterr().err
+def test_serve_spatial_shard_mode(cfg_path):
+    """``spatial_shard=4``, the latency mode (tests/test_serve_and_evaluate.py
+    ``test_serve_spatial_shard_mode``): each request alone, its rows over
+    four bands (the CPU named four times); the reply within ±1 uint8 of the
+    single-device server's, and nothing batched."""
+    img = np.random.default_rng(5).integers(0, 256, (32, 28, 3), dtype=np.uint8)
+    body = _png_bytes(img)
+    server, worker, port = _start_server(cfg_path)
+    try:
+        ref = _post_upscale(port, body)
+    finally:
+        worker.stop()
+        server.shutdown()
+    server, worker, port = _start_server(cfg_path, spatial_shard=4, batch_wait_ms=500.0,
+                                         max_batch=4)
+    try:
+        outs = _post_all(port, [img] * 3)
+        stats = worker.snapshot()
+    finally:
+        worker.stop()
+        server.shutdown()
+    for out in outs:
+        assert out.shape == ref.shape
+        assert np.abs(out.astype(int) - ref.astype(int)).max() <= 1
+    assert stats["ok"] == 3 and stats["batched_jobs"] == 0
+
+
+def test_main_builds_a_spatial_server(cfg_path, monkeypatch, capsys):
+    """``serve.main([... "--spatial-shard", "2"])`` builds the server and its
+    worker in the latency mode (``serve_forever`` returns at once here)."""
+    built = []
+    monkeypatch.setattr(serve.ThreadingHTTPServer, "serve_forever", lambda self: None)
+    real = serve.make_server
+
+    def spy(*args, **kw):
+        built.append(real(*args, **kw))
+        return built[-1]
+
+    monkeypatch.setattr(serve, "make_server", spy)
+    assert serve.main(["-c", cfg_path, "--device", "cpu", "--port", "0",
+                       "--spatial-shard", "2"]) == 0
+    assert built[0][1].spatial_shard == 2
+    assert "listening on" in capsys.readouterr().out
 
 
 def test_main_refuses_cuda_without_a_card(cfg_path, monkeypatch, capsys):

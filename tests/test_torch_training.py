@@ -200,6 +200,28 @@ def test_relu_backprop_gate_and_model_helpers():
     assert got == pytest.approx(want, rel=1e-6)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_hidden_relu_gradient_at_zero_matches_jax(dtype):
+    """The hidden layers' ReLU passes half the gradient where its input is
+    exactly 0, as ``jnp.maximum(y, 0.0)`` does; and a layer stack with zero
+    biases and a dead pixel (every input channel 0, so the next layer's
+    pre-activation is exactly its zero bias) differentiates as JAX's."""
+    y = torch.tensor([-1.0, 0.0, 2.0, 0.0], dtype=dtype, requires_grad=True)
+    g = torch.tensor([3.0, 4.0, 5.0, 6.0], dtype=dtype)
+    (srcnn.Relu.apply(y) * g).sum().backward()
+    want = jax.grad(lambda v: jnp.sum(jnp.maximum(v, 0.0) * jnp.asarray(g.float().numpy())))(
+        jnp.asarray(y.detach().float().numpy()))
+    np.testing.assert_array_equal(y.grad.float().numpy(), np.asarray(want))
+    assert y.grad.tolist() == [0.0, 2.0, 5.0, 3.0]
+
+    params = _params([(3, 1, 4), (1, 4, 3), (3, 3, 1)], seed=4)
+    for layer in params:
+        layer["b"][:] = 0.0
+    x, t = _data(2, 1, seed=5, hw=12)
+    x[:, 4:7, 4:7] = 0.0  # a dead patch: conv1 gives exactly 0 at its centre
+    _assert_rel(_torch_grads(params, x, t), _jax_grads(params, x, t))
+
+
 @pytest.mark.parametrize("precision", [None, "bf16"])
 def test_chunked_gradients_equal_unchunked_and_jax(precision):
     params = _params(STACKS["luma"], seed=4)
