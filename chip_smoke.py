@@ -95,7 +95,21 @@ of the six probes (``cnn_sr_tpu_torch.probes``). Phases, one line each:
    training step at ``n_data`` 2 and one over two processes on ``gloo``
    (this script again, ``--multihost-worker``) against one device's, and
    ``upscale_rgba`` in each resize method on the card against the CPU;
-11. probe main path: ``strided_store.main``, ``winograd.main(["--check"])``
+11. profile (``profile_phase``): ``cnn_torch.py ... profile --trace-dir``
+   on a 1080p PNG through the flagship checkpoint in bf16 (``--pallas``)
+   and f32 and the RGB checkpoint in both: exactly its one fused or seven
+   chain launches, by the counters and in the trace's op table, which
+   names the kernel; the PNG byte-equal to an unprofiled run's; the
+   kernel's share of device time, the copies, the device's idle share;
+   then ``train dry profile`` for 2 epochs on ``[train]``'s samples and
+   its op table's top rows;
+12. tools (``tools_phase``): ``generate_training_samples --synthetic 8
+   --backend torch`` on the card against the CPU (within 1 uint8 before
+   encoding), ``evaluate`` with the flagship checkpoint on those pairs,
+   card against CPU within 0.01 dB, ``weights_visualize``, and
+   ``serve_latency``'s two workloads at ``--n-seq 5 --clients 2
+   --n-per-client 3``, every request answered 200;
+13. probe main path: ``strided_store.main``, ``winograd.main(["--check"])``
    (every Winograd mode and ``repack`` within 1e-2 of a float64 direct
    conv), ``wino5.main(["--check"])`` (every mode within 2e-2 of a float64
    direct 5x5 conv), ``rowpair.main([])`` (the probe's four cases within
@@ -149,6 +163,7 @@ import faulthandler
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -1271,7 +1286,7 @@ def io_phase(smi) -> None:
               f"{err:.3f} (bound 6)")
 
 
-def train_phase(smi, dev):
+def train_phase(smi, dev, work):
     """[train]: the training path at full width, ``configs/srcnn_9-5-5.json``
     (n1 = 64, n2 = 32, f 9/5/5) from random parameters at seed 0.
 
@@ -1293,8 +1308,9 @@ def train_phase(smi, dev):
     1080p frame through ``api.upscale_image``: one ``fused_srcnn`` launch,
     within ±1 uint8 of the plain version's pipeline. Last, the CLI:
     ``cnn_torch.py train -c configs/srcnn_9-5-5.json -i <dir> -e 4 -o
-    p.json`` in a subprocess, rc 0, the file loadable. Returns the loaded
-    sample set (``[parallel]`` trains on it)."""
+    p.json`` in a subprocess, rc 0, the file loadable. The samples are
+    written under ``work``, where ``[profile]`` trains on them again.
+    Returns the loaded sample set (``[parallel]`` trains on it)."""
     from cnn_sr_tpu_torch.ops.image import codec, write_image
     from cnn_sr_tpu_torch.ops.resize import degrade
     from cnn_sr_tpu_torch.training import samples as tsamples
@@ -1308,7 +1324,7 @@ def train_phase(smi, dev):
     frames = [make_image(1080, 1920, SEED + 50 + i)[..., :3] for i in range(2)]
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as d:
-        sample_dir = os.path.join(d, "samples")
+        sample_dir = os.path.join(work, "samples")
         os.makedirs(sample_dir)
         t0 = time.perf_counter()
         for i in range(128):
@@ -1710,6 +1726,257 @@ def parallel_phase(smi, dev, cfg, params, cfg_rgb, params_rgb, data) -> dict:
     return launches
 
 
+def run_cli(argv) -> tuple:
+    """``cli.main(argv)`` (``cnn_torch.py``) in this process: its rc, its
+    standard output, and how many host-blocking operations
+    ``warn_blocking_transfers`` warned at (``profile`` mode only)."""
+    import contextlib
+    import io
+    import warnings
+
+    from cnn_sr_tpu_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf), warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        rc = cli.main(argv)
+    return rc, buf.getvalue(), sum("synchronizing" in str(w.message) for w in seen)
+
+
+def short(name: str, n: int = 70) -> str:
+    """A kernel's demangled name cut to its head (template names run long)."""
+    return name if len(name) <= n else name[:n] + "..."
+
+
+def trace_summary(trace: str) -> tuple:
+    """(rows, device op time in µs, idle share of the whole traced window,
+    idle share between the first and the last device op) of a trace."""
+    from cnn_sr_tpu_torch import profiling
+
+    rows = profiling.op_shares(trace)
+    total = sum(t for _, t, _ in rows)
+    busy = profiling.idle_share(trace)
+    check(bool(rows) and busy is not None, f"[profile] no device ops in the trace {trace}")
+    return rows, total, 1 - busy["busy"] / busy["window"], 1 - busy["busy"] / busy["span"]
+
+
+def profile_phase(smi, work) -> None:
+    """[profile]: ``cnn_torch.py ... profile`` (``cli.main`` in this process)
+    on one 1920x1080 PNG through the flagship checkpoint in bf16
+    (``--pallas``) and f32 and the RGB checkpoint in bf16 and f32, each
+    with ``--trace-dir``: rc 0; exactly one ``fused_srcnn_tc_kernel``, one
+    ``fused_srcnn_kernel``, seven ``conv_layer_tc_kernel`` or seven
+    ``conv_layer_kernel`` launches, by the ``LAUNCHES*`` counters and by the
+    op table of the trace (``profiling.op_shares``), which must name the
+    kernel; the PNG byte-equal to an unprofiled run's. Prints the kernel's
+    share of device time, the copies, the device's idle share over the
+    traced window and between its first and last op, the stage table and
+    the host-blocking warnings. Then ``train dry profile`` for 2 epochs on
+    ``[train]``'s samples (``configs/srcnn_9-5-5.json``, full width) and its
+    op table's top rows. Between them, one warm 1080p request of each of
+    the four alone in its trace (``profiling.StageProfiler`` around
+    ``api.upscale_image``): its device time by op and the device's idle
+    share between the upload and the readback."""
+    from cnn_sr_tpu_torch.ops.image import write_image
+    from cnn_sr_tpu_torch.tools.profile import STAGE_LINE
+
+    t_phase = time.perf_counter()
+    src = os.path.join(work, "frame.png")
+    write_image(src, make_image(1080, 1920, SEED + 70)[..., :3])
+    runs = (("flagship 9-5-5", FLAGSHIP, "bf16", (0, 0, 1, 0), "fused_srcnn_tc_kernel"),
+            ("flagship 9-5-5", FLAGSHIP, "f32", (1, 0, 0, 0), "fused_srcnn_kernel"),
+            ("RGB 7-layer", RGB7, "bf16", (0, 0, 0, 7), "conv_layer_tc_kernel"),
+            ("RGB 7-layer", RGB7, "f32", (0, 7, 0, 0), "conv_layer_kernel"))
+    for i, (name, cfg_path, precision, want, kernel) in enumerate(runs):
+        line = ["-c", cfg_path, "-i", src] + (["--pallas"] if precision == "bf16" else [])
+        plain, profiled = (os.path.join(work, f"{k}{i}.png") for k in ("plain", "profiled"))
+        trace = os.path.join(work, f"trace{i}")
+        rc, text, _ = run_cli(line + ["-o", plain])
+        check(rc == 0, f"[profile] {name} {precision} unprofiled: rc {rc}: {text[-1500:]}")
+        reset_counts()
+        t0 = time.perf_counter()
+        rc, text, blocking = run_cli(["profile", *line, "-o", profiled, "--trace-dir", trace])
+        secs = time.perf_counter() - t0
+        made = counts()
+        check(rc == 0, f"[profile] {name} {precision}: rc {rc}: {text[-1500:]}")
+        check(made == want, f"[profile] {name} {precision}: launches {made}, expected {want}")
+        with open(plain, "rb") as a, open(profiled, "rb") as b:
+            check(a.read() == b.read(),
+                  f"[profile] {name} {precision}: the profiled PNG differs from the unprofiled")
+        rows, total, idle_window, idle_span = trace_summary(trace)
+        mine = [r for r in rows if kernel in r[0]]
+        check(sum(n for _, _, n in mine) == sum(want) and kernel in text,
+              f"[profile] {name} {precision}: {kernel} in the op table {mine}, expected "
+              f"{sum(want)} launches")
+        kernel_us = sum(t for _, t, _ in mine)
+        copies = [r for r in rows if r[0].startswith(("Memcpy", "Memset"))]
+        stages = [STAGE_LINE.match(ln) for ln in text.splitlines()]
+        print(f"[profile] {smi} | cnn_torch.py profile, 1920x1080 PNG, {name} {precision}: rc 0 "
+              f"in {secs:.2f} s, launches (fused, chain, fused bf16, chain bf16) {made}, PNG "
+              f"byte-equal to the unprofiled run's | {kernel} x{sum(want)} "
+              f"{kernel_us / 1e3:.3f} ms = {kernel_us * 100 / total:.1f}% of device op time "
+              f"{total / 1e3:.3f} ms | copies: "
+              + ", ".join(f"{n} x{c} {t / 1e3:.3f} ms" for n, t, c in copies)
+              + f" | device idle {idle_window * 100:.2f}% of the traced window, "
+              f"{idle_span * 100:.2f}% between its first and last op | stages: "
+              + ", ".join(f"{m.group(4)} {float(m.group(1)) * 1e3:.1f} ms" for m in stages if m)
+              + f" | host-blocking warnings {blocking}")
+        print("[profile]   top ops: " + "; ".join(
+            f"{short(n)} x{c} {t / 1e3:.3f} ms ({t * 100 / total:.1f}%)" for n, t, c in rows[:5]))
+
+    # one warm request alone in its trace, through the API: its device
+    # time by op and its idle share between the upload and the readback
+    from cnn_sr_tpu_torch.profiling import StageProfiler
+
+    rgba = make_image(1080, 1920, SEED + 70)
+    for i, (name, cfg_path, precision, want, kernel) in enumerate(runs):
+        cfg = read_config(cfg_path)
+        params = params_to_torch(init_params(cfg)[0], torch.device("cuda"))
+        api.upscale_image(cfg, params, rgba, precision=precision)
+        trace = os.path.join(work, f"trace_request{i}")
+        prof = StageProfiler(profile_dir=trace)
+        prof.start_trace()
+        t0 = time.perf_counter()
+        api.upscale_image(cfg, params, rgba, precision=precision)
+        ms = (time.perf_counter() - t0) * 1e3
+        prof.stop_trace()
+        rows, total, idle_window, idle_span = trace_summary(trace)
+        mine = sum(t for n, t, _ in rows if kernel in n)
+        copies = sum(t for n, t, _ in rows if n.startswith(("Memcpy", "Memset")))
+        print(f"[profile] {smi} | one warm 1920x1080 request alone in its trace, "
+              f"api.upscale_image, {name} {precision}: {ms:.2f} ms on the host clock (traced) "
+              f"| device op time {total / 1e3:.3f} ms: {kernel} {mine / 1e3:.3f} ms "
+              f"({mine * 100 / total:.1f}%), copies {copies / 1e3:.3f} ms "
+              f"({copies * 100 / total:.1f}%), other ops {(total - mine - copies) / 1e3:.3f} ms "
+              f"in {sum(c for _, _, c in rows)} ops | device idle {idle_span * 100:.2f}% "
+              f"between the upload and the readback, {idle_window * 100:.2f}% of the traced "
+              f"window")
+
+    trace = os.path.join(work, "trace_train")
+    cfg_path = os.path.join(ROOT, "configs", "srcnn_9-5-5.json")
+    t0 = time.perf_counter()
+    rc, text, blocking = run_cli(["train", "dry", "profile", "-c", cfg_path, "-i",
+                                  os.path.join(work, "samples"), "-e", "2", "--seed", "0",
+                                  "--trace-dir", trace])
+    secs = time.perf_counter() - t0
+    check(rc == 0 and "---- op profile (device time) ----" in text,
+          f"[profile] train dry profile: rc {rc}: {text[-1500:]}")
+    rows, total, idle_window, idle_span = trace_summary(trace)
+    stages = [STAGE_LINE.match(ln) for ln in text.splitlines()]
+    print(f"[profile] {smi} | cnn_torch.py train dry profile -c configs/srcnn_9-5-5.json, 128 "
+          f"pairs of 128x128, 2 epochs: rc 0 in {secs:.2f} s | device op time "
+          f"{total / 1e3:.3f} ms in {sum(c for _, _, c in rows)} ops, idle "
+          f"{idle_window * 100:.2f}% of the traced window, {idle_span * 100:.2f}% between its "
+          f"first and last op | stages: "
+          + ", ".join(f"{m.group(4)} {float(m.group(1)) * 1e3:.1f} ms" for m in stages if m)
+          + f" | host-blocking warnings {blocking}")
+    print("[profile]   top ops: " + "; ".join(
+        f"{short(n)} x{c} {t / 1e3:.3f} ms ({t * 100 / total:.1f}%)" for n, t, c in rows[:8]))
+    print(f"[profile] phase {time.perf_counter() - t_phase:.1f} s")
+
+
+def record_psnr(run) -> list:
+    """Run ``run()`` (rc 0 required) recording each PSNR(Y) that
+    ``utils.metrics.psnr_y`` returns in it, unrounded."""
+    from cnn_sr_tpu_torch.utils import metrics
+
+    scores, real = [], metrics.psnr_y
+    metrics.psnr_y = lambda a, b: scores.append(real(a, b)) or scores[-1]
+    try:
+        check(run() == 0, "[tools] evaluate: rc != 0")
+    finally:
+        metrics.psnr_y = real
+    return scores
+
+
+def tools_phase(smi, work) -> None:
+    """[tools]: the user tools (``cnn_sr_tpu_torch.tools``) on the card.
+    ``generate_training_samples --synthetic 8 -s 128 --backend torch`` on
+    the card and on the CPU: the larges byte-equal, each crop's lanczos3
+    degradation (``_degrade_torch``, before encoding) within 1 uint8
+    between the two. ``evaluate`` with the flagship checkpoint on the
+    card's 8 pairs, on the card and on the CPU (f32): every PSNR(Y) within
+    0.01 dB; and on the card with ``--pallas``. ``weights_visualize`` on
+    the flagship checkpoint: three sheets. ``serve_latency`` with its two
+    workloads (1080p luma, 540p RGB) at ``--n-seq 5 --clients 2
+    --n-per-client 3``, bf16: every request answered 200; its rows."""
+    import contextlib
+    import io
+
+    from PIL import Image
+
+    from cnn_sr_tpu_torch.tools import (evaluate, generate_training_samples, serve_latency,
+                                        weights_visualize)
+
+    t_phase = time.perf_counter()
+    dirs = {dev: os.path.join(work, f"pairs_{dev}") for dev in ("cuda", "cpu")}
+    for dev, d in dirs.items():
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = generate_training_samples.main(["--synthetic", "8", "-o", d, "-s", "128",
+                                                 "--backend", "torch", "--device", dev,
+                                                 "--seed", "0"])
+        check(rc == 0 and len(os.listdir(d)) == 16, f"[tools] generate on {dev}: rc {rc}")
+        print(f"[tools] generate_training_samples --synthetic 8 -s 128 --backend torch "
+              f"--device {dev}: 8 pairs in {time.perf_counter() - t0:.2f} s")
+    worst, differ = 0, 0
+    for i in range(8):
+        with open(os.path.join(dirs["cuda"], f"sample_{i}_large.png"), "rb") as a, \
+                open(os.path.join(dirs["cpu"], f"sample_{i}_large.png"), "rb") as b:
+            check(a.read() == b.read(), f"[tools] sample {i}: the larges differ")
+        with Image.open(os.path.join(dirs["cuda"], f"sample_{i}_large.png")) as im:
+            large = im.convert("RGB")
+        got = np.asarray(generate_training_samples._degrade_torch(large, 128, 2, "cuda"))
+        want = np.asarray(generate_training_samples._degrade_torch(large, 128, 2, "cpu"))
+        worst = max(worst, int(np.abs(got.astype(np.int16) - want.astype(np.int16)).max()))
+        differ += int((got != want).sum())
+    check(worst <= 1, f"[tools] torch-backend degradation card vs CPU: max diff {worst} uint8")
+    print(f"[tools] the 8 crops' lanczos3 degradation before encoding, card vs CPU: max diff "
+          f"{worst} uint8, {differ} of {8 * 128 * 128 * 3} bytes differ; larges byte-equal")
+
+    line = ["-c", FLAGSHIP, "-i", dirs["cuda"]]
+    scores = {}
+    for key, extra in (("cuda", ["--device", "cuda"]), ("cpu", ["--device", "cpu"]),
+                       ("cuda bf16", ["--device", "cuda", "--pallas"])):
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            scores[key] = record_psnr(lambda: evaluate.main(line + extra))
+        scores[key + " s"] = time.perf_counter() - t0
+        check(len(scores[key]) == 16, f"[tools] evaluate {key}: {len(scores[key])} scores")
+    gap = float(np.abs(np.array(scores["cuda"]) - np.array(scores["cpu"])).max())
+    check(gap <= 0.01, f"[tools] evaluate: card vs CPU PSNR(Y) max gap {gap} dB > 0.01")
+    mean = {k: (float(np.mean(scores[k][0::2])), float(np.mean(scores[k][1::2])))
+            for k in ("cuda", "cpu", "cuda bf16")}
+    print(f"[tools] {smi} | evaluate -c configs/srcnn_9-5-5_pretrained.json on the 8 pairs: "
+          f"mean PSNR(Y) bicubic {mean['cuda'][0]:.4f} dB, network f32 card "
+          f"{mean['cuda'][1]:.4f} ({scores['cuda s']:.2f} s), CPU {mean['cpu'][1]:.4f} "
+          f"({scores['cpu s']:.2f} s), card bf16 {mean['cuda bf16'][1]:.4f} "
+          f"({scores['cuda bf16 s']:.2f} s) | card vs CPU max gap {gap:.2e} dB (gate 0.01)")
+
+    out = os.path.join(work, "weights")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = weights_visualize.main(["-c", FLAGSHIP, "-o", out])
+    check(rc == 0 and sorted(os.listdir(out)) == [f"weights{i}.png" for i in (1, 2, 3)],
+          f"[tools] weights_visualize: rc {rc}")
+    print("[tools] weights_visualize -c configs/srcnn_9-5-5_pretrained.json: " + "; ".join(
+        ln.strip() for ln in buf.getvalue().splitlines()))
+
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = serve_latency.main(["--n-seq", "5", "--clients", "2", "--n-per-client", "3"])
+    rows = [json.loads(ln) for ln in buf.getvalue().splitlines() if ln.startswith("{")]
+    check(rc == 0 and len(rows) == 4, f"[tools] serve_latency: rc {rc}, {len(rows)} rows")
+    for r in rows:
+        seq = r["metric"].endswith("sequential")
+        check(r["n"] == (5 if seq else 6) and r.get("failed", 0) == 0,
+              f"[tools] serve_latency: a request did not answer 200: {r}")
+        print(f"[tools] {smi} | serve_latency (bf16): {json.dumps(r)}")
+    print(f"[tools] serve_latency in {time.perf_counter() - t0:.1f} s")
+    print(f"[tools] phase {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on an NVIDIA card",
@@ -1861,8 +2128,15 @@ def main() -> int:
     for precision in ("f32", "bf16"):
         time_stack("fused_srcnn, 9-1-5", params915, x_luma, smi, precision)
     io_phase(smi)
-    train_data = train_phase(smi, dev)
-    parallel_counts = parallel_phase(smi, dev, cfg, params, cfg_rgb, params_rgb, train_data)
+    work = tempfile.mkdtemp(dir=build.BUILD_DIR)
+    try:
+        train_data = train_phase(smi, dev, work)
+        parallel_counts = parallel_phase(smi, dev, cfg, params, cfg_rgb, params_rgb,
+                                         train_data)
+        profile_phase(smi, work)
+        tools_phase(smi, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     probe_rows = probe_phase(smi)
     fused_errs.append(t_fused["err"])
     chain_errs.append(t_chain["err"])

@@ -27,7 +27,8 @@ Counterpart of ``tools/serve.py``, run as ``python -m cnn_sr_tpu_torch.serve``:
   has run far past its EWMA), ``GET /healthz``.
 
     python -m cnn_sr_tpu_torch.serve -c cfg.json [--model rgb=rgb.json ...]
-        [--port 8200] [--precision f32|bf16] [--device cuda|cpu]
+        [--port 8200] [--precision f32|bf16] [--pallas [--pallas-precision P]]
+        [--device cuda|cpu]
         [--scale 2] [--max-batch 8] [--batch-wait-ms 3] [--bucket 64]
         [--spatial-shard N]
 
@@ -35,9 +36,13 @@ Counterpart of ``tools/serve.py``, run as ``python -m cnn_sr_tpu_torch.serve``:
     curl -s --data-binary @a.png 'localhost:8200/upscale?model=rgb' > b.png
     curl -s localhost:8200/stats
 
-``--precision bf16`` runs the bf16 stream of the conv kernels (the JAX
-server's ``--pallas``); ``--device cuda`` (the default) needs a card and
-``cpu`` runs the kernels' plain version. Pillow is imported only by the
+``--precision bf16`` runs the bf16 stream of the conv kernels, f32 (the
+default) the f32 ones. The JAX server's ``--pallas`` and
+``--pallas-precision`` map onto it as on the CLI (``cli.resolve_precision``):
+``--pallas`` alone is bf16, ``--pallas --pallas-precision f32`` is f32,
+no ``--pallas`` is f32 (the JAX server's XLA forward); a ``--precision``
+that contradicts ``--pallas`` is an error. ``--device cuda`` (the
+default) needs a card and ``cpu`` runs the kernels' plain version. Pillow is imported only by the
 HTTP handler, so the worker runs where Pillow is missing.
 """
 
@@ -460,6 +465,8 @@ def make_server(slots: dict, host: str = "127.0.0.1", port: int = 0,
 
 
 def build_parser() -> argparse.ArgumentParser:
+    from .cli import add_precision_flags
+
     p = argparse.ArgumentParser(prog="python -m cnn_sr_tpu_torch.serve",
                                 description="HTTP upscaling service (PyTorch/CUDA).")
     p.add_argument("--config", "-c",
@@ -469,9 +476,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="add a named model slot (repeatable)")
     p.add_argument("--port", type=int, default=8200)
     p.add_argument("--host", default="127.0.0.1")
-    p.add_argument("--precision", choices=("f32", "bf16"), default="f32",
-                   help="conv-stack precision: f32, or the bf16 stream with the "
-                        "int8 first layer (the JAX server's --pallas)")
+    add_precision_flags(p)
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="cuda runs the CUDA kernels; cpu their plain version")
     p.add_argument("--scale", type=float, default=1.0,
@@ -507,8 +512,11 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> int:
+    from .cli import resolve_precision
+
     p = build_parser()
     args = p.parse_args(argv)
+    resolve_precision(p, args)
     import torch
 
     if args.device == "cuda" and not torch.cuda.is_available():

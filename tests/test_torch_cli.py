@@ -94,7 +94,6 @@ def test_train_refusals(tmp_path, monkeypatch, capsys):
     assert cli.main(["train", "-c", cfg_path, "-i", str(tmp_path / "none"), "-e", "1",
                      "--device", "cpu", "-o", "p.json"]) == 1
     assert "File not found" in capsys.readouterr().out
-    assert cli.main(["profile", "-c", cfg_path, "-i", d, "--device", "cpu", "-o", "p"]) == 1
     monkeypatch.setattr("torch.cuda.is_available", lambda: False)
     assert cli.main(["train", "-c", cfg_path, "-i", d, "-e", "1", "-o", "p.json"]) == 1
     assert "no CUDA device" in capsys.readouterr().out
@@ -161,3 +160,130 @@ def test_train_data_parallel_indivisible_split_errors(tmp_path):
     with pytest.raises(SystemExit, match="must both divide"):
         cli.main(["train", "-c", cfg_path, "-i", d, "-o", str(tmp_path / "p.json"), "-e", "1",
                   "--device", "cpu", "--data-parallel", "2"])
+
+
+def _image(tmp_path, seed=5, shape=(30, 36, 3)):
+    src = str(tmp_path / "in.png")
+    Image.fromarray(np.random.default_rng(seed).integers(0, 256, shape, dtype=np.uint8)).save(src)
+    return src
+
+
+def _read(path):
+    with open(path, "rb") as fh:
+        return fh.read()
+
+
+def test_train_dry_profile(tmp_path, capsys):
+    """``train dry profile`` on the CPU (tests/test_cli.py
+    ``test_train_dry_profile``): the banner, the stage table, the op table
+    with the convolutions in it, and no parameters file."""
+    cfg_path, d = _setup(tmp_path, n=5, size=20)
+    before = set(os.listdir(tmp_path))
+    assert cli.main(["train", "dry", "profile", "-c", cfg_path, "-i", d, "-e", "2",
+                     "--device", "cpu", "-o", str(tmp_path / "params_out.json")]) == 0
+    out = capsys.readouterr().out
+    for text in ("!!! RUNNING IN PROFILING MODE !!!", "---- stage profile ----",
+                 "- load_samples", "- train_loop", "---- op profile (device time) ----",
+                 "convolution", "Total device op time", "[cpu] memory stats unavailable"):
+        assert text in out, text
+    assert set(os.listdir(tmp_path)) == before
+
+
+@pytest.mark.parametrize("extra,stages", [
+    ([], ["load_image", "upscale (luma+forward+swap)", "write_image"]),
+    (["--scale", "1.5"], ["load_image", "upscale_input (bicubic)",
+                          "upscale (luma+forward+swap)", "write_image"]),
+    (["--precision", "bf16", "--bucket", "16"], ["load_image", "upscale (luma+forward+swap)",
+                                                 "write_image"]),
+])
+def test_forward_profile_writes_the_unprofiled_bytes(tmp_path, capsys, extra, stages):
+    """A ``profile`` forward run times JAX's stages, prints both tables,
+    and writes a PNG byte-equal to an unprofiled run's."""
+    cfg_path, _ = _setup(tmp_path, n=0)
+    line = ["-c", cfg_path, "-i", _image(tmp_path), "--seed", "3", "--device", "cpu", *extra]
+    plain, profiled = str(tmp_path / "plain.png"), str(tmp_path / "profiled.png")
+    assert cli.main([*line, "-o", plain]) == 0
+    capsys.readouterr()
+    assert cli.main(["profile", *line, "-o", profiled]) == 0
+    out = capsys.readouterr().out
+    assert _read(profiled) == _read(plain)
+    table = out[out.index("---- stage profile ----"):out.index("Total measured time")]
+    assert sorted(ln.split(" - ", 1)[1] for ln in table.splitlines()[1:]) == sorted(stages)
+    assert "---- op profile (device time) ----" in out and "convolution" in out
+
+
+@pytest.mark.parametrize("mode", ["forward", "train"])
+def test_trace_dir_alone_writes_a_trace_and_no_table(tmp_path, capsys, mode):
+    from cnn_sr_tpu_torch import profiling
+
+    cfg_path, d = _setup(tmp_path, n=4, size=20)
+    trace = str(tmp_path / "trace")
+    if mode == "forward":
+        line = ["-c", cfg_path, "-i", _image(tmp_path), "--seed", "3", "--device", "cpu"]
+        assert cli.main([*line, "-o", str(tmp_path / "plain.png")]) == 0
+        assert cli.main([*line, "-o", str(tmp_path / "traced.png"), "--trace-dir", trace]) == 0
+        assert _read(str(tmp_path / "traced.png")) == _read(str(tmp_path / "plain.png"))
+    else:
+        line = ["train", "-c", cfg_path, "-i", d, "-e", "2", "--seed", "4", "--device", "cpu"]
+        assert cli.main([*line, "-o", str(tmp_path / "plain.json")]) == 0
+        assert cli.main([*line, "--trace-dir", trace, "-o", str(tmp_path / "traced.json")]) == 0
+        assert _read(str(tmp_path / "traced.json")) == _read(str(tmp_path / "plain.json"))
+    out = capsys.readouterr().out
+    assert "stage profile" not in out and "op profile" not in out and "PROFILING" not in out
+    assert [f.endswith(profiling.TRACE_SUFFIX) for f in os.listdir(trace)] == [True]
+    assert any("convolution" in name for name, _, _ in profiling.op_shares(trace))
+
+
+@pytest.mark.parametrize("pallas,precision", [
+    (["--pallas"], "bf16"),
+    (["--pallas", "--pallas-precision", "bf16"], "bf16"),
+    (["--pallas", "--pallas-precision", "f32"], "f32"),
+    (["--pallas-precision", "bf16"], "f32"),
+    (["--pallas", "--precision", "bf16"], "bf16"),
+])
+def test_pallas_flags_map_onto_precision(tmp_path, pallas, precision):
+    """``--pallas`` is bit-equal to ``--precision bf16``, ``--pallas
+    --pallas-precision f32`` to ``--precision f32``; without ``--pallas``
+    the JAX CLI's XLA forward is f32."""
+    cfg_path, _ = _setup(tmp_path, n=0)
+    line = ["-c", cfg_path, "-i", _image(tmp_path), "--seed", "3", "--device", "cpu"]
+    assert cli.main([*line, *pallas, "-o", str(tmp_path / "a.png")]) == 0
+    assert cli.main([*line, "--precision", precision, "-o", str(tmp_path / "b.png")]) == 0
+    assert _read(str(tmp_path / "a.png")) == _read(str(tmp_path / "b.png"))
+
+
+@pytest.mark.parametrize("pallas", [["--pallas"], ["--pallas", "--pallas-precision", "f32"]])
+def test_jax_command_line_with_pallas_runs_through_both_clis(tmp_path, pallas):
+    """The same command line through ``cnn.py``'s main (Pallas in interpret
+    mode on the CPU, as the JAX tests run it) and ``cnn_torch.py``'s: the
+    outputs within ±1 uint8."""
+    cfg_path, _ = _setup(tmp_path, n=0)
+    line = ["-c", cfg_path, "-i", _image(tmp_path), "--seed", "3", *pallas]
+    assert jmain([*line, "-o", str(tmp_path / "j.png")]) == 0
+    assert cli.main([*line, "-o", str(tmp_path / "t.png"), "--device", "cpu"]) == 0
+    got = np.asarray(Image.open(str(tmp_path / "t.png"))).astype(np.int16)
+    want = np.asarray(Image.open(str(tmp_path / "j.png"))).astype(np.int16)
+    assert got.shape == want.shape and np.abs(got - want).max() <= 1
+
+
+@pytest.mark.parametrize("flags", [
+    ["--pallas", "--precision", "f32"],
+    ["--pallas", "--pallas-precision", "f32", "--precision", "bf16"],
+])
+def test_contradictory_precision_flags_are_refused(tmp_path, capsys, flags):
+    cfg_path, _ = _setup(tmp_path, n=0)
+    with pytest.raises(SystemExit) as exc:
+        cli.main(["-c", cfg_path, "-i", _image(tmp_path), "-o", str(tmp_path / "o.png"),
+                  "--device", "cpu", *flags])
+    assert exc.value.code == 2
+    assert "contradicts --pallas" in capsys.readouterr().err
+    assert not os.path.exists(str(tmp_path / "o.png"))
+
+
+def test_profile_without_a_card_fails_cleanly(tmp_path, monkeypatch, capsys):
+    cfg_path, _ = _setup(tmp_path, n=0)
+    monkeypatch.setattr("torch.cuda.is_available", lambda: False)
+    assert cli.main(["profile", "-c", cfg_path, "-i", _image(tmp_path),
+                     "-o", str(tmp_path / "o.png")]) == 1
+    out = capsys.readouterr().out
+    assert "no CUDA device" in out and "[cuda] memory stats unavailable" in out

@@ -386,3 +386,33 @@ def test_main_refuses_cuda_without_a_card(cfg_path, monkeypatch, capsys):
     with pytest.raises(SystemExit):
         serve.main(["-c", cfg_path])
     assert "no CUDA device" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("flags,precision", [
+    (["--pallas"], "bf16"),
+    (["--pallas", "--pallas-precision", "f32"], "f32"),
+    (["--pallas-precision", "bf16"], "f32"),
+    ([], "f32"),
+])
+def test_main_maps_the_jax_servers_pallas_flags(cfg_path, monkeypatch, capsys, flags, precision):
+    """``serve.main([... "--pallas"])`` (a JAX server command line) builds a
+    bf16 server; ``--pallas --pallas-precision f32`` and no ``--pallas`` an
+    f32 one."""
+    built = []
+    monkeypatch.setattr(serve.ThreadingHTTPServer, "serve_forever", lambda self: None)
+    real = serve.make_server
+
+    def spy(*args, **kw):
+        built.append(real(*args, **kw))
+        return built[-1]
+
+    monkeypatch.setattr(serve, "make_server", spy)
+    assert serve.main(["-c", cfg_path, "--device", "cpu", "--port", "0", *flags]) == 0
+    assert built[0][1].precision == precision
+    assert f"cpu, {precision})" in capsys.readouterr().out
+
+
+def test_main_refuses_contradictory_precision_flags(cfg_path, capsys):
+    with pytest.raises(SystemExit):
+        serve.main(["-c", cfg_path, "--device", "cpu", "--pallas", "--precision", "f32"])
+    assert "contradicts --pallas" in capsys.readouterr().err
