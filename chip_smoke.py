@@ -7,7 +7,8 @@ Builds the CUDA kernels from ``cnn_sr_tpu_torch/csrc`` (``fused_srcnn.cu``,
 the 3-layer luma stack in one launch, and ``conv_layer.cu``, the layer
 chain, one launch per layer, each in f32 on the CUDA cores
 (``ffma_stage.cuh``) and in the bf16 stream on the tensor cores
-(``tc_stage.cuh``, ``mma.sync``); and the
+(``tc_stage.cuh``, ``mma.sync``; the chain's middle layers at n > 64 on
+``conv_wgmma.cu``, ``wgmma`` fed by tensor copies); and the
 probes' ``winograd.cu``, ``parity_copy.cu``, ``wino5.cu``, ``rowpair.cu``
 and ``xpack.cu``, of which ``winograd.cu`` and ``wino5.cu`` run on the
 tensor cores by ``mma.sync`` and ``rowpair.cu`` and ``xpack.cu`` by
@@ -29,8 +30,9 @@ of the six probes (``cnn_sr_tpu_torch.probes``). Phases, one line each:
    kernels, of ``winograd_f2x3_forward``'s and of ``wino5_forward``'s, in
    each of its four modes (``cuobjdump -sass``), > 0; ``rowpair_kernel``'s
    four instances and ``tap_gemm_kernel``'s six (registers and spills:
-   none, beside their plans' dynamic shared bytes) and the HGMMA
-   (``wgmma``) in the SASS of each, > 0;
+   none, beside their plans' dynamic shared bytes), ``conv_layer_wgmma_kernel``
+   (the same, at the RGB L5 and L6 plans) and the HGMMA (``wgmma``) in the
+   SASS of each, > 0;
 3. kernel vs plain, f32: the fused kernel at the flagship (pretrained)
    and 9-1-5 (random, seed 0) stacks; the chain at the RGB (pretrained)
    stack, a ragged batch of two, the wide 9-5-5 and a 4-layer stack with
@@ -40,7 +42,9 @@ of the six probes (``cnn_sr_tpu_torch.probes``). Phases, one line each:
    fused kernel, 1,152 a layer over seven layers in the chain) are taken
    in another order; and bf16: the fused kernel at the flagship, a
    ragged batch of two and the 9-1-5; the chain at the RGB stack, a
-   ragged batch and the same 4-layer stack. Max |kernel − plain| ≤ 2^-7
+   ragged batch (both with L5 and L6 on the wgmma stage), the same 4-layer
+   stack and a 4-layer stack with two wgmma layers (64 -> 256, and f=9 over
+   256 channels to 128). Max |kernel − plain| ≤ 2^-7
    of the output's largest magnitude: the products are exact in both, but a sum taken in
    another order can round an activation to the neighbouring bf16 value;
 4. flagship main path: three requests, each exactly one fused f32 launch
@@ -58,6 +62,7 @@ of the six probes (``cnn_sr_tpu_torch.probes``). Phases, one line each:
    result: shape, border, within ±1 (luma) or ±2 (RGB) of the plain bf16
    pipeline with 99.9% of its bytes within ±1, within JAX's bf16 gates
    (4 luma, 6 RGB) of the f32 kernel pipeline; exact launch counts;
+   (the RGB batch's L5 and L6 on the wgmma stage, counted apart);
    ``ok`` 12, ``batched_jobs`` 6, ``errors`` 0; latencies, frames per
    second batched against single, peak device memory; then three single
    1080p requests of each checkpoint through ``api.upscale_image`` in
@@ -68,7 +73,8 @@ of the six probes (``cnn_sr_tpu_torch.probes``). Phases, one line each:
    with TF32 off, or bf16 on channels-last tensors: cuDNN on the tensor
    cores) at the main paths' 1080p shapes, and the chain's time per layer
    beside the library's, in both precisions (each layer with its own
-   plan: ``entry.layer_plan`` in f32, ``entry.tc_layer_plan`` in bf16);
+   plan: ``entry.layer_plan`` in f32, ``entry.bf16_layer_plan`` in bf16;
+   the wgmma layers L5 and L6 also against and beside ``reference.tap_layer``);
    then the flagship in f32 and in bf16 through the fused kernel beside
    the same stack through the chain's three launches (whether fusion
    pays), and the 9-1-5 stack in both precisions;
@@ -98,8 +104,9 @@ of the six probes (``cnn_sr_tpu_torch.probes``). Phases, one line each:
 11. profile (``profile_phase``): ``cnn_torch.py ... profile --trace-dir``
    on a 1080p PNG through the flagship checkpoint in bf16 (``--pallas``)
    and f32 and the RGB checkpoint in both: exactly its one fused or seven
-   chain launches, by the counters and in the trace's op table, which
-   names the kernel; the PNG byte-equal to an unprofiled run's; the
+   chain launches (in bf16 five ``conv_layer_tc_kernel`` and two
+   ``conv_layer_wgmma_kernel``), by the counters and in the trace's op
+   table, which names the kernels; the PNG byte-equal to an unprofiled run's; the
    kernel's share of device time, the copies, the device's idle share;
    then ``train dry profile`` for 2 epochs on ``[train]``'s samples and
    its op table's top rows;
@@ -124,7 +131,8 @@ of the six probes (``cnn_sr_tpu_torch.probes``). Phases, one line each:
    output's magnitude with ≥ 99.9% of the elements bit-equal; and times
    at the RGB model's 1080p L5/L6 shapes (64→128, 128→128, and 128→64 at
    L6's shape) of each of ``winograd.layer_variants``: each Winograd
-   mode, the shipped direct kernel (``sep``), ``repack``, the parity pack
+   mode, the shipped direct kernel (``sep``: the wgmma stage at 64→128 and
+   128→128, the ``mma.sync`` stage at 128→64), ``repack``, the parity pack
    and split, beside their plain versions, cuDNN bf16 (conv + ReLU on
    channels-last tensors) or ``.contiguous()`` of the strided view, and
    each one's own bound (``winograd_bound`` for the Winograd modes, with
@@ -148,8 +156,9 @@ of the six probes (``cnn_sr_tpu_torch.probes``). Phases, one line each:
    and ``xpack_bound``,
    with the share of the bound and packed / sep per pair.
 
-Then one JSON line of the ten kernels (the shipped four also with their
-launches on the ``[parallel]`` path, ``parallel_launches``), the
+Then one JSON line of the eleven kernels (the shipped five also with their
+launches on the ``[parallel]`` path, ``parallel_launches``; the wgmma
+stage's times are RGB L5 + L6 at 1080p from ``[layers]``), the
 ``nvidia-smi`` line, and as the last line ``{"ok": true, "device":
 {...}}``. Any failed check raises,
 so the script exits nonzero and prints no result; so does a machine
@@ -226,19 +235,20 @@ def make_image(h: int, w: int, seed: int) -> np.ndarray:
 
 def reset_counts() -> None:
     entry.LAUNCHES = entry.LAUNCHES_BF16 = 0
-    chain.LAUNCHES = chain.LAUNCHES_BF16 = 0
+    chain.LAUNCHES = chain.LAUNCHES_BF16 = chain.LAUNCHES_WGMMA = 0
 
 
 def counts():
-    """Launches of (fused f32, chain f32, fused bf16, chain bf16)."""
-    return entry.LAUNCHES, chain.LAUNCHES, entry.LAUNCHES_BF16, chain.LAUNCHES_BF16
+    """Launches of (fused f32, chain f32, fused bf16, chain bf16, and of the
+    chain's bf16 launches those of the wgmma stage)."""
+    return (entry.LAUNCHES, chain.LAUNCHES, entry.LAUNCHES_BF16, chain.LAUNCHES_BF16,
+            chain.LAUNCHES_WGMMA)
 
 
 def kernel_vs_plain(name, params, shape, seed, launches, precision="f32") -> float:
     """Run ``params`` on a seeded input through ``entry.fused_forward`` and
-    its plain version in ``precision``; ``launches`` is the (fused f32,
-    chain f32, fused bf16, chain bf16) launches the call must make, which
-    proves the route."""
+    its plain version in ``precision``; ``launches`` is the launches the
+    call must make (see ``counts``), which proves the route."""
     x = torch.from_numpy(
         np.random.default_rng(seed).uniform(-0.5, 0.5, shape).astype(np.float32)).cuda()
     before = counts()
@@ -300,7 +310,7 @@ def main_path(name, cfg, params, plain_fn, launches, smi, precision="f32", tol=1
     mpix = h * w / 1e6
     print(f"[main] {smi} | 3 requests 1920x1080 {name} {precision}: "
           + ", ".join(f"{ms:.2f} ms ({mpix / ms * 1e3:.1f} MPix/s)" for ms in req_ms)
-          + f" | launches (fused, chain, fused bf16, chain bf16) {total}"
+          + f" | launches (fused, chain, fused bf16, chain bf16, wgmma) {total}"
           + f" | max diff vs plain pipeline {diff} uint8"
           + " | peak device memory per request "
           + ", ".join(f"{b / 2**20:.1f}" for b in peak) + " MiB")
@@ -411,38 +421,65 @@ def time_stack(name, params, x, smi, precision="f32") -> dict:
             "library_ms": (l1 + l2) / 2, "bound_ms": bound, "bound_by": bound_by}
 
 
-def layer_times(params, x, smi, precision="f32") -> None:
+def layer_times(params, x, smi, precision="f32") -> dict:
     """The chain's time per layer in ``precision`` on the stack's own
     activations (``chain.layer_forward`` with the layer's plan:
-    ``entry.layer_plan`` in f32, ``entry.tc_layer_plan`` in bf16, where the
-    first layer quantises the f32 input, the last writes f32 and the others
-    read and write bf16), beside the library's convolution of that layer on
-    the same activations (CUDA events)."""
+    ``entry.layer_plan`` in f32, ``entry.bf16_layer_plan`` in bf16, where
+    the first layer quantises the f32 input, the last writes f32, the others
+    read and write bf16, and a middle layer at n > 64 takes the wgmma stage),
+    beside the library's convolution of that layer on the same activations
+    (CUDA events). In bf16, each wgmma layer is also checked against and
+    timed beside its plain version (``reference.tap_layer``) in turns: plain,
+    kernel, kernel, plain. Returns the wgmma layers' summed ``ms``,
+    ``plain_ms``, ``library_ms`` and ``bound_ms`` and their largest error
+    (``err``), or {} where none ran."""
     bf16 = precision == "bf16"
     lib = build.load_library()
     stream = torch.cuda.current_stream().cuda_stream
     last = len(params) - 1
     dims = [tuple(l["w"].shape[1:]) for l in params]
-    plans = [entry.tc_layer_plan(*d, i == 0, i == last) if bf16 else entry.layer_plan(*d)
+    plans = [entry.bf16_layer_plan(*d, i == 0, i == last) if bf16 else entry.layer_plan(*d)
              for i, d in enumerate(dims)]
     operands = (entry.bf16_weights(params) if bf16
                 else entry.f32_weights(params, [p.nb for p in plans]))
-    parts, src = [], x
+    parts, src, wg = [], x, []
     for i, (layer, (wt, bt), plan) in enumerate(zip(params, operands, plans)):
         f, _, k, n = layer["w"].shape
         nb, h, w, _ = src.shape
         dst = torch.empty((nb, h - f + 1, w - f + 1, n), device=src.device,
                           dtype=torch.bfloat16 if bf16 and i != last else torch.float32)
-        k_ms = time_ms(lambda: chain.layer_forward(lib, src, wt, bt, dst, plan, i == 0,
-                                                   i == last, bf16, stream))
+        kern = lambda: chain.layer_forward(lib, src, wt, bt, dst, plan, i == 0,  # noqa: E731
+                                           i == last, bf16, stream)
         lib_layer = library_weights([layer], precision)
         src_lib = src.to(torch.bfloat16) if bf16 else src
-        l_ms = time_ms(lambda: library_convs(lib_layer, src_lib))
         bound, bound_by = bound_ms([layer], tuple(src.shape), precision, i == 0, i == last)
-        parts.append(f"L{i + 1} {k}->{n} {k_ms:.3f}/{l_ms:.3f}/{bound:.4f} ({bound_by})")
+        stage = ""
+        if isinstance(plan, entry.WgmmaPlan):
+            plain = lambda: reference.tap_layer(src, wt, bt, f, n, False, False)  # noqa: E731
+            kern()
+            err = agree_bf16(f"wgmma L{i + 1} {k}->{n} {tuple(src.shape)}", dst,
+                             plain().to(torch.bfloat16))
+            p1, k1, k2, p2 = time_ms(plain), time_ms(kern), time_ms(kern), time_ms(plain)
+            k_ms = (k1 + k2) / 2
+            l_ms = time_ms(lambda: library_convs(lib_layer, src_lib))
+            wg.append({"ms": k_ms, "plain_ms": (p1 + p2) / 2, "library_ms": l_ms,
+                       "bound_ms": bound, "bound_by": bound_by, "err": err})
+            stage = (f" [wgmma {k1:.3f}/{k2:.3f}, plain (tap_layer) {p1:.3f}/{p2:.3f}, "
+                     f"{bound / k_ms * 100:.0f}% of the bound]")
+        else:
+            k_ms = time_ms(kern)
+            l_ms = time_ms(lambda: library_convs(lib_layer, src_lib))
+        parts.append(f"L{i + 1} {k}->{n} {k_ms:.3f}/{l_ms:.3f}/{bound:.4f} ({bound_by}){stage}")
         src = dst
     print(f"[layers] {smi} | {precision} chain/library ({precision})/bound ms per layer: "
           + ", ".join(parts))
+    if not wg:
+        return {}
+    bound = sum(r["bound_ms"] for r in wg)
+    return {**{key: sum(r[key] for r in wg) for key in ("ms", "plain_ms", "library_ms")},
+            "bound_ms": bound, "bound_by": "operations" if all(
+                r["bound_by"] == "operations" for r in wg) else "bytes",
+            "err": max(r["err"] for r in wg)}
 
 
 def fused_vs_chain(params, x, smi, precision="f32") -> None:
@@ -454,7 +491,7 @@ def fused_vs_chain(params, x, smi, precision="f32") -> None:
     last = len(params) - 1
     dims = [(l["w"].shape[0], l["w"].shape[2], l["w"].shape[3]) for l in params]
     bf16 = precision == "bf16"
-    plans = [entry.tc_layer_plan(*d, i == 0, i == last) if bf16 else entry.layer_plan(*d)
+    plans = [entry.bf16_layer_plan(*d, i == 0, i == last) if bf16 else entry.layer_plan(*d)
              for i, d in enumerate(dims)]
     fused = lambda: entry.fused_forward(params, x, precision)  # noqa: E731
     chained = lambda: chain.chain_forward(params, x, plans, bf16=bf16)  # noqa: E731
@@ -512,13 +549,38 @@ def xpack_build(log: str) -> None:
     print("[build] xpack.cu ptxas remarks on wgmma: " + (" | ".join(remarks) or "none"))
 
 
+def wgmma_build(log: str) -> None:
+    """[build]: ``conv_layer_wgmma_kernel`` (one instance) from ptxas:
+    registers and spills (none allowed), beside the dynamic shared bytes of
+    its plan at the RGB model's L5 and L6 and at the widest f the card
+    tests take; and any ptxas remark on its ``wgmma`` (a serialised
+    pipeline is named there)."""
+    kernels = build.ptxas_entries(log, "conv_layer_wgmma_kernel")
+    check(len(kernels) == 1, f"conv_wgmma.cu: {len(kernels)} kernel instances in the ptxas "
+          "report, expected 1")
+    name, regs, spill = kernels[0]
+    plans = {what: entry.wgmma_layer_plan(*layer) for what, layer in (
+        ("L5 64->128", (3, 64, 128)), ("L6 128->128", (3, 128, 128)),
+        ("f=19 64->128", (19, 64, 128)))}
+    print(f"[build] conv_wgmma.cu (wgmma) {name}: {regs} registers; {spill}; dynamic shared "
+          "memory (plan) " + ", ".join(f"{w} {p.smem} bytes ({p.a_ring} A boxes of "
+                                        f"{p.a_box}, {p.w_ring} W slices)"
+                                        for w, p in plans.items()))
+    check(" 0 bytes spill stores, 0 bytes spill loads" in spill,
+          f"conv_wgmma.cu {name} spills: {spill}")
+    remarks = [ln.strip() for ln in log.splitlines() if "gmma" in ln.lower()
+               and "entry function" not in ln and "Function properties" not in ln]
+    print("[build] conv_wgmma.cu ptxas remarks on wgmma: " + (" | ".join(remarks) or "none"))
+
+
 def sass_hmma() -> tuple:
     """HMMA instructions in the SASS of each bf16 entry point's kernels in
     the built library (``cuobjdump -sass``, beside ``nvcc``), the Winograd
     layer's six instances among them, and of ``wino5_forward``'s, in all
     and in each mode's instance; and the HGMMA (``wgmma``) instructions in
-    ``rowpair_gemm``'s and in each of ``tap_gemm_bf16``'s six instances
-    (N = 32, 64, 128, resident or through the ring): the proof that they run on the tensor cores.
+    ``rowpair_gemm``'s, ``conv_layer_forward_wgmma``'s and in each of
+    ``tap_gemm_bf16``'s six instances (N = 32, 64, 128, resident or through
+    the ring): the proof that they run on the tensor cores.
     Returns ``({entry point: HMMA}, {kernel: HGMMA})``."""
     tool = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
     sass = subprocess.run([tool, "-sass", build.library_path()], capture_output=True, text=True,
@@ -531,6 +593,7 @@ def sass_hmma() -> tuple:
               "wino5_w55f_kernel": ["wino5_forward", "wino5_forward w55f"]}
     counts = {name: 0 for names in kernel.values() for name in names}
     wgmma = {"rowpair_kernel": "rowpair_gemm",
+             "conv_layer_wgmma_kernel": "conv_layer_forward_wgmma",
              **{f"tap_gemm_kernelILi{n}ELb{ring}E": f"tap_gemm_bf16 N={n} "
                 + ("ring" if ring else "resident") for n in (32, 64, 128) for ring in (0, 1)}}
     hgmma = {name: 0 for name in wgmma.values()}
@@ -682,6 +745,10 @@ def probe_phase(smi) -> list:
                   **{kind: (2 * x.numel() * x.element_size() / PEAK_BYTES * 1e3, "bytes")
                      for kind, x in (("pack", act), ("split", y))}}
         name = f"{k}->{n} 1080p ({act.shape[0]}x{act.shape[1]} in, {out_hw[0]}x{out_hw[1]} out)"
+        # the direct form is the shipped layer: the wgmma stage at n > 64
+        direct_kernel = ("conv_layer_forward_wgmma"
+                         if isinstance(entry.bf16_layer_plan(3, k, n), entry.WgmmaPlan)
+                         else "conv_layer_forward_bf16")
         t = {}
         for kind, (kern, plain) in variants.items():
             got, ref = kern(), plain()
@@ -702,7 +769,8 @@ def probe_phase(smi) -> list:
             what = ".contiguous()" if kind in library else "cuDNN bf16 conv + ReLU"
             direct = (f"; the direct form's {conv_bound[0]:.4f} ms ({conv_bound[1]})"
                       if kind.startswith("wino") else "")
-            print(f"[probe] {smi} | {name} {kind}: kernel {k1:.3f}/{k2:.3f} ms, plain "
+            label = f"{kind} ({direct_kernel})" if kind in ("sep", "repack") else kind
+            print(f"[probe] {smi} | {name} {label}: kernel {k1:.3f}/{k2:.3f} ms, plain "
                   f"{p1:.3f}/{p2:.3f} ms, library ({what}) {l1:.3f}/{l2:.3f} ms, "
                   f"bound {bound:.4f} ms ({bound_by}{direct})")
         print(f"[probe] {smi} | {name}: sep / wino {t['sep']['ms'] / t['wino']['ms']:.2f}x, "
@@ -1163,9 +1231,10 @@ def serve_path(cfg, params, cfg_rgb, params_rgb, smi) -> tuple:
     probe.join()
     check(seen == [torch.cuda.current_stream().cuda_stream], f"serve: worker stream {seen}")
     check(not worker.is_alive(), "serve: the worker did not stop")
-    check(total == (0, 0, 7, 7),
-          f"serve: launches (fused, chain, fused bf16, chain bf16) {total}, expected "
-          "(0, 0, 7, 7): one fused batch of 4, one bucketed single, 5 singles; 7 chain layers")
+    check(total == (0, 0, 7, 7, 2),
+          f"serve: launches (fused, chain, fused bf16, chain bf16, wgmma) {total}, expected "
+          "(0, 0, 7, 7, 2): one fused batch of 4, one bucketed single, 5 singles; 7 chain layers, "
+          "2 of them (L5, L6) on the wgmma stage")
     check(stats["ok"] == 12 and stats["batched_jobs"] == 6 and stats["errors"] == 0,
           f"serve: stats {stats}")
 
@@ -1211,7 +1280,7 @@ def serve_path(cfg, params, cfg_rgb, params_rgb, smi) -> tuple:
           + f"; flagship 1000x700 (bucketed single) {ms[6]:.2f} | 5 single flagship 1080p: "
           + ", ".join(f"{v:.2f}" for v in single_ms)
           + f" ms | flagship frames/s batched {batch_fps:.2f} vs single {single_fps:.2f}"
-          + f" | launches (fused, chain, fused bf16, chain bf16) {total}"
+          + f" | launches (fused, chain, fused bf16, chain bf16, wgmma) {total}"
           + f" | stats ok {stats['ok']} batched_jobs {stats['batched_jobs']} errors "
           f"{stats['errors']} rounds {stats['rounds']} max_batch_seen {stats['max_batch_seen']}"
           + f" | vs plain bf16 pipeline max {worst_plain} uint8 (within ±1: "
@@ -1420,7 +1489,8 @@ def train_phase(smi, dev, work):
         reset_counts()
         out = api.upscale_image(cfg, params, rgba)
         made = counts()
-        check(made == (1, 0, 0, 0), f"[train] upscale launches {made}, expected (1, 0, 0, 0)")
+        check(made == (1, 0, 0, 0, 0),
+              f"[train] upscale launches {made}, expected (1, 0, 0, 0, 0)")
         plain = api._upscale_luma(lambda x: reference.fused_forward(params, x),
                                   torch.from_numpy(rgba).to(dev), add_mean=cfg.zero_mean_target,
                                   squared_mean=cfg.subtract_squared_mean).cpu().numpy()
@@ -1430,7 +1500,7 @@ def train_phase(smi, dev, work):
               and np.array_equal(out[border], rgba[..., :3][border]),
               f"[train] trained upscale: {out.shape}, max diff {diff} uint8 vs plain")
         print(f"[train] saved and loaded back bit-exact (epochs {epochs}); 1920x1080 upscale "
-              f"with the trained weights: launches (fused, chain, fused bf16, chain bf16) "
+              f"with the trained weights: launches (fused, chain, fused bf16, chain bf16, wgmma) "
               f"{made}, max diff vs plain pipeline {diff} uint8")
 
         out_path = os.path.join(d, "cli.json")
@@ -1607,7 +1677,7 @@ def parallel_phase(smi, dev, cfg, params, cfg_rgb, params_rgb, data) -> dict:
     rgba = make_image(1080, 1920, SEED)
     img = torch.from_numpy(rgba).to(dev)
     x = subtract_mean(extract_luma(img))[0][None, ..., None].contiguous()
-    for precision, want in (("bf16", (0, 0, 4, 0)), ("f32", (4, 0, 0, 0))):
+    for precision, want in (("bf16", (0, 0, 4, 0, 0)), ("f32", (4, 0, 0, 0, 0))):
         made, diff, ms, single_ms, peak, single_peak = spatial_requests(
             "flagship 9-5-5", cfg, params, rgba, 4, precision, want, 1, smi)
         launches[f"flagship {precision}"] = made
@@ -1615,13 +1685,13 @@ def parallel_phase(smi, dev, cfg, params, cfg_rgb, params_rgb, data) -> dict:
         print(f"[parallel] {smi} | spatial, flagship 9-5-5 {precision}, 1920x1080 over 4 bands "
               f"of cuda:0: ms per request " + ", ".join(f"{v:.2f}" for v in ms)
               + " (unsharded " + ", ".join(f"{v:.2f}" for v in single_ms)
-              + f") | launches (fused, chain, fused bf16, chain bf16) {made} | max diff vs "
+              + f") | launches (fused, chain, fused bf16, chain bf16, wgmma) {made} | max diff vs "
               f"unsharded {diff} uint8, conv stack max |float diff| {fdiff:.3e} | halo "
               f"{halo_bytes(params, x, 4)} bytes | peak device memory {peak / 2**20:.1f} MiB "
               f"(unsharded {single_peak / 2**20:.1f})")
     rgb = img[..., :3].to(torch.float32) / 255.0
     x_rgb = (rgb - rgb.mean(dim=(0, 1), keepdim=True))[None].contiguous()
-    for precision, want, tol in (("f32", (0, 14, 0, 0), 1), ("bf16", (0, 0, 0, 14), 2)):
+    for precision, want, tol in (("f32", (0, 14, 0, 0, 0), 1), ("bf16", (0, 0, 0, 14, 4), 2)):
         made, diff, ms, single_ms, peak, single_peak = spatial_requests(
             "RGB 7-layer", cfg_rgb, params_rgb, rgba, 2, precision, want, tol, smi, n=1)
         launches[f"RGB {precision}"] = made
@@ -1765,8 +1835,9 @@ def profile_phase(smi, work) -> None:
     on one 1920x1080 PNG through the flagship checkpoint in bf16
     (``--pallas``) and f32 and the RGB checkpoint in bf16 and f32, each
     with ``--trace-dir``: rc 0; exactly one ``fused_srcnn_tc_kernel``, one
-    ``fused_srcnn_kernel``, seven ``conv_layer_tc_kernel`` or seven
-    ``conv_layer_kernel`` launches, by the ``LAUNCHES*`` counters and by the
+    ``fused_srcnn_kernel``, five ``conv_layer_tc_kernel`` and two
+    ``conv_layer_wgmma_kernel`` or seven ``conv_layer_kernel`` launches, by
+    the ``LAUNCHES*`` counters and by the
     op table of the trace (``profiling.op_shares``), which must name the
     kernel; the PNG byte-equal to an unprofiled run's. Prints the kernel's
     share of device time, the copies, the device's idle share over the
@@ -1783,11 +1854,13 @@ def profile_phase(smi, work) -> None:
     t_phase = time.perf_counter()
     src = os.path.join(work, "frame.png")
     write_image(src, make_image(1080, 1920, SEED + 70)[..., :3])
-    runs = (("flagship 9-5-5", FLAGSHIP, "bf16", (0, 0, 1, 0), "fused_srcnn_tc_kernel"),
-            ("flagship 9-5-5", FLAGSHIP, "f32", (1, 0, 0, 0), "fused_srcnn_kernel"),
-            ("RGB 7-layer", RGB7, "bf16", (0, 0, 0, 7), "conv_layer_tc_kernel"),
-            ("RGB 7-layer", RGB7, "f32", (0, 7, 0, 0), "conv_layer_kernel"))
-    for i, (name, cfg_path, precision, want, kernel) in enumerate(runs):
+    # each run's kernels and their launches in the op table
+    runs = (("flagship 9-5-5", FLAGSHIP, "bf16", (0, 0, 1, 0, 0), {"fused_srcnn_tc_kernel": 1}),
+            ("flagship 9-5-5", FLAGSHIP, "f32", (1, 0, 0, 0, 0), {"fused_srcnn_kernel": 1}),
+            ("RGB 7-layer", RGB7, "bf16", (0, 0, 0, 7, 2),
+             {"conv_layer_tc_kernel": 5, "conv_layer_wgmma_kernel": 2}),
+            ("RGB 7-layer", RGB7, "f32", (0, 7, 0, 0, 0), {"conv_layer_kernel": 7}))
+    for i, (name, cfg_path, precision, want, kernels) in enumerate(runs):
         line = ["-c", cfg_path, "-i", src] + (["--pallas"] if precision == "bf16" else [])
         plain, profiled = (os.path.join(work, f"{k}{i}.png") for k in ("plain", "profiled"))
         trace = os.path.join(work, f"trace{i}")
@@ -1804,16 +1877,20 @@ def profile_phase(smi, work) -> None:
             check(a.read() == b.read(),
                   f"[profile] {name} {precision}: the profiled PNG differs from the unprofiled")
         rows, total, idle_window, idle_span = trace_summary(trace)
-        mine = [r for r in rows if kernel in r[0]]
-        check(sum(n for _, _, n in mine) == sum(want) and kernel in text,
-              f"[profile] {name} {precision}: {kernel} in the op table {mine}, expected "
-              f"{sum(want)} launches")
+        mine = [r for r in rows if any(k in r[0] for k in kernels)]
+        for k, n in kernels.items():
+            seen = [r for r in rows if k in r[0]]
+            check(sum(c for _, _, c in seen) == n and k in text,
+                  f"[profile] {name} {precision}: {k} in the op table {seen}, expected {n} "
+                  "launches")
+        kernel = " + ".join(kernels)
         kernel_us = sum(t for _, t, _ in mine)
         copies = [r for r in rows if r[0].startswith(("Memcpy", "Memset"))]
         stages = [STAGE_LINE.match(ln) for ln in text.splitlines()]
         print(f"[profile] {smi} | cnn_torch.py profile, 1920x1080 PNG, {name} {precision}: rc 0 "
-              f"in {secs:.2f} s, launches (fused, chain, fused bf16, chain bf16) {made}, PNG "
-              f"byte-equal to the unprofiled run's | {kernel} x{sum(want)} "
+              f"in {secs:.2f} s, launches (fused, chain, fused bf16, chain bf16, wgmma) "
+              f"{made}, PNG byte-equal to the unprofiled run's | {kernel} "
+              f"x{sum(kernels.values())} "
               f"{kernel_us / 1e3:.3f} ms = {kernel_us * 100 / total:.1f}% of device op time "
               f"{total / 1e3:.3f} ms | copies: "
               + ", ".join(f"{n} x{c} {t / 1e3:.3f} ms" for n, t, c in copies)
@@ -1829,7 +1906,7 @@ def profile_phase(smi, work) -> None:
     from cnn_sr_tpu_torch.profiling import StageProfiler
 
     rgba = make_image(1080, 1920, SEED + 70)
-    for i, (name, cfg_path, precision, want, kernel) in enumerate(runs):
+    for i, (name, cfg_path, precision, want, kernels) in enumerate(runs):
         cfg = read_config(cfg_path)
         params = params_to_torch(init_params(cfg)[0], torch.device("cuda"))
         api.upscale_image(cfg, params, rgba, precision=precision)
@@ -1841,7 +1918,8 @@ def profile_phase(smi, work) -> None:
         ms = (time.perf_counter() - t0) * 1e3
         prof.stop_trace()
         rows, total, idle_window, idle_span = trace_summary(trace)
-        mine = sum(t for n, t, _ in rows if kernel in n)
+        mine = sum(t for n, t, _ in rows if any(k in n for k in kernels))
+        kernel = " + ".join(kernels)
         copies = sum(t for n, t, _ in rows if n.startswith(("Memcpy", "Memset")))
         print(f"[profile] {smi} | one warm 1920x1080 request alone in its trace, "
               f"api.upscale_image, {name} {precision}: {ms:.2f} ms on the host clock (traced) "
@@ -2023,6 +2101,7 @@ def main() -> int:
                 check(" 0 bytes spill stores, 0 bytes spill loads" in spill,
                       f"{src} {name} spills: {spill}")
         rowpair_build(info["logs"]["rowpair.cu"])
+        wgmma_build(info["logs"]["conv_wgmma.cu"])
         xpack_build(info["logs"]["xpack.cu"])
     build.load_library()
     hmma, hgmma = sass_hmma()
@@ -2056,32 +2135,37 @@ def main() -> int:
     # an f=9 layer over 128 channels: its whole window (294,912 f32 bytes)
     # exceeds a block's shared memory, so both chains stream it in chunks
     wide_f9 = he([(3, 1, 128), (9, 128, 16), (3, 16, 8), (3, 8, 1)])
+    # two middle layers on the wgmma stage: 64 -> 256 (two 128-column
+    # chunks) and an f=9 layer over 256 channels (four 64-lane chunks)
+    wide_n256 = he([(3, 1, 64), (3, 64, 256), (9, 256, 128), (3, 128, 1)])
 
     fused_errs = [
-        kernel_vs_plain("flagship 9-5-5", params, (1, 80, 272, 1), SEED, (1, 0, 0, 0)),
+        kernel_vs_plain("flagship 9-5-5", params, (1, 80, 272, 1), SEED, (1, 0, 0, 0, 0)),
         kernel_vs_plain("flagship 9-5-5 ragged", params, (2, 97, 131, 1), SEED + 1,
-                        (1, 0, 0, 0)),
-        kernel_vs_plain("9-1-5", params915, (1, 80, 272, 1), SEED + 2, (1, 0, 0, 0))]
+                        (1, 0, 0, 0, 0)),
+        kernel_vs_plain("9-1-5", params915, (1, 80, 272, 1), SEED + 2, (1, 0, 0, 0, 0))]
     chain_errs = [
         kernel_vs_plain("chain RGB 7-layer", params_rgb, (1, 80, 272, 3), SEED + 3,
-                        (0, 7, 0, 0)),
+                        (0, 7, 0, 0, 0)),
         kernel_vs_plain("chain RGB 7-layer ragged", params_rgb, (2, 97, 131, 3), SEED + 4,
-                        (0, 7, 0, 0)),
-        kernel_vs_plain("chain wide 9-5-5", wide, (1, 80, 272, 1), SEED + 5, (0, 3, 0, 0)),
+                        (0, 7, 0, 0, 0)),
+        kernel_vs_plain("chain wide 9-5-5", wide, (1, 80, 272, 1), SEED + 5, (0, 3, 0, 0, 0)),
         kernel_vs_plain("chain f=9 over 128 channels, 4-layer", wide_f9, (1, 80, 272, 1),
-                        SEED + 6, (0, 4, 0, 0))]
+                        SEED + 6, (0, 4, 0, 0, 0))]
     fused_bf16_errs = [
-        kernel_vs_plain("flagship 9-5-5", params, (1, 80, 272, 1), SEED, (0, 0, 1, 0), "bf16"),
+        kernel_vs_plain("flagship 9-5-5", params, (1, 80, 272, 1), SEED, (0, 0, 1, 0, 0), "bf16"),
         kernel_vs_plain("flagship 9-5-5 ragged", params, (2, 97, 131, 1), SEED + 1,
-                        (0, 0, 1, 0), "bf16"),
-        kernel_vs_plain("9-1-5", params915, (1, 80, 272, 1), SEED + 2, (0, 0, 1, 0), "bf16")]
+                        (0, 0, 1, 0, 0), "bf16"),
+        kernel_vs_plain("9-1-5", params915, (1, 80, 272, 1), SEED + 2, (0, 0, 1, 0, 0), "bf16")]
     chain_bf16_errs = [
         kernel_vs_plain("chain RGB 7-layer", params_rgb, (1, 80, 272, 3), SEED + 3,
-                        (0, 0, 0, 7), "bf16"),
+                        (0, 0, 0, 7, 2), "bf16"),
         kernel_vs_plain("chain RGB 7-layer ragged", params_rgb, (2, 97, 131, 3), SEED + 4,
-                        (0, 0, 0, 7), "bf16"),
+                        (0, 0, 0, 7, 2), "bf16"),
         kernel_vs_plain("chain f=9 over 128 channels, 4-layer", wide_f9, (1, 80, 272, 1),
-                        SEED + 6, (0, 0, 0, 4), "bf16")]
+                        SEED + 6, (0, 0, 0, 4, 0), "bf16"),
+        kernel_vs_plain("chain n=256 and f=9 over 256 channels, 4-layer", wide_n256,
+                        (2, 61, 83, 1), SEED + 7, (0, 0, 0, 4, 2), "bf16")]
 
     # the main paths: three requests each through the public API in f32,
     # and one round of the server in bf16
@@ -2090,24 +2174,24 @@ def main() -> int:
         lambda img: api._upscale_luma(lambda x: reference.fused_forward(params, x), img,
                                       add_mean=cfg.zero_mean_target,
                                       squared_mean=cfg.subtract_squared_mean),
-        (1, 0, 0, 0), smi)
+        (1, 0, 0, 0, 0), smi)
     rgb_counts, _ = main_path(
         "RGB 7-layer", cfg_rgb, params_rgb,
         lambda img: api._upscale_rgb(lambda x: reference.fused_forward(params_rgb, x), img,
                                      add_mean=cfg_rgb.zero_mean_target),
-        (0, 7, 0, 0), smi)
+        (0, 7, 0, 0, 0), smi)
     serve_counts = serve_path(cfg, params, cfg_rgb, params_rgb, smi)
     # single bf16 requests of both checkpoints, beside the f32 ones
     main_path("flagship 9-5-5", cfg, params,
               lambda img: api._upscale_luma(
                   lambda x: reference.fused_forward(params, x, "bf16"), img,
                   add_mean=cfg.zero_mean_target, squared_mean=cfg.subtract_squared_mean),
-              (0, 0, 1, 0), smi, "bf16")
+              (0, 0, 1, 0, 0), smi, "bf16")
     main_path("RGB 7-layer", cfg_rgb, params_rgb,
               lambda img: api._upscale_rgb(
                   lambda x: reference.fused_forward(params_rgb, x, "bf16"), img,
                   add_mean=cfg_rgb.zero_mean_target),
-              (0, 0, 0, 7), smi, "bf16", tol=2)
+              (0, 0, 0, 7, 2), smi, "bf16", tol=2)
 
     # each kernel at its main path's 1080p input
     from cnn_sr_tpu_torch.ops.color import extract_luma, subtract_mean
@@ -2121,7 +2205,7 @@ def main() -> int:
     layer_times(params_rgb, x_rgb, smi)
     t_fused_bf16 = time_stack("fused_srcnn, flagship 9-5-5", params, x_luma, smi, "bf16")
     t_chain_bf16 = time_stack("conv_layer chain, RGB 7-layer", params_rgb, x_rgb, smi, "bf16")
-    layer_times(params_rgb, x_rgb, smi, "bf16")
+    t_wgmma = layer_times(params_rgb, x_rgb, smi, "bf16")
     fused_vs_chain(params, x_luma, smi, "f32")
     fused_vs_chain(params, x_luma, smi, "bf16")
     # the 9-1-5 stack (random, seed 0) beside its library time, both precisions
@@ -2166,6 +2250,11 @@ def main() -> int:
         row("conv_layer_bf16", "cnn_sr_tpu_torch/csrc/conv_layer.cu",
             "cnn_sr_tpu/ops/pallas_fused/wino_kernel.py:25", serve_counts[3], chain_bf16_errs,
             t_chain_bf16, parallel_counts["RGB bf16"][3]),
+        # RGB L5 + L6 at 1080p: ms, plain (tap_layer), library (cuDNN bf16) and
+        # bound summed over the two layers
+        row("conv_layer_wgmma", "cnn_sr_tpu_torch/csrc/conv_wgmma.cu",
+            "cnn_sr_tpu/ops/pallas_fused/wino_kernel.py:145", serve_counts[4], [t_wgmma["err"]],
+            t_wgmma, parallel_counts["RGB bf16"][4]),
         *(row(r["name"], r["source"], r["replaces"], r["launches"], [r["err"]], r)
           for r in probe_rows),
     ]}))

@@ -251,12 +251,14 @@ extern "C" int conv_layer_forward(const float* x, const float* w, const float* b
 // the stacks the fused kernel does not take, the 7-layer RGB model first:
 // the int8 plane of weights.py:123 _quantize_planes with the 1/127 scale
 // folded into w1 (weights.py:283, entry.py:326), bf16 operands, f32 sums.
+// It takes the first layer, the middle layers at n <= 64 and the last;
+// the middle layers at n > 64 are conv_wgmma.cu's (conv_layer_forward_wgmma),
+// and a call for one is refused.
 //
-// What bounds it: the multiply-adds (592.4 G MAC per RGB 1080p frame, half
-// of them in the 128 -> 128 layer) at mma.sync's rate; the 128 -> 3 last
-// layer by its bytes. Each block reads every weight of its layer once from
-// L2, so the 16x16 tile (256 positions) keeps that traffic below the
-// window's.
+// What bounds it: the multiply-adds at mma.sync's rate in the first and
+// middle layers it takes (RGB L1-L4); the 128 -> 3 last layer by its bytes.
+// Each block reads every weight of its layer once from L2, so the 16x16
+// tile (256 positions) keeps that traffic below the window's.
 //
 // What the design does: one block per 16x16 output tile and
 // 128-column chunk of N (blockIdx.x = tile column x N chunks, .y = tile
@@ -265,24 +267,24 @@ extern "C" int conv_layer_forward(const float* x, const float* w, const float* b
 // where it fits), filled by cp.async (the first layer: dx-expanded and
 // quantised from the f32 input); the packed weights streamed tps taps at a
 // time through two cp.async stages; mma.sync m16n8k16 with every tap an
-// address offset into the window. Warps (ChainCfg): 8 x 2 at N = 128
-// (each 2 m16 by 8 n8 tiles), 4 x 2 at N = 64 (4 m16 by 4 n8), 8 x 1 below
-// (2 m16 by N / 8). Epilogue: bias,
+// address offset into the window. Warps (ChainCfg): 8 x 2 at N = 128 (a
+// first layer only; each 2 m16 by 8 n8 tiles), 4 x 2 at N = 64 (4 m16 by 4
+// n8), 8 x 1 below (2 m16 by N / 8). Epilogue: bias,
 // ReLU and one bf16 rounding staged in shared memory and written in
 // 16-byte pieces; the last layer writes f32 and no ReLU.
-// Why mma.sync over a shifted window and not wgmma: every tap is a row
-// offset into one window, which ldmatrix's per-lane row addresses take as
-// is; a wgmma shared-memory descriptor needs the canonical 8x8 core-matrix
-// layout, which a shift by one position breaks, so wgmma would need a copy
-// of the window per dx.
+// Why mma.sync over a shifted window: every tap is a row offset into one
+// window, which ldmatrix's per-lane row addresses take as is. At N = 128
+// that bound the middle layers by the fragments' shared-memory traffic
+// (one block an SM, each B fragment feeding two mma.sync: RGB L5 and L6 at
+// 1.530 and 2.409 ms, 1.24x and 1.55x cuDNN bf16's time), so those layers
+// moved to wgmma, whose operands a tensor copy per dx lands in the layout
+// its descriptors read; at n <= 64 this stage keeps pace with cuDNN bf16.
 //
 // Measured (chip_smoke.py, NVIDIA H100 80GB HBM3, 700 W): the RGB stack at
-// 1080p in 6.12 ms, against 64.23 on the CUDA cores and cuDNN bf16's 6.98
-// (bound 1.198); per layer L1-L7 0.32, 0.27, 0.45, 0.72, 1.55, 2.43, 0.45
-// ms. L5 and L6 (N = 128) trail cuDNN (1.24, 1.56 ms): one block an SM,
-// and with 2 m16 tiles a warp every B fragment feeds only two mma.sync,
-// so the ldmatrix traffic nears the shared-memory rate (ROADMAP Queue 2
-// #1: wgmma reads B from shared memory without it).
+// 1080p in 3.44 ms with L5 and L6 on conv_wgmma.cu (6.13 with all seven
+// here), against cuDNN bf16's 6.95 (bound 1.198); per layer here L1-L4 and
+// L7 0.32, 0.27, 0.45, 0.72, 0.46 ms (cuDNN bf16 0.54, 0.55, 0.61, 0.72,
+// 0.69).
 namespace {
 
 // a 16x16 tile a block: 16 warps of 2 m16 by 8 n8 tiles at N = 128 (one
@@ -355,6 +357,7 @@ int launch_tc(const void* x, const void* w, const float* b, void* y, int N, int 
   return static_cast<int>(cudaGetLastError());
 }
 
+// a middle layer (MODE 1) at npad > 64 is conv_wgmma.cu's: no instance here
 template <int MODE>
 int launch_tc_by_width(const void* x, const void* w, const float* b, void* y, int N, int H, int W,
                        int K, int f, int n, int kp, int npad, int kc, int tps, int smem_bytes,
@@ -368,9 +371,10 @@ int launch_tc_by_width(const void* x, const void* w, const float* b, void* y, in
       return launch_tc<32, MODE>(x, w, b, y, N, H, W, K, f, n, kp, npad, kc, tps, smem_bytes, s);
     case 64:
       return launch_tc<64, MODE>(x, w, b, y, N, H, W, K, f, n, kp, npad, kc, tps, smem_bytes, s);
-    default:
-      return launch_tc<128, MODE>(x, w, b, y, N, H, W, K, f, n, kp, npad, kc, tps, smem_bytes, s);
   }
+  if constexpr (MODE == 0)
+    return launch_tc<128, 0>(x, w, b, y, N, H, W, K, f, n, kp, npad, kc, tps, smem_bytes, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -383,7 +387,8 @@ int launch_tc_by_width(const void* x, const void* w, const float* b, void* y, in
 // and no ReLU; else y is bf16 after ReLU (n % 8 == 0). kc: window lanes a
 // chunk (a multiple of 16; all of them for the first layer); tps: taps a
 // weight stage. Refused (cudaErrorInvalidValue, nothing launched): a shape
-// the packing or the plan does not describe, or smem_bytes below what the
+// the packing or the plan does not describe, a middle layer at n > 64
+// (conv_layer_forward_wgmma's, conv_wgmma.cu), or smem_bytes below what the
 // plan needs. Returns cudaGetLastError() of the launch.
 extern "C" int conv_layer_forward_bf16(const void* x, const void* w, const float* b, void* y,
                                        int N, int H, int W, int K, int f, int n, int first,
@@ -394,7 +399,8 @@ extern "C" int conv_layer_forward_bf16(const void* x, const void* w, const float
   const int kp = first ? tc_kx(f, K) : tc_kpad(K);
   const int npad = tc_npad(n);
   const int taps = first ? f : f * f;
-  if ((!first && K % 8) || (!last && n % 8) || (last && npad != 8) || kc < 16 || kc % 16 ||
+  if ((!first && K % 8) || (!last && n % 8) || (last && npad != 8) ||
+      (!first && !last && npad > 64) || kc < 16 || kc % 16 ||
       kc > kp || (first && kc != kp) || tps < 1 || tps > taps ||
       smem_bytes < tc_layer_smem(f, kp, tc_nb(npad), first, last, kc, tps))
     return bad;

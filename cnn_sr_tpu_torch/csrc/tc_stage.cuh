@@ -22,10 +22,15 @@
 //   shared memory: no tap re-reads its window from L2.
 // * Taps are address offsets: ldmatrix takes one row address per lane, so
 //   tap (dy, dx) of output position (y, x) is window row (y + dy, x + dx),
-//   an offset and no copy. This is why the stage uses mma.sync and not
-//   wgmma: a wgmma shared-memory descriptor needs the canonical 8x8
-//   core-matrix layout, and a shift by one position breaks it, so wgmma
-//   would need one copy of the window per dx.
+//   an offset and no copy. A wgmma shared-memory descriptor needs the
+//   canonical 8x8 core-matrix layout, which a shift by one position
+//   breaks; the chain's middle layers at n > 64 therefore run on
+//   conv_wgmma.cu, where one tensor copy per dx lands a box whose dy
+//   shifts are whole swizzle atoms. This stage keeps the layers where
+//   mma.sync is not what binds: the first (its dx-expanded window is
+//   quantised by the threads as they load it), the middles at n <= 64
+//   (two or more blocks an SM; RGB L2-L4 ahead of cuDNN bf16) and the last
+//   (bound by its bytes).
 // * B, the weights, are packed on the host as (taps, K_pad, N_pad) bf16
 //   (ops/fused/entry.py: pack_bf16). A block streams one or more taps'
 //   slabs through two cp.async stages while the current slab's mma.sync
@@ -39,15 +44,18 @@
 //   of 128 (tc_npad); the padding lanes of weights and biases are zero, so
 //   padded output lanes are ReLU(0) = 0.
 //
-// What bounds it on the H100: at the RGB model's and the flagship's widths
-// the multiply-adds at mma.sync's rate (about 2/3 of wgmma's 989 TFLOP/s);
-// the narrow last layers (n <= 4 in one n8 tile) by their bytes. At N =
-// 128 the ldmatrix traffic of the fragments nears the shared-memory rate
-// first (each B fragment feeds two mma.sync).
+// What bounds it on the H100: at the widths it keeps (n <= 64, and the
+// first layer at any n) the multiply-adds at mma.sync's rate (about 2/3 of
+// wgmma's 989 TFLOP/s); the narrow last layers (n <= 4 in one n8 tile) by
+// their bytes. At N = 128 the ldmatrix traffic of the fragments nears the
+// shared-memory rate first (each B fragment feeds two mma.sync), which
+// held the RGB model's L5 and L6 at 1.24x and 1.55x cuDNN bf16's time
+// until they moved to conv_wgmma.cu.
 //
 // Measured (chip_smoke.py, NVIDIA H100 80GB HBM3, 700 W), 1080p: the RGB
-// stack's seven layers 6.12 ms (0.27-2.43 ms a layer; cuDNN bf16 6.98),
-// the flagship in the fused kernel 3.26 ms (cuDNN bf16 4.11).
+// stack's five layers on this stage 0.27-0.72 ms a layer (with L5 and L6 on
+// conv_wgmma.cu the stack takes 3.44 ms; cuDNN bf16 6.95), the flagship in
+// the fused kernel 3.26 ms (cuDNN bf16 4.11).
 #pragma once
 
 #include <cuda_bf16.h>

@@ -1,6 +1,7 @@
 // PTX wrappers of the warpgroup MMA (wgmma, sm_90a) of the port's kernels
-// (rowpair.cu, xpack.cu): the shared-memory matrix descriptors, the fence,
-// commit and wait of the asynchronous products, and the bf16 products with
+// (rowpair.cu, xpack.cu, conv_wgmma.cu): the shared-memory matrix
+// descriptors, the fence, commit and wait of the asynchronous products, the
+// register hand-over between warpgroups (setmaxnreg), and the bf16 products with
 // f32 sums at m64 n32 / n64 / n128 k16, A from shared memory or from
 // registers, B from shared memory. One copy of each, included where used.
 #pragma once
@@ -46,6 +47,17 @@ template <int N>
 __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
+// hand registers from a warpgroup to the block's others (dec) and take them
+// (inc): setmaxnreg, each thread of the warpgroup left with at most R
+template <int R>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+template <int R>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
 // keep the compiler from moving accesses of an accumulator register across
 // the asynchronous products
 __device__ __forceinline__ void wgmma_fence_operand(float& r) {

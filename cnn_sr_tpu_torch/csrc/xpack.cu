@@ -80,15 +80,6 @@ static_assert(kConsumers * kConsumerRegs + kWarpgroup * kProducerRegs <=
               "the registers handed over fit the block's");
 constexpr int kWarps = kConsumers / 32;  // arrivals that empty a buffer, one a consumer warp
 
-template <int R>
-__device__ __forceinline__ void setmaxnreg_dec() {
-  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
-}
-template <int R>
-__device__ __forceinline__ void setmaxnreg_inc() {
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
-}
-
 // N's swizzled rows: 128 bytes (64 lanes) at N >= 64, 64 bytes (32 lanes) at
 // N = 32, in kBlocks blocks a row of N: a slice of weights is kBlocks
 // blocks of 32 such rows, a step's staged output kBlocks of 64

@@ -145,6 +145,8 @@ def load_library() -> ctypes.CDLL:
     lib.conv_layer_forward.restype = i
     lib.conv_layer_forward_bf16.argtypes = [p] * 4 + [i] * 11 + [p]
     lib.conv_layer_forward_bf16.restype = i
+    lib.conv_layer_forward_wgmma.argtypes = [p] * 4 + [i] * 7 + [p]
+    lib.conv_layer_forward_wgmma.restype = i
     lib.winograd_f2x3_forward.argtypes = [p] * 3 + [i] * 7 + [p]
     lib.winograd_f2x3_forward.restype = i
     lib.winograd_input_transform.argtypes = [p] * 2 + [i] * 6 + [p]

@@ -3,7 +3,7 @@
 The route ``entry.fused_forward`` takes on the card for every well-formed
 stack outside the fused kernel's envelope (the 7-layer RGB model first).
 ``entry`` checks the shapes and plans each layer (``entry.layer_plan``
-in f32, ``entry.tc_layer_plan`` in bf16); ``chain_forward`` allocates two
+in f32, ``entry.bf16_layer_plan`` in bf16); ``chain_forward`` allocates two
 intermediates, ping-pongs the layers through them and writes the last
 layer into a fresh f32 output. In f32 (on the CUDA cores,
 ``csrc/ffma_stage.cuh``) each layer's weights are packed channel-major at
@@ -11,7 +11,10 @@ its plan's NB (``entry.f32_weights``) and its input window streams
 through shared memory beside them, a chunk of input channels at a time.
 In bf16 (on the tensor cores) the intermediates are bf16, the weights
 packed tap-major (``entry.bf16_weights``), the first layer quantises the
-f32 input at its window load and the last writes f32. Its plain version
+f32 input at its window load and the last writes f32; each layer's plan
+(``entry.bf16_layer_plan``) names its stage: ``csrc/conv_wgmma.cu``
+(``conv_layer_forward_wgmma``) for a middle layer at n > 64, else
+``csrc/tc_stage.cuh`` (``conv_layer_forward_bf16``). Its plain version
 is ``reference.fused_forward``, the same as the fused kernel's;
 ``reference.tap_layer`` is the plain version of one bf16 launch.
 """
@@ -23,10 +26,12 @@ import math
 import torch
 
 # layer launches in this process, one per layer of each stack, in f32
-# (``LAUNCHES``) and in bf16 (``LAUNCHES_BF16``); the smoke run reads them
-# to show that the main path went through the kernel
+# (``LAUNCHES``) and in bf16 (``LAUNCHES_BF16``), and of the bf16 ones
+# those of the wgmma stage (``LAUNCHES_WGMMA``); the smoke run reads them
+# to show that the main path went through the kernels
 LAUNCHES = 0
 LAUNCHES_BF16 = 0
+LAUNCHES_WGMMA = 0
 
 
 def layer_forward(lib, src: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -36,12 +41,21 @@ def layer_forward(lib, src: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     on ``stream``. f32: ``w`` and ``b`` from ``entry.pack_f32`` at
     ``plan.nb``, ``plan`` an ``entry.LayerPlan``, ReLU unless ``last``.
     bf16: ``w`` and ``b`` from ``entry.pack_bf16``,
-    ``plan`` an ``entry.TcPlan``, ``src`` f32 when ``first`` else bf16,
+    ``plan`` an ``entry.TcPlan`` or ``entry.WgmmaPlan`` (a middle layer at n
+    > 64, whose tensor maps need 16-byte aligned tensors: raises
+    ValueError otherwise), ``src`` f32 when ``first`` else bf16,
     ``dst`` f32 when ``last`` else bf16, ReLU unless ``last``."""
-    global LAUNCHES, LAUNCHES_BF16
+    global LAUNCHES, LAUNCHES_BF16, LAUNCHES_WGMMA
+    from .entry import WgmmaPlan
+
     n, h, wd, k = src.shape
     args = (src.data_ptr(), w.data_ptr(), b.data_ptr(), dst.data_ptr(), n, h, wd, k)
-    if bf16:
+    wgmma = bf16 and isinstance(plan, WgmmaPlan)
+    if wgmma:
+        if any(t.data_ptr() % 16 for t in (src, w, b, dst)):
+            raise ValueError("the wgmma stage's tensor copies need 16-byte aligned tensors")
+        err = lib.conv_layer_forward_wgmma(*args, plan.f, dst.shape[3], plan.smem, stream)
+    elif bf16:
         err = lib.conv_layer_forward_bf16(*args, plan.f, dst.shape[3], int(first), int(last),
                                           plan.kc, plan.tps, plan.smem, stream)
     else:
@@ -49,17 +63,19 @@ def layer_forward(lib, src: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
         err = lib.conv_layer_forward(*args, f, dst.shape[3], int(not last), plan.tile_h,
                                      plan.tile_w, plan.kc, plan.smem, stream)
     if err:
-        raise RuntimeError(f"conv_layer{'_bf16' if bf16 else ''} launch failed: "
-                           + lib.cnn_sr_error_string(err).decode())
+        raise RuntimeError(f"conv_layer{'_wgmma' if wgmma else '_bf16' if bf16 else ''} "
+                           "launch failed: " + lib.cnn_sr_error_string(err).decode())
     if bf16:
         LAUNCHES_BF16 += 1
+        LAUNCHES_WGMMA += int(wgmma)
     else:
         LAUNCHES += 1
 
 
 def chain_forward(params, x: torch.Tensor, plans, bf16: bool = False) -> torch.Tensor:
     """Run ``params`` over the CUDA tensor ``x`` (N, H, W, C), layer i
-    with ``plans[i]`` (``entry.LayerPlan`` or, in bf16, ``entry.TcPlan``),
+    with ``plans[i]`` (``entry.LayerPlan`` or, in bf16, ``entry.TcPlan`` or
+    ``entry.WgmmaPlan``),
     on the current stream, in
     f32 or, with ``bf16``, as the bf16 stream. The shapes are the caller's
     to check (``entry.fused_forward``)."""

@@ -15,7 +15,8 @@ by ``route``, a pure function of the shapes:
 chain's plan per layer: ``layer_plan``). ``precision="bf16"``
 runs the JAX package's bf16 stream with the int8 first layer
 (``reference`` states the numbers) on the tensor cores
-(``csrc/tc_stage.cuh``), with its own plans (``tc_layer_plan``,
+(``csrc/tc_stage.cuh``; the chain's middle layers at n > 64 on
+``csrc/conv_wgmma.cu``), with its own plans (``bf16_layer_plan``,
 ``tc_fused_plan``) and its weights packed tap-major
 (``pack_bf16``), on the JAX rule of where that stream applies
 (``bf16_envelope``): elsewhere JAX runs its XLA f32 forward, and so this
@@ -265,7 +266,10 @@ class TcPlan(NamedTuple):
 
 
 def tc_layer_plan(f: int, k: int, n: int, first: bool = False, last: bool = False) -> TcPlan:
-    """The bf16 chain's plan for one f×f layer from k to n channels. The
+    """The bf16 chain's ``mma.sync`` plan (``csrc/tc_stage.cuh``) for one
+    f×f layer from k to n channels: a first or last layer, or a middle one
+    at n ≤ 64 (a middle layer at n > 64 is ``wgmma_layer_plan``'s, and
+    raises NotImplementedError here). The
     window (the tile plus its halo, position-major, rows of kc + 8 lanes;
     the first layer dx-expanded, TILE_W positions wide) takes all of K
     where it fits beside two stages of one tap's weights, else the largest
@@ -274,6 +278,10 @@ def tc_layer_plan(f: int, k: int, n: int, first: bool = False, last: bool = Fals
     they stream in stages of as many taps as fit in two (in half the limit
     where one tap does, else in all of it). Raises NotImplementedError when
     not even 16 lanes fit."""
+    if not first and not last and n_pad(n) > 64:
+        raise NotImplementedError(
+            f"a middle layer to {n} channels takes the wgmma stage (wgmma_layer_plan), "
+            "not tc_stage.cuh")
     nb = min(n_pad(n), 128)
     ws = w_stride(nb)
     rows = TILE_H + f - 1
@@ -302,6 +310,82 @@ def tc_layer_plan(f: int, k: int, n: int, first: bool = False, last: bool = Fals
     return TcPlan(f, k, n, first, last, kc, tps, max(win(kc) + stages * tps * tap(kc), out))
 
 
+# The wgmma stage of the bf16 chain's middle layers at n > 64
+# (csrc/conv_wgmma.cu, its plan csrc/conv_wgmma_plan.cuh): a 16x16 output
+# tile, A boxes of 64 lanes x 16 columns, W slices of 64 rows x 128 columns.
+WG_TILE = 16  # output rows and columns of a tile (kWgTileRows, kWgTileCols)
+WG_LANES = 64  # lanes of a box row (kWgLanes)
+WG_N = 128  # output columns a block (kWgN)
+WG_MAX_RING = 16
+WG_W_SLICE = WG_LANES * WG_N * 2  # bytes of a W slice
+WG_OUT = WG_TILE * WG_TILE * WG_N * 2  # bytes of the output staging
+WG_SLACK = 1024 + 8 * 4 * WG_MAX_RING  # alignment and mbarriers
+
+
+class WgmmaPlan(NamedTuple):
+    """One wgmma launch (``conv_layer_forward_wgmma``), as ``wgmma_plan`` in
+    ``csrc/conv_wgmma_plan.cuh`` computes it: the layer (f, k → n; never
+    first or last), its packed K and N, K's 64-lane chunks, the dy taps a
+    box (gy) and the boxes a dx (groups), a box's input rows and bytes, the
+    A and W ring stages and the dynamic shared bytes."""
+    f: int
+    k: int
+    n: int
+    kp: int
+    npad: int
+    chunks: int
+    gy: int
+    groups: int
+    box_rows: int
+    a_box: int
+    a_ring: int
+    w_ring: int
+    smem: int
+    first: bool = False
+    last: bool = False
+
+
+def wgmma_layer_plan(f: int, k: int, n: int) -> WgmmaPlan:
+    """The wgmma stage's plan for a middle f×f layer from k to n channels
+    (f odd, k and n multiples of 8, n > 64). A box of A is the tile's rows
+    plus the halo of gy dy taps: gy is the most taps whose two boxes fit
+    beside two W slices and the output staging in ``SMEM_LIMIT``, evened
+    out over the boxes a dx needs; two A stages; the rest of the shared
+    memory, up to ``WG_MAX_RING`` slices, is the W ring. Raises
+    NotImplementedError for a layer it does not take."""
+    if f < 1 or f % 2 == 0 or k <= 0 or k % 8 or n <= 64 or n % 8:
+        raise NotImplementedError(
+            f"the wgmma stage takes an odd f, k and n multiples of 8, and n > 64; "
+            f"got f={f}, k={k}, n={n}")
+    budget = SMEM_LIMIT - WG_SLACK - WG_OUT
+    row = WG_TILE * WG_LANES * 2
+    gy = f
+    while gy > 0 and 2 * (WG_TILE + gy - 1) * row + 2 * WG_W_SLICE > budget:
+        gy -= 1
+    if gy == 0:
+        raise NotImplementedError(
+            f"an f={f} layer to {n} channels: two {WG_TILE}-row A boxes and two W "
+            f"slices ({2 * WG_TILE * row + 2 * WG_W_SLICE} bytes) do not fit beside the "
+            f"{WG_OUT}-byte output staging (> {SMEM_LIMIT})")
+    gy = -(-f // -(-f // gy))
+    box_rows = WG_TILE + gy - 1
+    a_box = box_rows * row
+    w_ring = min(WG_MAX_RING, (budget - 2 * a_box) // WG_W_SLICE)
+    return WgmmaPlan(f, k, n, k_pad(k), n_pad(n), -(-k // WG_LANES), gy, -(-f // gy),
+                     box_rows, a_box, 2, w_ring, WG_SLACK + 2 * a_box + w_ring * WG_W_SLICE
+                     + WG_OUT)
+
+
+def bf16_layer_plan(f: int, k: int, n: int, first: bool = False, last: bool = False):
+    """The bf16 chain's plan for one layer, which names its stage: a middle
+    layer at n > 64 takes the wgmma stage (``wgmma_layer_plan``), every
+    other layer ``tc_stage.cuh`` (``tc_layer_plan``). A pure function of
+    the shape."""
+    if not first and not last and n_pad(n) > 64:
+        return wgmma_layer_plan(f, k, n)
+    return tc_layer_plan(f, k, n, first, last)
+
+
 def tc_fused_plan(c: int, layers):
     """Shared bytes of the bf16 fused kernel for ``layers`` = ((f, k, n),
     ...) at a TILE_H x TILE_W output tile, or None where they exceed the
@@ -328,7 +412,8 @@ def route(c: int, layers, elem: int = 4):
     channels at ``elem`` bytes an element (4: f32, 2: the bf16 stream).
     f32: ``("fused", (wbuf, smem))`` (``smem_plan``) for a stack the
     fused kernel takes, else ``("chain", [LayerPlan, ...])`` (``layer_plan``). bf16:
-    ``("fused", smem)`` or ``("chain", [TcPlan, ...])``. The fused kernels take 3-layer stacks
+    ``("fused", smem)`` or ``("chain", [TcPlan or WgmmaPlan, ...])``
+    (``bf16_layer_plan``). The fused kernels take 3-layer stacks
     with c ≤ 4 and n_out ≤ 4 whose tiles fit one block. Raises
     NotImplementedError for a stack neither kernel takes."""
     fits = len(layers) == 3 and c <= 4 and layers[-1][2] <= 4
@@ -337,7 +422,7 @@ def route(c: int, layers, elem: int = 4):
         if smem is not None:
             return "fused", smem
         last = len(layers) - 1
-        return "chain", [tc_layer_plan(*layer, first=i == 0, last=i == last)
+        return "chain", [bf16_layer_plan(*layer, first=i == 0, last=i == last)
                          for i, layer in enumerate(layers)]
     plan = smem_plan(c, layers) if fits else None
     if plan is not None:

@@ -8,8 +8,8 @@ runs on. Here the same question is asked of the H100:
   ``csrc/parity_copy.cu`` kernel (``layout.parity_copy``);
 * ``winograd`` (``tools/winograd_probe.py``): Winograd F(2x2,3x3) against
   the direct ("sep") form of a 3x3 ReLU layer at the RGB model's k=64/128
-  widths, through the ``csrc/winograd.cu`` kernel and the shipped
-  ``conv_layer_forward_bf16``;
+  widths, through the ``csrc/winograd.cu`` kernel and the shipped direct
+  layer (``conv_layer_forward_wgmma`` at n > 64);
 * ``wino5`` (``tools/wino5_probe.py``): denser forms of the flagship's
   conv2 (f=5, 64→32) in the half-resolution quad domain, the dense quad
   dot in three tap groupings and a 1-D F(2,5) row Winograd, against the

@@ -6,10 +6,12 @@ direct ("sep") form at the RGB model's big layers, 64→128, 128→128 and
 128→64. The variants, all bf16 operands with f32 sums and a bf16 ReLU
 output:
 
-* ``sep``: the shipped direct kernel, ``conv_layer_forward_bf16``
-  (``csrc/conv_layer.cu`` through ``chain.layer_forward``: the
-  tensor-core implicit GEMM of ``csrc/tc_stage.cuh``), NHWC out; it
-  takes any odd f (``probes/wino5.py`` runs it at f=5);
+* ``sep``: the shipped direct kernel through ``chain.layer_forward``:
+  at n > 64 (64→128, 128→128) ``conv_layer_forward_wgmma``
+  (``csrc/conv_wgmma.cu``, TMA-fed ``wgmma``), at 128→64
+  ``conv_layer_forward_bf16`` (the ``mma.sync`` implicit GEMM of
+  ``csrc/tc_stage.cuh``), NHWC out; it takes any odd f
+  (``probes/wino5.py`` runs it at f=5);
 * ``wino`` / ``winoF``: ``winograd_f2x3`` in mode "direct" / "factored"
   (``csrc/winograd.cu``: the 16 position GEMMs on the tensor cores) on the
   parity input ``layout.pack_rows_cols``, with the input transform in the
@@ -305,10 +307,11 @@ def sep_plain(act: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
 def sep(act: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """The direct form: ``act`` (R, C, k) bf16 through the f×f bf16 weights
     ``g`` (f, f, k, n), f odd, with a zero bias and ReLU into (R−f+1,
-    C−f+1, n) bf16. On CUDA tensors one launch of the shipped
-    ``conv_layer_forward_bf16`` (the tensor-core layer) as a middle layer of
-    the stream, over ``g`` packed once (``entry.packed_bf16``; counted in
-    ``chain.LAUNCHES_BF16``); on CPU tensors its plain version."""
+    C−f+1, n) bf16. On CUDA tensors one launch of the shipped tensor-core
+    layer as a middle layer of the stream (``entry.bf16_layer_plan``: the
+    wgmma stage at n > 64, else ``conv_layer_forward_bf16``), over ``g``
+    packed once (``entry.packed_bf16``; counted in ``chain.LAUNCHES_BF16``);
+    on CPU tensors its plain version."""
     f = _check_sep(act, g)
     if act.device.type == "cpu":
         return sep_plain(act, g)
@@ -321,7 +324,7 @@ def sep(act: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     if bias is None:
         bias = g._sep_bias = torch.zeros(n, dtype=torch.float32, device=act.device)
     wp, bp = entry.packed_bf16(g, bias, first=False)
-    plan = entry.tc_layer_plan(f, k, n)
+    plan = entry.bf16_layer_plan(f, k, n)
     with torch.cuda.device(act.device):
         stream = torch.cuda.current_stream().cuda_stream
         chain.layer_forward(load_library(), act[None], wp, bp, dst, plan, first=False,

@@ -189,11 +189,16 @@ def test_bf16_shared_memory_plan_matches_the_design():
         8, 8, 8, 16, 16, 32, 64, 128, 128, 256]
     assert [entry.k_pad(k) for k in (8, 16, 32, 128)] == [16, 16, 32, 128]
     assert [entry.kx_lanes(f, c) for f, c in ((9, 1), (3, 3), (3, 1), (9, 4))] == [16, 16, 16, 48]
-    # the chain's k=128 layer: an 18²·(128+8) window (88,128 bytes) and
-    # two stages of two taps of 128·(128+8) weights
-    plan = entry.tc_layer_plan(3, 128, 128)
-    assert (plan.kc, plan.tps) == (128, 2)
-    assert plan.smem == 2 * (18 * 18 * 136 + 2 * 2 * 128 * 136) == 227_392 <= entry.SMEM_LIMIT
+    # the chain's k=128 middle layer takes the wgmma stage: two A boxes of
+    # 18 rows x 16 columns x 64 lanes, five W slices of 64 x 128, the
+    # 16x16x128 output staging and 1,536 bytes of alignment and mbarriers;
+    # the mma.sync stage no longer takes it
+    plan = entry.bf16_layer_plan(3, 128, 128)
+    assert (plan.a_ring, plan.w_ring, plan.chunks) == (2, 5, 2)
+    assert plan.smem == 1536 + 2 * 18 * 16 * 128 + 5 * 64 * 128 * 2 + 256 * 128 * 2
+    assert plan.smem == 222_720 <= entry.SMEM_LIMIT
+    with pytest.raises(NotImplementedError, match="wgmma stage"):
+        entry.tc_layer_plan(3, 128, 128)
     # a narrow layer keeps all its weights in one stage, two blocks an SM
     plan = entry.tc_layer_plan(3, 32, 32)
     assert plan.tps == 9 and plan.smem == 2 * (18 * 18 * 40 + 9 * 32 * 40) <= entry.SMEM_LIMIT // 2
