@@ -3,12 +3,13 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernels from ``cnn_sr_tpu_torch/csrc`` (``fused_srcnn.cu``,
-the 3-layer luma stack in one launch, and ``conv_layer.cu``, the layer
-chain, one launch per layer, each in f32 on the CUDA cores
-(``ffma_stage.cuh``) and in the bf16 stream on the tensor cores
-(``tc_stage.cuh``, ``mma.sync``; the chain's middle layers at n > 64 on
-``conv_wgmma.cu``, ``wgmma`` fed by tensor copies); and the
+Builds the CUDA kernels from ``cnn_sr_tpu_torch/csrc`` (the 3-layer luma
+stack in one launch, ``fused_srcnn.cu`` in f32 on the CUDA cores
+(``ffma_stage.cuh``) and ``fused_wgmma.cu`` in the bf16 stream on the
+tensor cores by ``wgmma``, and ``conv_layer.cu``, the layer chain, one
+launch per layer, in f32 on the CUDA cores and in the bf16 stream on the
+tensor cores (``tc_stage.cuh``, ``mma.sync``; the chain's middle layers
+at n > 64 on ``conv_wgmma.cu``, ``wgmma`` fed by tensor copies); and the
 probes' ``winograd.cu``, ``parity_copy.cu``, ``wino5.cu``, ``rowpair.cu``
 and ``xpack.cu``, of which ``winograd.cu`` and ``wino5.cu`` run on the
 tensor cores by ``mma.sync`` and ``rowpair.cu`` and ``xpack.cu`` by
@@ -26,13 +27,19 @@ of the six probes (``cnn_sr_tpu_torch.probes``). Phases, one line each:
 2. build: each source's ptxas report, the registers of the f32 fused
    kernel, of every f32 chain kernel instance and of every ``winograd.cu``
    and ``wino5.cu`` instance (as many as their plans make; none may
-   spill), and the HMMA instructions in the SASS of each bf16 entry point's
+   spill), and the HMMA instructions in the SASS of the bf16 chain's
    kernels, of ``winograd_f2x3_forward``'s and of ``wino5_forward``'s, in
    each of its four modes (``cuobjdump -sass``), > 0; ``rowpair_kernel``'s
    four instances and ``tap_gemm_kernel``'s six (registers and spills:
    none, beside their plans' dynamic shared bytes), ``conv_layer_wgmma_kernel``
-   (the same, at the RGB L5 and L6 plans) and the HGMMA (``wgmma``) in the
-   SASS of each, > 0;
+   (the same, at the RGB L5 and L6 plans), ``fused_wgmma_kernel`` and
+   ``wgmma_desc_probe_kernel`` (the same, the fused plan at the flagship,
+   9-1-5 and RGB 3-layer stacks, and ptxas's injected ``warpgroup.arrive``
+   count) and the HGMMA (``wgmma``) in the SASS of each, > 0; then the
+   shifted-descriptor check (``descriptor_check``): one ``wgmma`` whose A
+   starts 1, 7 and 23 positions into a tile, in the no-swizzle planes the
+   fused kernel reads (raster and 8 x 8 patch) and in 128-byte swizzled
+   rows with the matrix-base offset, equal to numpy's product;
 3. kernel vs plain, f32: the fused kernel at the flagship (pretrained)
    and 9-1-5 (random, seed 0) stacks; the chain at the RGB (pretrained)
    stack, a ragged batch of two, the wide 9-5-5 and a 4-layer stack with
@@ -41,7 +48,8 @@ of the six probes (``cnn_sr_tpu_torch.probes``). Phases, one line each:
    magnitude, because the f32 sums (up to 1,600 terms a layer in the
    fused kernel, 1,152 a layer over seven layers in the chain) are taken
    in another order; and bf16: the fused kernel at the flagship, a
-   ragged batch of two and the 9-1-5; the chain at the RGB stack, a
+   ragged batch of two, the 9-1-5, the narrow 9-5-5 (n = 8) in a batch of
+   three and the 3-layer RGB stack; the chain at the RGB stack, a
    ragged batch (both with L5 and L6 on the wgmma stage), the same 4-layer
    stack and a 4-layer stack with two wgmma layers (64 -> 256, and f=9 over
    256 channels to 128). Max |kernel − plain| ≤ 2^-7
@@ -573,20 +581,70 @@ def wgmma_build(log: str) -> None:
     print("[build] conv_wgmma.cu ptxas remarks on wgmma: " + (" | ".join(remarks) or "none"))
 
 
+def fused_wgmma_build(log: str) -> None:
+    """[build]: ``fused_wgmma_kernel`` (the bf16 fused kernel, one instance)
+    and ``wgmma_desc_probe_kernel`` from ptxas: registers and spills (none
+    allowed), beside the dynamic shared bytes of the kernel's plan at the
+    flagship, the 9-1-5 and the 3-layer RGB stack; and how many times ptxas
+    says it injected a ``warpgroup.arrive`` before a ``wgmma`` (C7519)."""
+    for key, what in (("fused_wgmma_kernel", "bf16 fused kernel"),
+                      ("wgmma_desc_probe_kernel", "descriptor probe")):
+        kernels = build.ptxas_entries(log, key)
+        check(len(kernels) == 1, f"fused_wgmma.cu: {len(kernels)} {key} instances in the ptxas "
+              "report, expected 1")
+        name, regs, spill = kernels[0]
+        plans = {what: entry.fused_wgmma_plan(c, layers) for what, c, layers in (
+            ("flagship", 1, [(9, 1, 64), (5, 64, 32), (5, 32, 1)]),
+            ("9-1-5", 1, [(9, 1, 64), (1, 64, 32), (5, 32, 1)]),
+            ("RGB 3-layer", 3, [(3, 3, 16), (3, 16, 8), (3, 8, 3)]))}
+        shared = ("; dynamic shared memory (plan) " + ", ".join(
+            f"{w} {p.smem} bytes ({p.tile}x{p.tile} tile, {p.ring} w2 slots)"
+            for w, p in plans.items())) if key == "fused_wgmma_kernel" else ""
+        print(f"[build] fused_wgmma.cu ({what}) {name}: {regs} registers; {spill}{shared}")
+        check(" 0 bytes spill stores, 0 bytes spill loads" in spill,
+              f"fused_wgmma.cu {name} spills: {spill}")
+    injected = sum("C7519" in ln and "fused_wgmma_kernel" in ln for ln in log.splitlines())
+    print(f"[build] fused_wgmma.cu ptxas remarks on wgmma: {injected} warpgroup.arrive injected "
+          "(C7519) in fused_wgmma_kernel")
+
+
+def descriptor_check(smi, dev) -> None:
+    """[build] the shifted descriptor: one ``wgmma`` m64n32k16 by
+    ``wgmma_desc_probe`` whose A starts 1, 7 and 23 positions into a tile
+    (``ops.fused.wgmma_probe.cases``), against numpy's product (small
+    integers: exact). The forms the fused kernel reads (no-swizzle planes as
+    64 raster rows and as an 8 x 8 patch, B K-major) must equal it; every
+    form's outcome is printed."""
+    from cnn_sr_tpu_torch.ops.fused import wgmma_probe
+
+    seen = {}
+    for k in (1, 7, 23):
+        for case in wgmma_probe.cases(k):
+            err = float(np.abs(wgmma_probe.product(case, dev) - case.want).max())
+            name = case.name.replace(f"base offset {k % 8}", "base offset = start row % 8")
+            outcome = "exact" if err == 0 else f"max err {err:g}"
+            seen.setdefault(name, []).append(f"k={k}: {outcome}")
+            if case.name.startswith("no swizzle") and case.b_kmajor:
+                check(err == 0, f"descriptor probe {case.name} at k={k}: max err {err}")
+    print(f"[build] {smi} | shifted wgmma descriptor (A starts k positions into a "
+          f"{wgmma_probe.POSITIONS}-position tile, one m64n32k16): "
+          + "; ".join(f"{name} {', '.join(v)}" for name, v in seen.items()))
+
+
 def sass_hmma() -> tuple:
     """HMMA instructions in the SASS of each bf16 entry point's kernels in
     the built library (``cuobjdump -sass``, beside ``nvcc``), the Winograd
     layer's six instances among them, and of ``wino5_forward``'s, in all
     and in each mode's instance; and the HGMMA (``wgmma``) instructions in
-    ``rowpair_gemm``'s, ``conv_layer_forward_wgmma``'s and in each of
+    ``rowpair_gemm``'s, ``conv_layer_forward_wgmma``'s,
+    ``fused_srcnn_forward_bf16``'s (all three of its layers) and in each of
     ``tap_gemm_bf16``'s six instances (N = 32, 64, 128, resident or through
     the ring): the proof that they run on the tensor cores.
     Returns ``({entry point: HMMA}, {kernel: HGMMA})``."""
     tool = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
     sass = subprocess.run([tool, "-sass", build.library_path()], capture_output=True, text=True,
                           check=True, timeout=300).stdout
-    kernel = {"fused_srcnn_tc_kernel": ["fused_srcnn_forward_bf16"],
-              "conv_layer_tc_kernel": ["conv_layer_forward_bf16"],
+    kernel = {"conv_layer_tc_kernel": ["conv_layer_forward_bf16"],
               "winograd_kernel": ["winograd_f2x3_forward"],
               **{f"wino5_quad_kernelILi{code}E": ["wino5_forward", f"wino5_forward {mode}"]
                  for code, mode in enumerate(("quad", "quadp", "quad1"))},
@@ -594,6 +652,7 @@ def sass_hmma() -> tuple:
     counts = {name: 0 for names in kernel.values() for name in names}
     wgmma = {"rowpair_kernel": "rowpair_gemm",
              "conv_layer_wgmma_kernel": "conv_layer_forward_wgmma",
+             "fused_wgmma_kernel": "fused_srcnn_forward_bf16",
              **{f"tap_gemm_kernelILi{n}ELb{ring}E": f"tap_gemm_bf16 N={n} "
                 + ("ring" if ring else "resident") for n in (32, 64, 128) for ring in (0, 1)}}
     hgmma = {name: 0 for name in wgmma.values()}
@@ -1834,7 +1893,7 @@ def profile_phase(smi, work) -> None:
     """[profile]: ``cnn_torch.py ... profile`` (``cli.main`` in this process)
     on one 1920x1080 PNG through the flagship checkpoint in bf16
     (``--pallas``) and f32 and the RGB checkpoint in bf16 and f32, each
-    with ``--trace-dir``: rc 0; exactly one ``fused_srcnn_tc_kernel``, one
+    with ``--trace-dir``: rc 0; exactly one ``fused_wgmma_kernel``, one
     ``fused_srcnn_kernel``, five ``conv_layer_tc_kernel`` and two
     ``conv_layer_wgmma_kernel`` or seven ``conv_layer_kernel`` launches, by
     the ``LAUNCHES*`` counters and by the
@@ -1855,7 +1914,7 @@ def profile_phase(smi, work) -> None:
     src = os.path.join(work, "frame.png")
     write_image(src, make_image(1080, 1920, SEED + 70)[..., :3])
     # each run's kernels and their launches in the op table
-    runs = (("flagship 9-5-5", FLAGSHIP, "bf16", (0, 0, 1, 0, 0), {"fused_srcnn_tc_kernel": 1}),
+    runs = (("flagship 9-5-5", FLAGSHIP, "bf16", (0, 0, 1, 0, 0), {"fused_wgmma_kernel": 1}),
             ("flagship 9-5-5", FLAGSHIP, "f32", (1, 0, 0, 0, 0), {"fused_srcnn_kernel": 1}),
             ("RGB 7-layer", RGB7, "bf16", (0, 0, 0, 7, 2),
              {"conv_layer_tc_kernel": 5, "conv_layer_wgmma_kernel": 2}),
@@ -2102,6 +2161,7 @@ def main() -> int:
                       f"{src} {name} spills: {spill}")
         rowpair_build(info["logs"]["rowpair.cu"])
         wgmma_build(info["logs"]["conv_wgmma.cu"])
+        fused_wgmma_build(info["logs"]["fused_wgmma.cu"])
         xpack_build(info["logs"]["xpack.cu"])
     build.load_library()
     hmma, hgmma = sass_hmma()
@@ -2113,6 +2173,7 @@ def main() -> int:
         check(v > 0, f"{k}: no HMMA in its kernels' SASS")
     for k, v in hgmma.items():
         check(v > 0, f"{k}: no HGMMA in its kernels' SASS")
+    descriptor_check(smi, dev)
 
     cfg = read_config(FLAGSHIP)
     params = params_to_torch(init_params(cfg)[0], dev)
@@ -2156,7 +2217,11 @@ def main() -> int:
         kernel_vs_plain("flagship 9-5-5", params, (1, 80, 272, 1), SEED, (0, 0, 1, 0, 0), "bf16"),
         kernel_vs_plain("flagship 9-5-5 ragged", params, (2, 97, 131, 1), SEED + 1,
                         (0, 0, 1, 0, 0), "bf16"),
-        kernel_vs_plain("9-1-5", params915, (1, 80, 272, 1), SEED + 2, (0, 0, 1, 0, 0), "bf16")]
+        kernel_vs_plain("9-1-5", params915, (1, 80, 272, 1), SEED + 2, (0, 0, 1, 0, 0), "bf16"),
+        kernel_vs_plain("narrow 9-5-5 (n = 8)", he([(9, 1, 8), (5, 8, 8), (5, 8, 1)]),
+                        (3, 45, 70, 1), SEED + 8, (0, 0, 1, 0, 0), "bf16"),
+        kernel_vs_plain("RGB 3-layer", he([(3, 3, 16), (3, 16, 8), (3, 8, 3)]), (2, 50, 77, 3),
+                        SEED + 9, (0, 0, 1, 0, 0), "bf16")]
     chain_bf16_errs = [
         kernel_vs_plain("chain RGB 7-layer", params_rgb, (1, 80, 272, 3), SEED + 3,
                         (0, 0, 0, 7, 2), "bf16"),
@@ -2244,7 +2309,7 @@ def main() -> int:
         row("conv_layer", "cnn_sr_tpu_torch/csrc/conv_layer.cu",
             "cnn_sr_tpu/ops/pallas_fused/kernel.py:499", rgb_counts[1], chain_errs,
             t_chain, parallel_counts["RGB f32"][1]),
-        row("fused_srcnn_bf16", "cnn_sr_tpu_torch/csrc/fused_srcnn.cu",
+        row("fused_srcnn_bf16", "cnn_sr_tpu_torch/csrc/fused_wgmma.cu",
             "cnn_sr_tpu/ops/pallas_fused/kernel.py:730", serve_counts[2], fused_bf16_errs,
             t_fused_bf16, parallel_counts["flagship bf16"][2]),
         row("conv_layer_bf16", "cnn_sr_tpu_torch/csrc/conv_layer.cu",

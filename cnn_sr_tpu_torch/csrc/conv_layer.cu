@@ -71,12 +71,6 @@
 
 namespace {
 
-// 4 bytes global -> shared by cp.async, or 4 zero bytes where !valid (src-size 0)
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
-               "r"(valid ? 4 : 0));
-}
-
 // One f32 layer: x (N, H, W, K) NHWC, w packed (K, f * f, npad), b (npad),
 // y (N, H - f + 1, W - f + 1, n). blockIdx.x = tile column x N split, .y =
 // tile row, .z = image; blockDim.x = the plan's items; p: the layer's

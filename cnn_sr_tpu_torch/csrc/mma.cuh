@@ -1,5 +1,6 @@
 // PTX wrappers of the port's tensor-core kernels (xpack.cu, tc_stage.cuh,
-// winograd.cu, wino5.cu, rowpair.cu): cp.async copies into shared memory, ldmatrix
+// winograd.cu, wino5.cu, rowpair.cu, fused_wgmma.cu; conv_layer.cu's f32
+// chain takes cp_async4): cp.async copies into shared memory, ldmatrix
 // fragment loads, the bf16 mma.sync m16n8k16 with f32 sums, and the named
 // barriers and mbarriers of the warp-specialised blocks. One copy of each,
 // included where used.
@@ -18,6 +19,12 @@ __device__ __forceinline__ unsigned smem_addr(const void* p) {
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
                "r"(valid ? 16 : 0));
+}
+
+// 4 bytes global -> shared, or 4 zero bytes where !valid (src-size 0)
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(valid ? 4 : 0));
 }
 
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }

@@ -1,9 +1,9 @@
 // tc_stage: one VALID f x f layer of the bf16 stream on the tensor cores, the
-// stage that both bf16 kernels of this directory are built from
-// (fused_srcnn.cu runs three per block, conv_layer.cu one per launch). The
-// f32 kernels run on ffma_stage.cuh.
+// stage the bf16 chain's kernel is built from (conv_layer.cu, one per
+// launch). The bf16 fused kernel is fused_wgmma.cu; the f32 kernels run on
+// ffma_stage.cuh.
 //
-// Replaces, with the two kernels, the TPU kernel
+// Replaces, with the chain's kernels, the TPU kernel
 // cnn_sr_tpu/ops/pallas_fused/kernel.py:_fused_tail_single (pl.pallas_call
 // at kernel.py:730) in its bf16-stream / int8-plane mode (entry.py:32
 // fused_forward with dtype=bf16, input_int8=True) and the branches named in
@@ -22,11 +22,13 @@
 //   shared memory: no tap re-reads its window from L2.
 // * Taps are address offsets: ldmatrix takes one row address per lane, so
 //   tap (dy, dx) of output position (y, x) is window row (y + dy, x + dx),
-//   an offset and no copy. A wgmma shared-memory descriptor needs the
-//   canonical 8x8 core-matrix layout, which a shift by one position
-//   breaks; the chain's middle layers at n > 64 therefore run on
-//   conv_wgmma.cu, where one tensor copy per dx lands a box whose dy
-//   shifts are whole swizzle atoms. This stage keeps the layers where
+//   an offset and no copy. (A wgmma descriptor takes a start shifted by a
+//   position too, in the no-swizzle layout or by the 128-byte swizzle's own
+//   address bits, but not this window's rows of K + 8 lanes: fused_wgmma.cu
+//   keeps its activations in planes of 8 lanes for that.) The chain's
+//   middle layers at n > 64 run on conv_wgmma.cu, where one tensor copy per
+//   dx lands a box whose dy shifts are whole swizzle atoms. This stage keeps
+//   the layers where
 //   mma.sync is not what binds: the first (its dx-expanded window is
 //   quantised by the threads as they load it), the middles at n <= 64
 //   (two or more blocks an SM; RGB L2-L4 ahead of cuDNN bf16) and the last
@@ -54,8 +56,7 @@
 //
 // Measured (chip_smoke.py, NVIDIA H100 80GB HBM3, 700 W), 1080p: the RGB
 // stack's five layers on this stage 0.27-0.72 ms a layer (with L5 and L6 on
-// conv_wgmma.cu the stack takes 3.44 ms; cuDNN bf16 6.95), the flagship in
-// the fused kernel 3.26 ms (cuDNN bf16 4.11).
+// conv_wgmma.cu the stack takes 3.44 ms; cuDNN bf16 6.95).
 #pragma once
 
 #include <cuda_bf16.h>

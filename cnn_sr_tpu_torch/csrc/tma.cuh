@@ -1,7 +1,8 @@
 // Tensor copies (TMA) of the port's kernels (winograd.cu, rowpair.cu,
-// xpack.cu): the PTX wrappers of the copies between global and shared
-// memory, their bulk groups and mbarrier transaction counts, and the host
-// side that encodes a tensor map. One copy of each, included where used;
+// xpack.cu, conv_wgmma.cu) and bulk copies (fused_wgmma.cu): the PTX
+// wrappers of the copies between global and shared memory, their bulk
+// groups and mbarrier transaction counts, and the host side that encodes a
+// tensor map. One copy of each, included where used;
 // the other barriers and smem_addr are mma.cuh's.
 #pragma once
 
@@ -61,6 +62,17 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, i
       "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_addr(dst)),
       "l"(reinterpret_cast<unsigned long long>(map)), "r"(c0), "r"(c1), "r"(smem_addr(bar))
+      : "memory");
+}
+// a bulk copy global -> shared of `bytes` contiguous bytes (a multiple of
+// 16, both ends 16-byte aligned), counted off the mbarrier as it lands: no
+// tensor map
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, unsigned bytes,
+                                          unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
       : "memory");
 }
 __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, int c0, int c1,

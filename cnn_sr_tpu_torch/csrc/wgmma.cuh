@@ -1,9 +1,11 @@
 // PTX wrappers of the warpgroup MMA (wgmma, sm_90a) of the port's kernels
-// (rowpair.cu, xpack.cu, conv_wgmma.cu): the shared-memory matrix
-// descriptors, the fence, commit and wait of the asynchronous products, the
-// register hand-over between warpgroups (setmaxnreg), and the bf16 products with
-// f32 sums at m64 n32 / n64 / n128 k16, A from shared memory or from
-// registers, B from shared memory. One copy of each, included where used.
+// (rowpair.cu, xpack.cu, conv_wgmma.cu, fused_wgmma.cu): the shared-memory
+// matrix descriptors, the fence, commit and wait of the asynchronous products,
+// the register hand-over between warpgroups (setmaxnreg), and the bf16
+// products with f32 sums at m64 n32 / n64 / n128 k16, A from shared memory or
+// from registers, B from shared memory (MN-major); and at m64 n8 ... n128 k16
+// with both operands K-major in shared memory (wgmma_kk). One copy of each,
+// included where used.
 #pragma once
 
 namespace {
@@ -14,9 +16,13 @@ namespace {
 // leading and the stride byte offsets (LBO, SBO) and the 128-byte swizzle.
 // A K-major operand (rows of K) reads 8-row groups SBO apart (LBO unused);
 // an MN-major one (rows of M or N) reads 64-element MN blocks LBO apart and
-// 8-row K groups SBO apart. The swizzle's period is 1024 bytes: the atoms
-// must start 1024-aligned, and a start within a row (the k16 steps of a
-// K-major operand) moves by 32 bytes.
+// 8-row K groups SBO apart. The swizzle's period is 1024 bytes and comes
+// from the address's own bits: a buffer swizzled from a 1024-aligned base
+// (as the tensor copies write it) reads right from a start at any of its
+// rows with the matrix-base offset (bits 49-51) 0, and wrong with the
+// offset set to the start's row in the period (the card test of
+// tests/test_torch_fused_wgmma.py). A start within a row (the k16 steps of
+// a K-major operand) moves by 32 bytes.
 __device__ __forceinline__ unsigned long long wgmma_desc(unsigned addr, unsigned lbo,
                                                          unsigned sbo) {
   return static_cast<unsigned long long>((addr & 0x3ffff) >> 4) |
@@ -179,6 +185,197 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64], const unsign
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
         "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+
+// The descriptor of a bf16 K-major operand in no-swizzle (interleave) mode:
+// a core matrix is 8 rows of 16 bytes (8 lanes of K) stored contiguously,
+// 128 bytes; the K-adjacent core matrix lies LBO bytes on, the next 8 rows
+// SBO bytes on. The start need only be 16-byte aligned, so an operand may
+// begin at any row of a buffer of such rows: fused_wgmma.cu keeps its
+// activations as planes of 8 lanes, one 16-byte row a position, and a tap
+// (dy, dx) is a start dy * width + dx rows on.
+__device__ __forceinline__ unsigned long long wgmma_desc_interleave(unsigned addr, unsigned lbo,
+                                                                    unsigned sbo) {
+  return static_cast<unsigned long long>((addr & 0x3ffff) >> 4) |
+         (static_cast<unsigned long long>((lbo >> 4) & 0x3fff) << 16) |
+         (static_cast<unsigned long long>((sbo >> 4) & 0x3fff) << 32);
+}
+
+// d (the m64 x nN f32 accumulator fragment) += A (64 x 16) @ B (16 x N),
+// bf16, both operands K-major in shared memory by their descriptors (B's
+// rows are its N columns, 16 lanes of K each: the wgmma's untransposed
+// form); scale_d = 0 overwrites d instead. N = 8, 16, 32, 64, 128.
+template <int N>
+__device__ __forceinline__ void wgmma_kk(float (&d)[N / 2], unsigned long long desc_a,
+                                         unsigned long long desc_b, int scale_d);
+
+template <>
+__device__ __forceinline__ void wgmma_kk<8>(float (&d)[4], unsigned long long desc_a,
+                                             unsigned long long desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, "
+      "%4, %5, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_kk<16>(float (&d)[8], unsigned long long desc_a,
+                                             unsigned long long desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "%8, %9, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_kk<32>(float (&d)[16], unsigned long long desc_a,
+                                             unsigned long long desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_kk<64>(float (&d)[32], unsigned long long desc_a,
+                                             unsigned long long desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_kk<128>(float (&d)[64], unsigned long long desc_a,
+                                             unsigned long long desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, "
+      "%37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, "
+      "%55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
+        "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// the same with d written, not read: the products overwrite it (scale-d 0).
+// A sum's first product takes this form, so that nothing but the wgmma
+// defines the sum's registers (a move into them would have ptxas
+// serialise the warpgroup's products) and they are not live before it.
+template <int N>
+__device__ __forceinline__ void wgmma_kk_first(float (&d)[N / 2], unsigned long long desc_a,
+                                               unsigned long long desc_b);
+
+template <>
+__device__ __forceinline__ void wgmma_kk_first<8>(float (&d)[4], unsigned long long desc_a,
+                                                   unsigned long long desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, "
+      "%4, %5, p, 1, 1, 0, 0;\n}\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "l"(desc_a), "l"(desc_b), "r"(0));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_kk_first<16>(float (&d)[8], unsigned long long desc_a,
+                                                   unsigned long long desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "%8, %9, p, 1, 1, 0, 0;\n}\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]), "=f"(d[6]),
+        "=f"(d[7])
+      : "l"(desc_a), "l"(desc_b), "r"(0));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_kk_first<32>(float (&d)[16], unsigned long long desc_a,
+                                                   unsigned long long desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]), "=f"(d[6]),
+        "=f"(d[7]), "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]),
+        "=f"(d[14]), "=f"(d[15])
+      : "l"(desc_a), "l"(desc_b), "r"(0));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_kk_first<64>(float (&d)[32], unsigned long long desc_a,
+                                                   unsigned long long desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]), "=f"(d[6]),
+        "=f"(d[7]), "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]),
+        "=f"(d[14]), "=f"(d[15]), "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]), "=f"(d[20]),
+        "=f"(d[21]), "=f"(d[22]), "=f"(d[23]), "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]),
+        "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(0));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_kk_first<128>(float (&d)[64], unsigned long long desc_a,
+                                                   unsigned long long desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, "
+      "%37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, "
+      "%55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]), "=f"(d[6]),
+        "=f"(d[7]), "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]),
+        "=f"(d[14]), "=f"(d[15]), "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]), "=f"(d[20]),
+        "=f"(d[21]), "=f"(d[22]), "=f"(d[23]), "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]),
+        "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31]), "=f"(d[32]), "=f"(d[33]), "=f"(d[34]),
+        "=f"(d[35]), "=f"(d[36]), "=f"(d[37]), "=f"(d[38]), "=f"(d[39]), "=f"(d[40]), "=f"(d[41]),
+        "=f"(d[42]), "=f"(d[43]), "=f"(d[44]), "=f"(d[45]), "=f"(d[46]), "=f"(d[47]), "=f"(d[48]),
+        "=f"(d[49]), "=f"(d[50]), "=f"(d[51]), "=f"(d[52]), "=f"(d[53]), "=f"(d[54]), "=f"(d[55]),
+        "=f"(d[56]), "=f"(d[57]), "=f"(d[58]), "=f"(d[59]), "=f"(d[60]), "=f"(d[61]), "=f"(d[62]),
+        "=f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(0));
 }
 
 }  // namespace

@@ -160,6 +160,9 @@ def load_library() -> ctypes.CDLL:
     lib.rowpair_gemm.restype = i
     lib.tap_gemm_bf16.argtypes = [p] * 3 + [i] * 8 + [ctypes.POINTER(i), i, i, p]
     lib.tap_gemm_bf16.restype = i
+    ull = ctypes.c_ulonglong
+    lib.wgmma_desc_probe.argtypes = [p, i, p, i, ull, ull, i, p, p]
+    lib.wgmma_desc_probe.restype = i
     lib.cnn_sr_error_string.argtypes = [i]
     lib.cnn_sr_error_string.restype = ctypes.c_char_p
     return lib

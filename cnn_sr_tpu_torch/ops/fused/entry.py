@@ -4,9 +4,10 @@ Counterpart of ``cnn_sr_tpu/ops/pallas_fused/entry.py:fused_forward``.
 Two hand-written kernels share the work, each in two precisions, chosen
 by ``route``, a pure function of the shapes:
 
-* ``csrc/fused_srcnn.cu``, the whole stack in one launch, for 3-layer
-  stacks with c_in <= 4 and n_out <= 4 whose tiles fit one block's shared
-  memory (the luma models: flagship 9-5-5, 9-1-5);
+* ``csrc/fused_srcnn.cu`` (f32) and ``csrc/fused_wgmma.cu`` (bf16), the
+  whole stack in one launch, for 3-layer stacks with c_in <= 4 and n_out
+  <= 4 whose tiles fit one block's shared memory (the luma models:
+  flagship 9-5-5, 9-1-5);
 * ``csrc/conv_layer.cu`` through ``chain.chain_forward``, one launch per
   layer, for every other well-formed stack (the 7-layer RGB model).
 
@@ -14,11 +15,12 @@ by ``route``, a pure function of the shapes:
 ``csrc/ffma_stage.cuh`` with weights packed once by ``pack_f32`` (the
 chain's plan per layer: ``layer_plan``). ``precision="bf16"``
 runs the JAX package's bf16 stream with the int8 first layer
-(``reference`` states the numbers) on the tensor cores
-(``csrc/tc_stage.cuh``; the chain's middle layers at n > 64 on
-``csrc/conv_wgmma.cu``), with its own plans (``bf16_layer_plan``,
-``tc_fused_plan``) and its weights packed tap-major
-(``pack_bf16``), on the JAX rule of where that stream applies
+(``reference`` states the numbers) on the tensor cores (the fused
+kernel on ``wgmma``; the chain on ``csrc/tc_stage.cuh``, its middle
+layers at n > 64 on ``csrc/conv_wgmma.cu``), with its own plans
+(``bf16_layer_plan``, ``fused_wgmma_plan``) and its weights packed
+tap-major (``pack_bf16``; the fused kernel takes them tiled into its
+shared-memory image, ``fused_weights``), on the JAX rule of where that stream applies
 (``bf16_envelope``): elsewhere JAX runs its XLA f32 forward, and so this
 takes its f32 route. A stack may take the fused kernel in f32 and the
 chain in bf16 (the wide 9-5-5: its bf16 tiles do not fit one block).
@@ -218,10 +220,10 @@ def _layer_plan(f: int, k: int, n: int, shape) -> LayerPlan:
         f"({'one stage' if k == 1 else 'two stages'}; > {SMEM_LIMIT})")
 
 
-# The bf16 kernels (tensor cores, csrc/tc_stage.cuh): padded widths, the
-# chain's plan per layer and the fused kernel's shared bytes. The C side
-# recomputes the same layout and refuses a launch whose shared bytes fall
-# short of it.
+# The bf16 kernels (tensor cores): padded widths, the chain's plan per
+# layer (csrc/tc_stage.cuh, csrc/conv_wgmma.cu) and the fused kernel's
+# (csrc/fused_wgmma.cu). The C side recomputes the same plans and refuses a
+# launch whose shared bytes fall short of them.
 
 def n_pad(n: int) -> int:
     """A layer's N on the tensor cores: 8, 16, 32, 64 or a multiple of 128
@@ -386,25 +388,113 @@ def bf16_layer_plan(f: int, k: int, n: int, first: bool = False, last: bool = Fa
     return tc_layer_plan(f, k, n, first, last)
 
 
-def tc_fused_plan(c: int, layers):
-    """Shared bytes of the bf16 fused kernel for ``layers`` = ((f, k, n),
-    ...) at a TILE_H x TILE_W output tile, or None where they exceed the
-    block limit or a width exceeds one block's 128 columns: the first
-    layer's dx-expanded window and w1 (then w2's stages of one kernel row,
-    in the same bytes), the conv1 and conv2 tiles position-major in rows of
-    K + 8 lanes, and w3."""
+# The bf16 fused kernel (csrc/fused_wgmma.cu, its plan
+# csrc/fused_wgmma_plan.cuh): three consumer warpgroups, conv2 tiles of at
+# most 32 x 32 positions in 8 x 8 patches, at most 96 conv2 sums a thread,
+# at most 8 w2 tap slices in flight.
+FW_CONSUMERS = 3  # kFwConsumers
+FW_MAX_A2 = 32  # kFwMaxA2
+FW_MIN_A2 = 24  # kFwMinA2: below it the halo recompute outweighs what fusion saves
+FW_ACC_FLOATS = 96  # kFwAccFloats
+FW_MAX_RING = 8  # kFwMaxRing
+FW_BAR_BYTES = 8 * (3 + 2 * FW_MAX_RING)  # kFwBarBytes
+
+
+class FusedWgmmaPlan(NamedTuple):
+    """One bf16 fused launch (``fused_srcnn_forward_bf16``), as
+    ``fused_wgmma_plan`` in ``csrc/fused_wgmma_plan.cuh`` computes it: the
+    stack; conv1's K a dy tap (the window's lanes) and N, conv2's K and N,
+    conv3's K and N (its f3 dx taps side by side, ``n_pad(f3·n3)``
+    columns); the output tile's side, the conv2 tile's (a2, a multiple of
+    8) and the conv1 tile's (a1), the window's rows (a1 wide); conv1's
+    raster chunks of 64 positions, conv2's 8 x 8 patches and a warpgroup's
+    share of them, conv3's raster chunks (the output rows a2 wide); the
+    positions the window and a2 hold (the chunks read past the tiles); and
+    the shared bytes: window (later a2, ``r0``) | w1 | a1 (later conv3's
+    f32 sums of ``e_bytes``, ``r1``) | w3 | the next tile's input pixels,
+    f32 (``raw_bytes``) | ``ring`` w2 tap slices | mbarriers, ``smem`` in
+    all."""
+    c: int
+    f1: int
+    n1: int
+    f2: int
+    n2: int
+    f3: int
+    n3: int
+    kx: int
+    n1p: int
+    k2: int
+    n2p: int
+    k3: int
+    n3p: int
+    tile: int
+    a2: int
+    a1: int
+    ih: int
+    chunks1: int
+    patches: int
+    per_wg: int
+    chunks3: int
+    win_pos: int
+    a2_pos: int
+    win_bytes: int
+    w1_bytes: int
+    a2_bytes: int
+    r0: int
+    a1_bytes: int
+    e_bytes: int
+    r1: int
+    w3_bytes: int
+    raw_bytes: int
+    slice: int
+    ring: int
+    smem: int
+
+
+def fused_wgmma_plan(c: int, layers):
+    """The bf16 fused kernel's plan for ``layers`` = ((f, k, n), ...) over
+    ``c`` input channels, or None for a stack it does not take (c outside 1
+    .. 4, n1 padded past 128, f3·n3 past 32, or no conv2 tile whose
+    patches fit a warpgroup's sums and whose buffers fit ``SMEM_LIMIT``
+    beside two w2 slots). The larger conv2 tile a2 of 32 and 24 that fits
+    is taken; the output tile is a2 − f3 + 1."""
     (f1, _, n1), (f2, _, n2), (f3, _, n3) = layers
-    if n_pad(n1) > 128 or n_pad(n2) > 128 or n3 > 8:
+    if not (1 <= c <= 4 and min(f1, f2, f3, n1, n2, n3) >= 1 and f3 * n3 <= 32):
         return None
-    a2 = TILE_H + f3 - 1
-    a1 = a2 + f2 - 1
-    ih = a1 + f1 - 1
-    kx, l1, l2 = kx_lanes(f1, c), k_pad(n1), k_pad(n2)
-    head = ih * a1 * (kx + 8) + f1 * kx * w_stride(n_pad(n1))
-    w2_stages = (2 if f2 > 1 else 1) * f2 * l1 * w_stride(n_pad(n2))
-    total = 2 * (max(head, w2_stages) + a1 * a1 * (l1 + 8) + a2 * a2 * (l2 + 8)
-                 + f3 * f3 * l2 * 8)
-    return total if total <= SMEM_LIMIT else None
+    kx, n1p, k2, n2p, k3 = kx_lanes(f1, c), n_pad(n1), k_pad(n1), n_pad(n2), k_pad(n2)
+    n3p = n_pad(f3 * n3)
+    if n1p > 128:
+        return None
+    taps2 = f2 * f2
+    for a2 in range(FW_MAX_A2, FW_MIN_A2 - 1, -8):
+        tile = a2 - f3 + 1
+        patches = (a2 // 8) ** 2
+        per_wg = -(-patches // FW_CONSUMERS)
+        if tile < 1 or per_wg > min(6, FW_ACC_FLOATS // (n2p // 2)):
+            continue
+        a1 = a2 + f2 - 1
+        ih = a1 + f1 - 1
+        chunks1 = -(-a1 * a1 // 64)
+        chunks3 = -(-tile * a2 // 64)
+        win_pos = max(ih * a1, chunks1 * 64 + (f1 - 1) * a1)
+        a2_pos = max(a2 * a2, chunks3 * 64 + (f3 - 1) * a2)
+        win_bytes, w1_bytes = win_pos * kx * 2, f1 * kx * n1p * 2
+        a2_bytes = a2_pos * k3 * 2
+        r0 = max(win_bytes, a2_bytes)
+        a1_bytes, e_bytes = a1 * a1 * k2 * 2, chunks3 * 64 * n3p * 4
+        r1 = max(a1_bytes, e_bytes)
+        raw_bytes = -(-ih * (a1 + f1 - 1) * c * 4 // 16) * 16
+        w3_bytes = f3 * k3 * n3p * 2
+        slice_ = k2 * n2p * 2
+        fixed = r0 + w1_bytes + r1 + w3_bytes + raw_bytes + FW_BAR_BYTES
+        ring = min(FW_MAX_RING, taps2, (SMEM_LIMIT - fixed) // slice_)
+        if ring < min(2, taps2):
+            continue
+        return FusedWgmmaPlan(c, f1, n1, f2, n2, f3, n3, kx, n1p, k2, n2p, k3, n3p, tile, a2, a1,
+                              ih, chunks1, patches, per_wg, chunks3, win_pos, a2_pos, win_bytes,
+                              w1_bytes, a2_bytes, r0, a1_bytes, e_bytes, r1, w3_bytes, raw_bytes,
+                              slice_, ring, fixed + ring * slice_)
+    return None
 
 
 def route(c: int, layers, elem: int = 4):
@@ -412,15 +502,15 @@ def route(c: int, layers, elem: int = 4):
     channels at ``elem`` bytes an element (4: f32, 2: the bf16 stream).
     f32: ``("fused", (wbuf, smem))`` (``smem_plan``) for a stack the
     fused kernel takes, else ``("chain", [LayerPlan, ...])`` (``layer_plan``). bf16:
-    ``("fused", smem)`` or ``("chain", [TcPlan or WgmmaPlan, ...])``
-    (``bf16_layer_plan``). The fused kernels take 3-layer stacks
-    with c ≤ 4 and n_out ≤ 4 whose tiles fit one block. Raises
-    NotImplementedError for a stack neither kernel takes."""
+    ``("fused", FusedWgmmaPlan)`` (``fused_wgmma_plan``) or ``("chain",
+    [TcPlan or WgmmaPlan, ...])`` (``bf16_layer_plan``). The fused kernels
+    take 3-layer stacks with c ≤ 4 and n_out ≤ 4 whose plans fit one block.
+    Raises NotImplementedError for a stack neither kernel takes."""
     fits = len(layers) == 3 and c <= 4 and layers[-1][2] <= 4
     if elem == 2:
-        smem = tc_fused_plan(c, layers) if fits else None
-        if smem is not None:
-            return "fused", smem
+        plan = fused_wgmma_plan(c, layers) if fits else None
+        if plan is not None:
+            return "fused", plan
         last = len(layers) - 1
         return "chain", [bf16_layer_plan(*layer, first=i == 0, last=i == last)
                          for i, layer in enumerate(layers)]
@@ -558,6 +648,40 @@ def bf16_weights(params):
     return [packed_bf16(layer["w"], layer["b"], i == 0) for i, layer in enumerate(params)]
 
 
+def fused_image(wp: torch.Tensor) -> torch.Tensor:
+    """The bf16 fused kernel's shared-memory image of packed weights
+    ``wp`` (taps, K, N): each tap the K-major wgmma operand in no-swizzle
+    core matrices, ``[K / 8][N / 8][8 columns][8 rows of K]``, so that a tap
+    is one contiguous copy."""
+    taps, k, n = wp.shape
+    return wp.view(taps, k // 8, 8, n // 8, 8).permute(0, 1, 3, 4, 2).contiguous()
+
+
+def pack_fused_last(w: torch.Tensor) -> torch.Tensor:
+    """The bf16 fused kernel's conv3 weights, ``w`` (f, f, k, n) HWIO: f
+    taps (one per dy) of ``k_pad(k)`` x ``n_pad(f·n)``, column ``dx·n + c``
+    of tap dy, row ci holding ``w[dy, dx, ci, c]`` in bf16, zero padding;
+    as ``fused_image``."""
+    f, _, k, n = w.shape
+    wp = torch.zeros((f, k_pad(k), n_pad(f * n)), dtype=torch.bfloat16, device=w.device)
+    wp[:, :k, :f * n] = w.to(torch.bfloat16).permute(0, 2, 1, 3).reshape(f, k, f * n)
+    return fused_image(wp)
+
+
+def fused_weights(params):
+    """The bf16 fused kernel's ``(image, bias)`` of each layer, made once per
+    weight tensor (and again only after ``w`` or ``b`` changes in place):
+    conv1's and conv2's ``fused_image`` of ``packed_bf16``, conv3's
+    ``pack_fused_last``; the biases ``packed_bf16``'s."""
+    out = []
+    for i, layer in enumerate(params):
+        wp, bp = packed_bf16(layer["w"], layer["b"], i == 0)
+        pack = ((lambda wt=layer["w"]: pack_fused_last(wt)) if i == len(params) - 1
+                else (lambda wp=wp: fused_image(wp)))
+        out.append((_packed(layer["w"], layer["b"], "_cnn_sr_bf16_image", i, pack), bp))
+    return out
+
+
 def fused_forward(params, x: torch.Tensor, precision: str = "f32") -> torch.Tensor:
     """(N, H, W, C) f32 → (N, H−s, W−s, n_out) f32, s = Σ(f−1): ReLU on
     every layer but the last. ``params`` is ``[{"w": (f, f, k, n),
@@ -580,14 +704,14 @@ def fused_forward(params, x: torch.Tensor, precision: str = "f32") -> torch.Tens
     shrink = sum(f - 1 for f, _ in dims)
     y = torch.empty((n, h - shrink, w - shrink, dims[2][1]),
                     dtype=torch.float32, device=x.device)
-    operands = bf16_weights(params) if bf16 else f32_weights(params)
+    operands = fused_weights(params) if bf16 else f32_weights(params)
     ptrs = [x.data_ptr()] + [t.data_ptr() for pair in operands for t in pair]
     (f1, n1), (f2, n2), (f3, n3) = dims
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         if bf16:
             err = lib.fused_srcnn_forward_bf16(*ptrs, y.data_ptr(), n, h, w, c, f1, n1, f2, n2,
-                                               f3, n3, plan, stream)
+                                               f3, n3, plan.smem, stream)
         else:
             wbuf, smem = plan
             err = lib.fused_srcnn_forward(*ptrs, y.data_ptr(), n, h, w, c, f1, n1, f2, n2, f3,

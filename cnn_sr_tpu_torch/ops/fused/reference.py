@@ -1,6 +1,7 @@
-"""Plain PyTorch version of both kernels (``csrc/fused_srcnn.cu`` and the
-layer chain ``csrc/conv_layer.cu``), in both precisions, and of one
-tensor-core layer over packed weights (``tap_layer``).
+"""Plain PyTorch version of both kernels (the fused ``csrc/fused_srcnn.cu``
+and, in bf16, ``csrc/fused_wgmma.cu``, and the layer chain
+``csrc/conv_layer.cu``), in both precisions, and of one tensor-core layer
+over packed weights (``tap_layer``).
 
 ``precision="f32"``: a layer loop of ``F.conv2d`` in strict f32 (TF32 off
 for cuDNN and matmuls).

@@ -25,6 +25,10 @@ runs on. Here the same question is asked of the H100:
   128 lanes, as tap lists of one bf16 GEMM on the tensor cores
   (``mma.sync``), the ``csrc/xpack.cu`` kernel (``xpack.tap_gemm``).
 
+``fused_wgmma_parts`` asks no TPU probe's question: it times copies of the
+shipped bf16 fused kernel (``csrc/fused_wgmma.cu``) with the time of each
+phase of a tile, to show where that kernel's time goes.
+
 ``layout`` holds the parity layouts they use. Run a probe with
 ``python -m cnn_sr_tpu_torch.probes.<name>`` (``--device cpu`` for its
 plain version).

@@ -175,13 +175,16 @@ def test_envelope_is_a_function_of_the_shapes():
 
 
 def test_bf16_shared_memory_plan_matches_the_design():
-    # the flagship on the tensor cores, a 16x16 output tile, rows padded by
-    # 16 bytes: the dx-expanded window 32·24·(16+8) and w1 9·16·(64+8)
-    # (57,600 bytes, later w2's two stages of 5·64·(32+8), 51,200), a1
-    # 24²·(64+8), a2 20²·(32+8) and w3 25·32·8, two bytes each
-    assert entry.tc_fused_plan(1, FLAGSHIP) == 2 * (
-        32 * 24 * 24 + 9 * 16 * 72 + 576 * 72 + 400 * 40 + 25 * 32 * 8) == 185_344
-    assert entry.route(1, FLAGSHIP, 2) == ("fused", 185_344)
+    # the flagship on wgmma (csrc/fused_wgmma.cu), a 20x20 output tile in
+    # planes of 8 lanes: a2 608·32 (in the bytes of the dx-expanded window,
+    # 1,056·16), w1 9·16·64, a1 28²·64, w3 5·32·8, two bytes each; the next
+    # tile's 36² pixels in f32, eight w2 slices of 64·32·2 and 152 bytes of
+    # mbarriers
+    plan = entry.fused_wgmma_plan(1, FLAGSHIP)
+    assert plan.smem == (2 * (608 * 32 + 9 * 16 * 64 + 784 * 64 + 5 * 32 * 8) + 4 * 36 * 36
+                         + 8 * 4096 + 152)
+    assert plan.smem == 198_360 and plan.tile == 20
+    assert entry.route(1, FLAGSHIP, 2) == ("fused", plan)
     # padded widths: K to 16, N to 8/16/32/64 or 128s; the first layer's K
     # is its f·c dx lanes to a multiple of 16 (9 -> 16 for f=9 luma and
     # f=3 RGB, 3 -> 16 for f=3 luma)

@@ -157,9 +157,9 @@ def test_library_hash_covers_headers(monkeypatch, tmp_path):
     ``ffma_stage.cuh``): an edited header must rebuild, though only the
     ``.cu`` files are compiled."""
     assert [p.name for p in build._sources()] == ["conv_layer.cu", "conv_wgmma.cu",
-                                                  "fused_srcnn.cu", "parity_copy.cu",
-                                                  "rowpair.cu", "wino5.cu", "winograd.cu",
-                                                  "xpack.cu"]
+                                                  "fused_srcnn.cu", "fused_wgmma.cu",
+                                                  "parity_copy.cu", "rowpair.cu", "wino5.cu",
+                                                  "winograd.cu", "xpack.cu"]
     hashed = [p.name for p in build._hashed_files()]
     assert "ffma_plan.cuh" in hashed and "ffma_stage.cuh" in hashed
     assert "conv_stage.cuh" not in hashed  # the f32 chain runs on ffma_stage.cuh

@@ -45,7 +45,7 @@ def test_op_table_of_a_1080p_bf16_request_names_the_fused_kernel(cuda_device, tm
     prof.stop_trace()
     assert out.shape == (1080, 1920, 3) and entry.LAUNCHES_BF16 == before + 1
     rows = profiling.op_shares(str(tmp_path))
-    fused = [(name, t, n) for name, t, n in rows if "fused_srcnn_tc_kernel" in name]
+    fused = [(name, t, n) for name, t, n in rows if "fused_wgmma_kernel" in name]
     assert len(fused) == 1 and fused[0][2] == 1, rows[:5]
     assert fused[0][1] > 0 and any(name.startswith("Memcpy") for name, _, _ in rows)
     busy = profiling.idle_share(str(tmp_path))

@@ -55,7 +55,7 @@ def test_bf16_plans_fit_and_route(name):
     got, plan = entry.route(c, specs, 2)
     assert got == kind
     if kind == "fused":
-        assert plan == entry.tc_fused_plan(c, specs) <= entry.SMEM_LIMIT
+        assert plan == entry.fused_wgmma_plan(c, specs) and plan.smem <= entry.SMEM_LIMIT
         return
     assert len(plan) == len(specs) and plan[0].first and plan[-1].last
     for i, (p, (f, k, n)) in enumerate(zip(plan, specs)):
@@ -75,11 +75,12 @@ def test_bf16_plans_fit_and_route(name):
 def test_three_layer_stacks_in_bf16(specs, c, kind):
     """Every stack the bf16 route took before still runs in bf16. The wide
     9-5-5 moved from the fused kernel to the chain: its CUDA-core bf16
-    tiles took 200,704 shared bytes, its tensor-core a1 tile alone takes
-    24²·(128+8)·2 = 156,672 beside a 184,320-byte w2 pipeline."""
+    tiles took 200,704 shared bytes; on wgmma its conv2 tile's least side,
+    24, makes an a1 tile of 28²·128·2 = 200,704 bytes, which does not fit
+    beside the window, w3 and two w2 slices."""
     assert entry.route(c, specs, 2)[0] == kind
     if kind == "chain":
-        assert entry.tc_fused_plan(c, specs) is None
+        assert entry.fused_wgmma_plan(c, specs) is None
         assert all(p.smem <= entry.SMEM_LIMIT for p in entry.route(c, specs, 2)[1])
 
 
