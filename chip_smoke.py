@@ -8,8 +8,9 @@ stack in one launch, ``fused_srcnn.cu`` in f32 on the CUDA cores
 (``ffma_stage.cuh``) and ``fused_wgmma.cu`` in the bf16 stream on the
 tensor cores by ``wgmma``, and ``conv_layer.cu``, the layer chain, one
 launch per layer, in f32 on the CUDA cores and in the bf16 stream on the
-tensor cores (its first and last layers on ``tc_stage.cuh``, ``mma.sync``;
-every middle layer on ``conv_wgmma.cu``, ``wgmma`` fed by tensor copies); and the
+tensor cores (its first layer on ``tc_stage.cuh``, ``mma.sync``; every
+middle layer on ``conv_wgmma.cu`` and the last on ``conv_last_wgmma.cu``,
+both ``wgmma`` fed by tensor copies); and the
 probes' ``winograd.cu``, ``parity_copy.cu``, ``wino5.cu``, ``rowpair.cu``
 and ``xpack.cu``, of which ``winograd.cu`` and ``wino5.cu`` run on the
 tensor cores by ``mma.sync`` and ``rowpair.cu`` and ``xpack.cu`` by
@@ -33,7 +34,9 @@ of the six probes (``cnn_sr_tpu_torch.probes``). Phases, one line each:
    four instances and ``tap_gemm_kernel``'s six (registers and spills:
    none, beside their plans' dynamic shared bytes), ``conv_layer_wgmma_kernel``'s
    nine instances (the same, and the HGMMA of each, beside the plans at
-   the RGB L2-L6 and 128 -> 64), ``fused_wgmma_kernel`` and
+   the RGB L2-L6 and 128 -> 64), ``conv_last_wgmma_kernel``'s ten (the
+   same, beside the plans at RGB L7, f = 5 32 -> 1, f = 9 256 -> 1 and
+   f = 17 32 -> 8), ``fused_wgmma_kernel`` and
    ``wgmma_desc_probe_kernel`` (the same, the fused plan at the flagship,
    9-1-5 and RGB 3-layer stacks, and ptxas's injected ``warpgroup.arrive``
    count) and the HGMMA (``wgmma``) in the SASS of each, > 0; then the
@@ -53,7 +56,8 @@ of the six probes (``cnn_sr_tpu_torch.probes``). Phases, one line each:
    in another order; and bf16: the fused kernel at the flagship, a
    ragged batch of two, the 9-1-5, the narrow 9-5-5 (n = 8) in a batch of
    three and the 3-layer RGB stack; the chain at the RGB stack, a
-   ragged batch (both with L2-L6 on the wgmma stage), the same 4-layer
+   ragged batch (both with L2-L6 on the wgmma stage and L7 on the
+   last-layer kernel), the same 4-layer
    stack (its two narrow middles on the wgmma stage) and a 4-layer stack
    with two wgmma layers (64 -> 256, and f=9 over 256 channels to 128).
    Max |kernel − plain| ≤ 2^-7
@@ -74,7 +78,8 @@ of the six probes (``cnn_sr_tpu_torch.probes``). Phases, one line each:
    result: shape, border, within ±1 (luma) or ±2 (RGB) of the plain bf16
    pipeline with 99.9% of its bytes within ±1, within JAX's bf16 gates
    (4 luma, 6 RGB) of the f32 kernel pipeline; exact launch counts;
-   (the RGB batch's L2-L6 on the wgmma stage, counted apart);
+   (the RGB batch's L2-L6 on the wgmma stage and L7 on the last-layer
+   kernel, each counted apart);
    ``ok`` 12, ``batched_jobs`` 6, ``errors`` 0; latencies, frames per
    second batched against single, peak device memory; then three single
    1080p requests of each checkpoint through ``api.upscale_image`` in
@@ -117,8 +122,9 @@ of the six probes (``cnn_sr_tpu_torch.probes``). Phases, one line each:
 11. profile (``profile_phase``): ``cnn_torch.py ... profile --trace-dir``
    on a 1080p PNG through the flagship checkpoint in bf16 (``--pallas``)
    and f32 and the RGB checkpoint in both: exactly its one fused or seven
-   chain launches (in bf16 two ``conv_layer_tc_kernel`` and five
-   ``conv_layer_wgmma_kernel``), by the counters and in the trace's op
+   chain launches (in bf16 one ``conv_layer_tc_kernel``, five
+   ``conv_layer_wgmma_kernel`` and one ``conv_last_wgmma_kernel``), by the
+   counters and in the trace's op
    table, which names the kernels; the PNG byte-equal to an unprofiled run's; the
    kernel's share of device time, the copies, the device's idle share;
    then ``train dry profile`` for 2 epochs on ``[train]``'s samples and
@@ -169,11 +175,11 @@ of the six probes (``cnn_sr_tpu_torch.probes``). Phases, one line each:
    and ``xpack_bound``,
    with the share of the bound and packed / sep per pair.
 
-Then one JSON line of the eleven kernels (the shipped five also with their
+Then one JSON line of the twelve kernels (the shipped six also with their
 launches on the ``[parallel]`` path, ``parallel_launches``; the wgmma
 stage's times are RGB L2 + ... + L6 at 1080p from ``[layers]``, the
-``mma.sync`` stage's ``conv_layer_bf16`` row L1 + L7 and the launches of
-those two), the
+``mma.sync`` stage's ``conv_layer_bf16`` row L1 and its launches, the
+last-layer kernel's ``conv_last_wgmma`` row L7 and its launches), the
 ``nvidia-smi`` line, and as the last line ``{"ok": true, "device":
 {...}}``. Any failed check raises,
 so the script exits nonzero and prints no result; so does a machine
@@ -250,14 +256,15 @@ def make_image(h: int, w: int, seed: int) -> np.ndarray:
 
 def reset_counts() -> None:
     entry.LAUNCHES = entry.LAUNCHES_BF16 = 0
-    chain.LAUNCHES = chain.LAUNCHES_BF16 = chain.LAUNCHES_WGMMA = 0
+    chain.LAUNCHES = chain.LAUNCHES_BF16 = chain.LAUNCHES_WGMMA = chain.LAUNCHES_LAST = 0
 
 
 def counts():
     """Launches of (fused f32, chain f32, fused bf16, chain bf16, and of the
-    chain's bf16 launches those of the wgmma stage)."""
+    chain's bf16 launches those of the wgmma stage and of the last-layer
+    kernel)."""
     return (entry.LAUNCHES, chain.LAUNCHES, entry.LAUNCHES_BF16, chain.LAUNCHES_BF16,
-            chain.LAUNCHES_WGMMA)
+            chain.LAUNCHES_WGMMA, chain.LAUNCHES_LAST)
 
 
 def kernel_vs_plain(name, params, shape, seed, launches, precision="f32") -> float:
@@ -325,7 +332,7 @@ def main_path(name, cfg, params, plain_fn, launches, smi, precision="f32", tol=1
     mpix = h * w / 1e6
     print(f"[main] {smi} | 3 requests 1920x1080 {name} {precision}: "
           + ", ".join(f"{ms:.2f} ms ({mpix / ms * 1e3:.1f} MPix/s)" for ms in req_ms)
-          + f" | launches (fused, chain, fused bf16, chain bf16, wgmma) {total}"
+          + f" | launches (fused, chain, fused bf16, chain bf16, wgmma, last) {total}"
           + f" | max diff vs plain pipeline {diff} uint8"
           + " | peak device memory per request "
           + ", ".join(f"{b / 2**20:.1f}" for b in peak) + " MiB")
@@ -440,15 +447,16 @@ def layer_times(params, x, smi, precision="f32") -> dict:
     """The chain's time per layer in ``precision`` on the stack's own
     activations (``chain.layer_forward`` with the layer's plan:
     ``entry.layer_plan`` in f32, ``entry.bf16_layer_plan`` in bf16, where
-    the first layer quantises the f32 input, the last writes f32, the others
-    read and write bf16 on the wgmma stage), beside the library's
-    convolution of that layer on the same activations (CUDA events). In
-    f32 one line; in bf16 a line a layer, each checked against and timed
-    beside its plain version (``reference.tap_layer``) in turns: plain,
-    kernel, kernel, plain, library, library. Returns, in bf16, the summed
-    ``ms``, ``plain_ms``, ``library_ms`` and ``bound_ms`` and the largest
-    error (``err``) of the wgmma layers (``"wgmma"``) and of the others
-    (``"tc"``: the first and the last); {} in f32."""
+    the first layer quantises the f32 input on the mma.sync stage, the last
+    writes f32 on the last-layer kernel, the others read and write bf16 on
+    the wgmma stage), beside the library's convolution of that layer on the
+    same activations (CUDA events). In f32 one line; in bf16 a line a layer,
+    each checked against and timed beside its plain version
+    (``reference.tap_layer`` over ``entry.pack_bf16``'s packing) in turns:
+    plain, kernel, kernel, plain, library, library. Returns, in bf16, the
+    summed ``ms``, ``plain_ms``, ``library_ms`` and ``bound_ms`` and the
+    largest error (``err``) of the wgmma layers (``"wgmma"``), of the first
+    (``"tc"``) and of the last (``"last"``); {} in f32."""
     bf16 = precision == "bf16"
     lib = build.load_library()
     stream = torch.cuda.current_stream().cuda_stream
@@ -456,9 +464,9 @@ def layer_times(params, x, smi, precision="f32") -> dict:
     dims = [tuple(l["w"].shape[1:]) for l in params]
     plans = [entry.bf16_layer_plan(*d, i == 0, i == last) if bf16 else entry.layer_plan(*d)
              for i, d in enumerate(dims)]
-    operands = (entry.bf16_weights(params) if bf16
+    operands = (entry.chain_bf16_weights(params, plans) if bf16
                 else entry.f32_weights(params, [p.nb for p in plans]))
-    parts, src, rows = [], x, {"wgmma": [], "tc": []}
+    parts, src, rows = [], x, {"wgmma": [], "tc": [], "last": []}
     for i, (layer, (wt, bt), plan) in enumerate(zip(params, operands, plans)):
         f, _, k, n = layer["w"].shape
         nb, h, w, _ = src.shape
@@ -475,7 +483,8 @@ def layer_times(params, x, smi, precision="f32") -> dict:
             parts.append(f"L{i + 1} {k}->{n} {k_ms:.3f}/{l_ms:.3f}/{bound:.4f} ({bound_by})")
             src = dst
             continue
-        plain = lambda: reference.tap_layer(src, wt, bt, f, n, i == 0, i == last)  # noqa: E731
+        wp, bp = entry.packed_bf16(layer["w"], layer["b"], i == 0)
+        plain = lambda: reference.tap_layer(src, wp, bp, f, n, i == 0, i == last)  # noqa: E731
         kern()
         what = f"L{i + 1} {k}->{n} {tuple(src.shape)}"
         if i == last:  # f32 out: the sums in another order, no rounding to compare bits
@@ -487,14 +496,18 @@ def layer_times(params, x, smi, precision="f32") -> dict:
         p1, k1, k2, p2, l1, l2 = (time_ms(plain), time_ms(kern), time_ms(kern), time_ms(plain),
                                   time_ms(lib_fn), time_ms(lib_fn))
         k_ms, l_ms = (k1 + k2) / 2, (l1 + l2) / 2
-        wg = isinstance(plan, entry.WgmmaPlan)
-        rows["wgmma" if wg else "tc"].append(
+        wg, fin = isinstance(plan, entry.WgmmaPlan), isinstance(plan, entry.LastPlan)
+        rows["wgmma" if wg else "last" if fin else "tc"].append(
             {"ms": k_ms, "plain_ms": (p1 + p2) / 2, "library_ms": l_ms, "bound_ms": bound,
              "bound_by": bound_by, "err": err})
+        w_how = "" if not (wg or fin) else (
+            "resident" if plan.w_res else f"through {plan.w_ring} stages")
         stage = (f"wgmma ({plan.bn} columns, {plan.lanes}-lane boxes, {plan.slabs} slabs a "
-                 f"warpgroup, {plan.a_ring} A stages, W "
-                 + ("resident" if plan.w_res else f"through {plan.w_ring} stages") + ")"
-                 if wg else "mma.sync (tc_stage.cuh)")
+                 f"warpgroup, {plan.a_ring} A stages, W {w_how})" if wg
+                 else f"last-layer wgmma ({plan.f} dx taps x {plan.n} in {plan.npad} columns, "
+                 f"{plan.tile_rows}x{entry.LAST_COLS} tiles of {plan.out_cols} output columns, "
+                 f"{plan.lanes}-lane boxes, {plan.slabs} slabs a warpgroup, {plan.a_ring} A "
+                 f"stages, W {w_how})" if fin else "mma.sync (tc_stage.cuh)")
         print(f"[layers] {smi} | bf16 {what} {stage}: kernel {k1:.4f}/{k2:.4f} ms, plain "
               f"(tap_layer) {p1:.4f}/{p2:.4f}, library (cuDNN bf16) {l1:.4f}/{l2:.4f}, bound "
               f"{bound:.4f} ({bound_by}, {bound / k_ms * 100:.0f}% of it), library / kernel "
@@ -610,6 +623,31 @@ def wgmma_build(log: str) -> None:
     print("[build] conv_wgmma.cu ptxas remarks on wgmma: " + (" | ".join(remarks) or "none"))
 
 
+def last_build(log: str) -> None:
+    """[build]: ``conv_last_wgmma_kernel``'s instances (one each of
+    ``entry.last_instances``: packed columns, box lanes, slabs a warpgroup)
+    from ptxas: registers and spills (none allowed) of each, beside the
+    plans at RGB L7, the luma stacks' conv3 on the chain (f = 5 over 32
+    lanes), f = 9 over 256 channels (W streamed) and f = 17 at 8 outputs
+    (two dx groups)."""
+    kernels = build.ptxas_entries(log, "conv_last_wgmma_kernel")
+    want = entry.last_instances()
+    check(len(kernels) == len(want), f"conv_last_wgmma.cu: {len(kernels)} kernel instances in "
+          f"the ptxas report, expected {len(want)}")
+    print("[build] conv_last_wgmma.cu (wgmma) instances (columns, lanes, slabs): "
+          + ", ".join(f"{name} {regs} registers ({spill})" for name, regs, spill in kernels))
+    for name, _, spill in kernels:
+        check(" 0 bytes spill stores, 0 bytes spill loads" in spill,
+              f"conv_last_wgmma.cu {name} spills: {spill}")
+    plans = {what: entry.last_layer_plan(*layer) for what, layer in (
+        ("RGB L7 128->3", (3, 128, 3)), ("f=5 32->1", (5, 32, 1)), ("f=9 256->1", (9, 256, 1)),
+        ("f=17 32->8", (17, 32, 8)))}
+    print("[build] conv_last_wgmma.cu plans: " + ", ".join(
+        f"{w} {p.smem} bytes (instance {p.npad}, {p.lanes}, {p.slabs}; {p.dgroups} dx groups; "
+        f"{p.tile_rows}x{entry.LAST_COLS} tiles; {p.a_ring} A boxes of {p.a_box}, W "
+        + ("resident" if p.w_res else f"{p.w_ring} slices") + ")" for w, p in plans.items()))
+
+
 def fused_wgmma_build(log: str) -> None:
     """[build]: ``fused_wgmma_kernel`` (the bf16 fused kernel, one instance)
     and ``wgmma_desc_probe_kernel`` from ptxas: registers and spills (none
@@ -671,7 +709,8 @@ def sass_hmma() -> tuple:
     layer's six instances among them, and of ``wino5_forward``'s, in all
     and in each mode's instance; and the HGMMA (``wgmma``) instructions in
     ``rowpair_gemm``'s, each of ``conv_layer_forward_wgmma``'s nine
-    instances (block columns / box lanes / slabs a warpgroup),
+    instances (block columns / box lanes / slabs a warpgroup), each of
+    ``conv_last_forward_wgmma``'s ten (packed columns / box lanes / slabs),
     ``fused_srcnn_forward_bf16``'s (all three of its layers) and in each of
     ``tap_gemm_bf16``'s six instances (N = 32, 64, 128, resident or through
     the ring): the proof that they run on the tensor cores.
@@ -689,6 +728,9 @@ def sass_hmma() -> tuple:
              **{f"conv_layer_wgmma_kernelILi{bn}ELi{lanes}ELi{s}E":
                 f"conv_layer_forward_wgmma {bn}/{lanes}/{s}"
                 for bn, lanes, s in entry.wgmma_instances()},
+             **{f"conv_last_wgmma_kernelILi{npad}ELi{lanes}ELi{s}E":
+                f"conv_last_forward_wgmma {npad}/{lanes}/{s}"
+                for npad, lanes, s in entry.last_instances()},
              "fused_wgmma_kernel": "fused_srcnn_forward_bf16",
              **{f"tap_gemm_kernelILi{n}ELb{ring}E": f"tap_gemm_bf16 N={n} "
                 + ("ring" if ring else "resident") for n in (32, 64, 128) for ring in (0, 1)}}
@@ -1325,10 +1367,10 @@ def serve_path(cfg, params, cfg_rgb, params_rgb, smi) -> tuple:
     probe.join()
     check(seen == [torch.cuda.current_stream().cuda_stream], f"serve: worker stream {seen}")
     check(not worker.is_alive(), "serve: the worker did not stop")
-    check(total == (0, 0, 7, 7, 5),
-          f"serve: launches (fused, chain, fused bf16, chain bf16, wgmma) {total}, expected "
-          "(0, 0, 7, 7, 5): one fused batch of 4, one bucketed single, 5 singles; 7 chain layers, "
-          "5 of them (L2-L6) on the wgmma stage")
+    check(total == (0, 0, 7, 7, 5, 1),
+          f"serve: launches (fused, chain, fused bf16, chain bf16, wgmma, last) {total}, "
+          "expected (0, 0, 7, 7, 5, 1): one fused batch of 4, one bucketed single, 5 singles; 7 "
+          "chain layers, 5 of them (L2-L6) on the wgmma stage and L7 on the last-layer kernel")
     check(stats["ok"] == 12 and stats["batched_jobs"] == 6 and stats["errors"] == 0,
           f"serve: stats {stats}")
 
@@ -1374,7 +1416,7 @@ def serve_path(cfg, params, cfg_rgb, params_rgb, smi) -> tuple:
           + f"; flagship 1000x700 (bucketed single) {ms[6]:.2f} | 5 single flagship 1080p: "
           + ", ".join(f"{v:.2f}" for v in single_ms)
           + f" ms | flagship frames/s batched {batch_fps:.2f} vs single {single_fps:.2f}"
-          + f" | launches (fused, chain, fused bf16, chain bf16, wgmma) {total}"
+          + f" | launches (fused, chain, fused bf16, chain bf16, wgmma, last) {total}"
           + f" | stats ok {stats['ok']} batched_jobs {stats['batched_jobs']} errors "
           f"{stats['errors']} rounds {stats['rounds']} max_batch_seen {stats['max_batch_seen']}"
           + f" | vs plain bf16 pipeline max {worst_plain} uint8 (within ±1: "
@@ -1583,8 +1625,8 @@ def train_phase(smi, dev, work):
         reset_counts()
         out = api.upscale_image(cfg, params, rgba)
         made = counts()
-        check(made == (1, 0, 0, 0, 0),
-              f"[train] upscale launches {made}, expected (1, 0, 0, 0, 0)")
+        check(made == (1, 0, 0, 0, 0, 0),
+              f"[train] upscale launches {made}, expected (1, 0, 0, 0, 0, 0)")
         plain = api._upscale_luma(lambda x: reference.fused_forward(params, x),
                                   torch.from_numpy(rgba).to(dev), add_mean=cfg.zero_mean_target,
                                   squared_mean=cfg.subtract_squared_mean).cpu().numpy()
@@ -1771,7 +1813,7 @@ def parallel_phase(smi, dev, cfg, params, cfg_rgb, params_rgb, data) -> dict:
     rgba = make_image(1080, 1920, SEED)
     img = torch.from_numpy(rgba).to(dev)
     x = subtract_mean(extract_luma(img))[0][None, ..., None].contiguous()
-    for precision, want in (("bf16", (0, 0, 4, 0, 0)), ("f32", (4, 0, 0, 0, 0))):
+    for precision, want in (("bf16", (0, 0, 4, 0, 0, 0)), ("f32", (4, 0, 0, 0, 0, 0))):
         made, diff, ms, single_ms, peak, single_peak = spatial_requests(
             "flagship 9-5-5", cfg, params, rgba, 4, precision, want, 1, smi)
         launches[f"flagship {precision}"] = made
@@ -1785,7 +1827,8 @@ def parallel_phase(smi, dev, cfg, params, cfg_rgb, params_rgb, data) -> dict:
               f"(unsharded {single_peak / 2**20:.1f})")
     rgb = img[..., :3].to(torch.float32) / 255.0
     x_rgb = (rgb - rgb.mean(dim=(0, 1), keepdim=True))[None].contiguous()
-    for precision, want, tol in (("f32", (0, 14, 0, 0, 0), 1), ("bf16", (0, 0, 0, 14, 10), 2)):
+    for precision, want, tol in (("f32", (0, 14, 0, 0, 0, 0), 1),
+                                 ("bf16", (0, 0, 0, 14, 10, 2), 2)):
         made, diff, ms, single_ms, peak, single_peak = spatial_requests(
             "RGB 7-layer", cfg_rgb, params_rgb, rgba, 2, precision, want, tol, smi, n=1)
         launches[f"RGB {precision}"] = made
@@ -1929,8 +1972,9 @@ def profile_phase(smi, work) -> None:
     on one 1920x1080 PNG through the flagship checkpoint in bf16
     (``--pallas``) and f32 and the RGB checkpoint in bf16 and f32, each
     with ``--trace-dir``: rc 0; exactly one ``fused_wgmma_kernel``, one
-    ``fused_srcnn_kernel``, two ``conv_layer_tc_kernel`` and five
-    ``conv_layer_wgmma_kernel`` or seven ``conv_layer_kernel`` launches, by
+    ``fused_srcnn_kernel``, one ``conv_layer_tc_kernel``, five
+    ``conv_layer_wgmma_kernel`` and one ``conv_last_wgmma_kernel`` or seven
+    ``conv_layer_kernel`` launches, by
     the ``LAUNCHES*`` counters and by the
     op table of the trace (``profiling.op_shares``), which must name the
     kernel; the PNG byte-equal to an unprofiled run's. Prints the kernel's
@@ -1949,11 +1993,12 @@ def profile_phase(smi, work) -> None:
     src = os.path.join(work, "frame.png")
     write_image(src, make_image(1080, 1920, SEED + 70)[..., :3])
     # each run's kernels and their launches in the op table
-    runs = (("flagship 9-5-5", FLAGSHIP, "bf16", (0, 0, 1, 0, 0), {"fused_wgmma_kernel": 1}),
-            ("flagship 9-5-5", FLAGSHIP, "f32", (1, 0, 0, 0, 0), {"fused_srcnn_kernel": 1}),
-            ("RGB 7-layer", RGB7, "bf16", (0, 0, 0, 7, 5),
-             {"conv_layer_tc_kernel": 2, "conv_layer_wgmma_kernel": 5}),
-            ("RGB 7-layer", RGB7, "f32", (0, 7, 0, 0, 0), {"conv_layer_kernel": 7}))
+    runs = (("flagship 9-5-5", FLAGSHIP, "bf16", (0, 0, 1, 0, 0, 0), {"fused_wgmma_kernel": 1}),
+            ("flagship 9-5-5", FLAGSHIP, "f32", (1, 0, 0, 0, 0, 0), {"fused_srcnn_kernel": 1}),
+            ("RGB 7-layer", RGB7, "bf16", (0, 0, 0, 7, 5, 1),
+             {"conv_layer_tc_kernel": 1, "conv_layer_wgmma_kernel": 5,
+              "conv_last_wgmma_kernel": 1}),
+            ("RGB 7-layer", RGB7, "f32", (0, 7, 0, 0, 0, 0), {"conv_layer_kernel": 7}))
     for i, (name, cfg_path, precision, want, kernels) in enumerate(runs):
         line = ["-c", cfg_path, "-i", src] + (["--pallas"] if precision == "bf16" else [])
         plain, profiled = (os.path.join(work, f"{k}{i}.png") for k in ("plain", "profiled"))
@@ -1982,7 +2027,7 @@ def profile_phase(smi, work) -> None:
         copies = [r for r in rows if r[0].startswith(("Memcpy", "Memset"))]
         stages = [STAGE_LINE.match(ln) for ln in text.splitlines()]
         print(f"[profile] {smi} | cnn_torch.py profile, 1920x1080 PNG, {name} {precision}: rc 0 "
-              f"in {secs:.2f} s, launches (fused, chain, fused bf16, chain bf16, wgmma) "
+              f"in {secs:.2f} s, launches (fused, chain, fused bf16, chain bf16, wgmma, last) "
               f"{made}, PNG byte-equal to the unprofiled run's | {kernel} "
               f"x{sum(kernels.values())} "
               f"{kernel_us / 1e3:.3f} ms = {kernel_us * 100 / total:.1f}% of device op time "
@@ -2196,6 +2241,7 @@ def main() -> int:
                       f"{src} {name} spills: {spill}")
         rowpair_build(info["logs"]["rowpair.cu"])
         wgmma_build(info["logs"]["conv_wgmma.cu"])
+        last_build(info["logs"]["conv_last_wgmma.cu"])
         fused_wgmma_build(info["logs"]["fused_wgmma.cu"])
         xpack_build(info["logs"]["xpack.cu"])
     build.load_library()
@@ -2234,38 +2280,44 @@ def main() -> int:
     # two middle layers on the wgmma stage: 64 -> 256 (two 128-column
     # chunks) and an f=9 layer over 256 channels (four 64-lane chunks)
     wide_n256 = he([(3, 1, 64), (3, 64, 256), (9, 256, 128), (3, 128, 1)])
+    # a last layer of even f: the last-layer kernel takes any f up to 63
+    even_last = he([(3, 3, 32), (3, 32, 32), (3, 32, 32), (4, 32, 1)])
 
     fused_errs = [
-        kernel_vs_plain("flagship 9-5-5", params, (1, 80, 272, 1), SEED, (1, 0, 0, 0, 0)),
+        kernel_vs_plain("flagship 9-5-5", params, (1, 80, 272, 1), SEED, (1, 0, 0, 0, 0, 0)),
         kernel_vs_plain("flagship 9-5-5 ragged", params, (2, 97, 131, 1), SEED + 1,
-                        (1, 0, 0, 0, 0)),
-        kernel_vs_plain("9-1-5", params915, (1, 80, 272, 1), SEED + 2, (1, 0, 0, 0, 0))]
+                        (1, 0, 0, 0, 0, 0)),
+        kernel_vs_plain("9-1-5", params915, (1, 80, 272, 1), SEED + 2, (1, 0, 0, 0, 0, 0))]
     chain_errs = [
         kernel_vs_plain("chain RGB 7-layer", params_rgb, (1, 80, 272, 3), SEED + 3,
-                        (0, 7, 0, 0, 0)),
+                        (0, 7, 0, 0, 0, 0)),
         kernel_vs_plain("chain RGB 7-layer ragged", params_rgb, (2, 97, 131, 3), SEED + 4,
-                        (0, 7, 0, 0, 0)),
-        kernel_vs_plain("chain wide 9-5-5", wide, (1, 80, 272, 1), SEED + 5, (0, 3, 0, 0, 0)),
+                        (0, 7, 0, 0, 0, 0)),
+        kernel_vs_plain("chain wide 9-5-5", wide, (1, 80, 272, 1), SEED + 5, (0, 3, 0, 0, 0, 0)),
         kernel_vs_plain("chain f=9 over 128 channels, 4-layer", wide_f9, (1, 80, 272, 1),
-                        SEED + 6, (0, 4, 0, 0, 0))]
+                        SEED + 6, (0, 4, 0, 0, 0, 0))]
     fused_bf16_errs = [
-        kernel_vs_plain("flagship 9-5-5", params, (1, 80, 272, 1), SEED, (0, 0, 1, 0, 0), "bf16"),
+        kernel_vs_plain("flagship 9-5-5", params, (1, 80, 272, 1), SEED, (0, 0, 1, 0, 0, 0),
+                        "bf16"),
         kernel_vs_plain("flagship 9-5-5 ragged", params, (2, 97, 131, 1), SEED + 1,
-                        (0, 0, 1, 0, 0), "bf16"),
-        kernel_vs_plain("9-1-5", params915, (1, 80, 272, 1), SEED + 2, (0, 0, 1, 0, 0), "bf16"),
+                        (0, 0, 1, 0, 0, 0), "bf16"),
+        kernel_vs_plain("9-1-5", params915, (1, 80, 272, 1), SEED + 2, (0, 0, 1, 0, 0, 0),
+                        "bf16"),
         kernel_vs_plain("narrow 9-5-5 (n = 8)", he([(9, 1, 8), (5, 8, 8), (5, 8, 1)]),
-                        (3, 45, 70, 1), SEED + 8, (0, 0, 1, 0, 0), "bf16"),
+                        (3, 45, 70, 1), SEED + 8, (0, 0, 1, 0, 0, 0), "bf16"),
         kernel_vs_plain("RGB 3-layer", he([(3, 3, 16), (3, 16, 8), (3, 8, 3)]), (2, 50, 77, 3),
-                        SEED + 9, (0, 0, 1, 0, 0), "bf16")]
+                        SEED + 9, (0, 0, 1, 0, 0, 0), "bf16")]
     chain_bf16_errs = [
         kernel_vs_plain("chain RGB 7-layer", params_rgb, (1, 80, 272, 3), SEED + 3,
-                        (0, 0, 0, 7, 5), "bf16"),
+                        (0, 0, 0, 7, 5, 1), "bf16"),
         kernel_vs_plain("chain RGB 7-layer ragged", params_rgb, (2, 97, 131, 3), SEED + 4,
-                        (0, 0, 0, 7, 5), "bf16"),
+                        (0, 0, 0, 7, 5, 1), "bf16"),
         kernel_vs_plain("chain f=9 over 128 channels, 4-layer", wide_f9, (1, 80, 272, 1),
-                        SEED + 6, (0, 0, 0, 4, 2), "bf16"),
+                        SEED + 6, (0, 0, 0, 4, 2, 1), "bf16"),
         kernel_vs_plain("chain n=256 and f=9 over 256 channels, 4-layer", wide_n256,
-                        (2, 61, 83, 1), SEED + 7, (0, 0, 0, 4, 2), "bf16")]
+                        (2, 61, 83, 1), SEED + 7, (0, 0, 0, 4, 2, 1), "bf16"),
+        kernel_vs_plain("chain f=4 last layer, 4-layer", even_last, (2, 45, 77, 3), SEED + 10,
+                        (0, 0, 0, 4, 2, 1), "bf16")]
 
     # the main paths: three requests each through the public API in f32,
     # and one round of the server in bf16
@@ -2274,24 +2326,24 @@ def main() -> int:
         lambda img: api._upscale_luma(lambda x: reference.fused_forward(params, x), img,
                                       add_mean=cfg.zero_mean_target,
                                       squared_mean=cfg.subtract_squared_mean),
-        (1, 0, 0, 0, 0), smi)
+        (1, 0, 0, 0, 0, 0), smi)
     rgb_counts, _ = main_path(
         "RGB 7-layer", cfg_rgb, params_rgb,
         lambda img: api._upscale_rgb(lambda x: reference.fused_forward(params_rgb, x), img,
                                      add_mean=cfg_rgb.zero_mean_target),
-        (0, 7, 0, 0, 0), smi)
+        (0, 7, 0, 0, 0, 0), smi)
     serve_counts = serve_path(cfg, params, cfg_rgb, params_rgb, smi)
     # single bf16 requests of both checkpoints, beside the f32 ones
     main_path("flagship 9-5-5", cfg, params,
               lambda img: api._upscale_luma(
                   lambda x: reference.fused_forward(params, x, "bf16"), img,
                   add_mean=cfg.zero_mean_target, squared_mean=cfg.subtract_squared_mean),
-              (0, 0, 1, 0, 0), smi, "bf16")
+              (0, 0, 1, 0, 0, 0), smi, "bf16")
     main_path("RGB 7-layer", cfg_rgb, params_rgb,
               lambda img: api._upscale_rgb(
                   lambda x: reference.fused_forward(params_rgb, x, "bf16"), img,
                   add_mean=cfg_rgb.zero_mean_target),
-              (0, 0, 0, 7, 5), smi, "bf16", tol=2)
+              (0, 0, 0, 7, 5, 1), smi, "bf16", tol=2)
 
     # each kernel at its main path's 1080p input
     from cnn_sr_tpu_torch.ops.color import extract_luma, subtract_mean
@@ -2326,6 +2378,8 @@ def main() -> int:
     chain_errs.append(t_chain["err"])
     fused_bf16_errs.append(t_fused_bf16["err"])
     chain_bf16_errs += [t_chain_bf16["err"], t_layers["tc"]["err"]]
+    serve_tc = serve_counts[3] - serve_counts[4] - serve_counts[5]
+    rgb_bf16 = parallel_counts["RGB bf16"]
 
     def row(name, source, replaces, launches, errs, t, parallel=None):
         check(launches > 0, f"{name}: no launch on its main path")
@@ -2347,17 +2401,20 @@ def main() -> int:
         row("fused_srcnn_bf16", "cnn_sr_tpu_torch/csrc/fused_wgmma.cu",
             "cnn_sr_tpu/ops/pallas_fused/kernel.py:730", serve_counts[2], fused_bf16_errs,
             t_fused_bf16, parallel_counts["flagship bf16"][2]),
-        # the first and last layers (RGB L1 + L7 at 1080p: ms, plain
-        # (tap_layer), library (cuDNN bf16) and bound summed) and their launches
+        # the first layer (RGB L1 at 1080p: ms, plain (tap_layer), library
+        # (cuDNN bf16) and bound) and its launches
         row("conv_layer_bf16", "cnn_sr_tpu_torch/csrc/conv_layer.cu",
-            "cnn_sr_tpu/ops/pallas_fused/kernel.py:585", serve_counts[3] - serve_counts[4],
-            chain_bf16_errs, t_layers["tc"],
-            parallel_counts["RGB bf16"][3] - parallel_counts["RGB bf16"][4]),
+            "cnn_sr_tpu/ops/pallas_fused/plane.py:23", serve_tc, chain_bf16_errs,
+            t_layers["tc"], rgb_bf16[3] - rgb_bf16[4] - rgb_bf16[5]),
         # every middle layer: RGB L2 + L3 + L4 + L5 + L6 at 1080p, ms, plain
         # (tap_layer), library (cuDNN bf16) and bound summed over the five
         row("conv_layer_wgmma", "cnn_sr_tpu_torch/csrc/conv_wgmma.cu",
             "cnn_sr_tpu/ops/pallas_fused/kernel.py:499", serve_counts[4],
-            [t_layers["wgmma"]["err"]], t_layers["wgmma"], parallel_counts["RGB bf16"][4]),
+            [t_layers["wgmma"]["err"]], t_layers["wgmma"], rgb_bf16[4]),
+        # the last layer: RGB L7 at 1080p
+        row("conv_last_wgmma", "cnn_sr_tpu_torch/csrc/conv_last_wgmma.cu",
+            "cnn_sr_tpu/ops/pallas_fused/kernel.py:585", serve_counts[5],
+            [t_layers["last"]["err"]], t_layers["last"], rgb_bf16[5]),
         *(row(r["name"], r["source"], r["replaces"], r["launches"], [r["err"]], r)
           for r in probe_rows),
     ]}))

@@ -5,8 +5,9 @@
 // 1, W - f + 1, n) bf16 NHWC out, W the tap-major (taps, K_pad, N_pad) packing
 // of ops/fused/entry.py: pack_bf16, b its (N_pad,) f32 bias. Its plain version
 // is ops/fused/reference.py: tap_layer. The chain (ops/fused/chain.py) takes it
-// for every layer that is neither first nor last; those two stay on
-// tc_stage.cuh (conv_layer.cu).
+// for every layer that is neither first nor last; the first stays on
+// tc_stage.cuh (conv_layer.cu), the last is conv_last_wgmma.cu's. Its
+// warpgroups, descriptors and products are wgmma_conv.cuh's.
 //
 // Replaces, with conv_layer_forward_bf16, the TPU kernel
 // cnn_sr_tpu/ops/pallas_fused/kernel.py:_fused_tail_single (pl.pallas_call at
@@ -80,38 +81,9 @@
 
 #include "conv_wgmma_plan.cuh"
 #include "mma.cuh"
-#include "tma.cuh"
-#include "wgmma.cuh"
+#include "wgmma_conv.cuh"
 
 namespace {
-
-// two consumer warpgroups and a producer warpgroup, whose registers go to the
-// consumers (setmaxnreg: 128 x 56 + 256 x 224 = 384 x 168)
-constexpr int kWarpgroup = 128;
-constexpr int kConsumers = 2 * kWarpgroup, kThreads = kConsumers + kWarpgroup;
-constexpr int kConsumerRegs = 224, kProducerRegs = 56;
-static_assert(kConsumers * kConsumerRegs + kWarpgroup * kProducerRegs <=
-                  65536 / kThreads / 8 * 8 * kThreads,
-              "the registers handed over fit the block's");
-constexpr int kWarps = kConsumers / 32;  // arrivals that empty a stage, one a consumer warp
-
-// BN columns of bf16 in shared memory: rows of up to 64 lanes (kRow bytes,
-// swizzled by kRow bytes; 16-byte rows unswizzled), kBlocks of them a row of
-// BN
-template <int BN>
-struct Cols {
-  static constexpr int kLanes = BN < 64 ? BN : 64;
-  static constexpr int kRow = 2 * kLanes;
-  static constexpr int kBlocks = BN / kLanes;
-};
-
-// the tensor copies' swizzle of rows of `row` bytes
-inline CUtensorMapSwizzle swizzle_of(int row) {
-  return row == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
-         : row == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
-         : row == 32 ? CU_TENSOR_MAP_SWIZZLE_32B
-                     : CU_TENSOR_MAP_SWIZZLE_NONE;
-}
 
 // byte offset of lane c (even) of row r in a block of R-byte rows swizzled
 // by R bytes (16-byte chunk j of row r at j ^ (r R / 128 % (R / 16)), as the
@@ -120,54 +92,6 @@ template <int R>
 __device__ __forceinline__ int swz(int r, int c) {
   constexpr int kChunks = R / 16;
   return r * R + ((((c >> 3) ^ (r * kChunks / 8)) & (kChunks - 1)) << 4) + (c & 7) * 2;
-}
-
-// the descriptor of the A rows at addr: K-major, L lanes a row
-template <int L>
-__device__ __forceinline__ unsigned long long a_desc(unsigned addr) {
-  if constexpr (L == 64)
-    return wgmma_desc(addr, 16, 1024);
-  else
-    return wgmma_desc_sw64(addr, 16, 512);
-}
-
-// the descriptor of W's rows kk 16 .. + 15 of a slice at addr: MN-major,
-// BN columns in rows of Cols<BN>::kRow bytes; at 128 columns two 64-lane
-// blocks `block` bytes apart; 8-row K groups one swizzle atom (8 rows) apart
-template <int BN>
-__device__ __forceinline__ unsigned long long b_desc(unsigned addr, int kk, unsigned block) {
-  constexpr int kRow = Cols<BN>::kRow;
-  const unsigned at = addr + kk * 16 * kRow;
-  if constexpr (BN >= 64)
-    return wgmma_desc(at, block, 1024);
-  else if constexpr (BN == 32)
-    return wgmma_desc_sw64(at, block, 512);
-  else if constexpr (BN == 16)
-    return wgmma_desc_sw32(at, block, 256);
-  else  // 8 columns, unswizzled: 8 x 8 core matrices, the K groups 128 bytes apart
-    return wgmma_desc_interleave(at, 128, 128);
-}
-
-// the tile's first product, written and not read
-template <int BN>
-__device__ __forceinline__ void mma_first(float (&d)[BN / 2], unsigned long long da,
-                                          unsigned long long db) {
-  wgmma_mn_first<BN>(d, da, db);
-}
-
-template <int BN>
-__device__ __forceinline__ void mma_ss(float (&d)[BN / 2], unsigned long long da,
-                                       unsigned long long db, int scale_d) {
-  if constexpr (BN == 128)
-    wgmma_m64n128k16_ss(d, da, db, scale_d);
-  else if constexpr (BN == 64)
-    wgmma_m64n64k16_ss(d, da, db, scale_d);
-  else if constexpr (BN == 32)
-    wgmma_m64n32k16_ss(d, da, db, scale_d);
-  else if constexpr (BN == 16)
-    wgmma_m64n16k16_ss(d, da, db, scale_d);
-  else
-    wgmma_m64n8k16_ss(d, da, db, scale_d);
 }
 
 // The tile of item i: the BN-column chunk fastest, then the tile column, the
@@ -184,30 +108,9 @@ struct Tile {
   }
 };
 
-// A ring's next stage and the parity of its phase
-struct Ring {
-  int stage = 0, phase = 0;
-  __device__ void next(int stages) {
-    if (++stage == stages) {
-      stage = 0;
-      phase ^= 1;
-    }
-  }
-};
-
 __device__ __forceinline__ unsigned bias_relu_bf16x2(float a, float b, float ba, float bb) {
   const __nv_bfloat162 h = __floats2bfloat162_rn(fmaxf(a + ba, 0.f), fmaxf(b + bb, 0.f));
   return *reinterpret_cast<const unsigned*>(&h);
-}
-
-// W's slice of tap `tap`, K rows from `row`, columns from n0 into dst, block
-// by block
-template <int BN, int L>
-__device__ __forceinline__ void load_w(unsigned char* dst, const CUtensorMap* tw, int n0, int row,
-                                       int tap, unsigned long long* bar) {
-#pragma unroll
-  for (int blk = 0; blk < Cols<BN>::kBlocks; ++blk)
-    tma_load_3d(dst + blk * L * Cols<BN>::kRow, tw, n0 + blk * Cols<BN>::kLanes, row, tap, bar);
 }
 
 // ta: x as (K, W, H, N), box (L, 16, box_rows, 1); tw: w as (N_pad, K_pad,

@@ -1,8 +1,9 @@
 // tc_stage: one VALID f x f layer of the bf16 stream on the tensor cores, the
-// stage the bf16 chain's first and last layers are built from (conv_layer.cu,
-// one per launch) and wino5.cu's quad modes run on (TcAcc). The chain's middle
-// layers are conv_wgmma.cu's; the bf16 fused kernel is fused_wgmma.cu; the f32
-// kernels run on ffma_stage.cuh.
+// stage the bf16 chain's first layer is built from (conv_layer.cu, one per
+// launch) and wino5.cu's quad modes run on (TcAcc). The chain's middle
+// layers are conv_wgmma.cu's and its last layer conv_last_wgmma.cu's; the
+// bf16 fused kernel is fused_wgmma.cu; the f32 kernels run on
+// ffma_stage.cuh.
 //
 // Replaces, with the chain's kernels, the TPU kernel
 // cnn_sr_tpu/ops/pallas_fused/kernel.py:_fused_tail_single (pl.pallas_call
@@ -12,26 +13,23 @@
 //
 // The layer as an implicit GEMM: out[p, :] = sum over taps t of
 // A[p + off_t, 0:K] @ W[t] (K x N), bf16 operands, f32 sums (mma.sync
-// m16n8k16), then bias in f32, ReLU, and one rounding to bf16 (or f32 for
-// the last layer).
+// m16n8k16), then bias in f32, ReLU, and one rounding to bf16.
 // * A, the window, lives in shared memory position-major, [y][x][K + 8]
 //   bf16: one contraction row per position, padded by 16 bytes so that the
 //   8 rows an ldmatrix reads start on distinct banks (the row stride is an
-//   odd multiple of 16 bytes). It is loaded once per channel chunk, with
-//   cp.async 16-byte pieces that zero-fill outside the image and past the
-//   real channels (src-size 0), and every one of the f^2 taps reads it from
-//   shared memory: no tap re-reads its window from L2.
+//   odd multiple of 16 bytes). It is loaded once, and every tap reads it
+//   from shared memory: no tap re-reads its window from L2.
 // * Taps are address offsets: ldmatrix takes one row address per lane, so
 //   tap (dy, dx) of output position (y, x) is window row (y + dy, x + dx),
 //   an offset and no copy. (A wgmma descriptor takes a start shifted by a
 //   position too, in the no-swizzle layout or by the 128-byte swizzle's own
 //   address bits, but not this window's rows of K + 8 lanes: fused_wgmma.cu
-//   keeps its activations in planes of 8 lanes for that.) Every middle layer
-//   of the chain runs on conv_wgmma.cu, where one tensor copy per dx lands a
-//   box whose dy shifts are whole swizzle atoms. This stage keeps the two
-//   layers no tensor copy lands: the first (its dx-expanded window is
-//   quantised by the threads as they load it) and the last (8 output lanes
-//   for 3 outputs, bound by its bytes).
+//   keeps its activations in planes of 8 lanes for that.) The chain's
+//   middle layers run on conv_wgmma.cu and its last layer on
+//   conv_last_wgmma.cu, where tensor copies land boxes whose dy shifts are
+//   whole swizzle atoms. This stage keeps the one layer no tensor copy
+//   lands: the first, whose dx-expanded window is quantised by the threads
+//   as they load it.
 // * B, the weights, are packed on the host as (taps, K_pad, N_pad) bf16
 //   (ops/fused/entry.py: pack_bf16). A block streams one or more taps'
 //   slabs through two cp.async stages while the current slab's mma.sync
@@ -46,20 +44,21 @@
 //   of 128 (tc_npad); the padding lanes of weights and biases are zero, so
 //   padded output lanes are ReLU(0) = 0.
 //
-// What bounds it on the H100: the layers it keeps by their bytes (RGB L1
-// writes 1080p x 32 bf16 lanes, L7 reads 1080p x 128); the multiply-adds at
-// mma.sync's rate (about 2/3 of wgmma's 989 TFLOP/s) come close in the first
-// layer (K = 16 dx-expanded lanes at N = 32). At N = 128 the ldmatrix
-// traffic of the fragments nears the shared-memory rate first (each B
-// fragment feeds two mma.sync), which held the RGB model's L5 and L6 at 1.24x
-// and 1.55x cuDNN bf16's time until they moved to conv_wgmma.cu; at n <= 64
-// the stage ran far below mma.sync's rate, unpipelined across tiles (RGB L4
-// 0.719 ms, 21% of the bf16 peak), until those middles moved there too.
+// What bounds it on the H100: the first layer by its bytes (RGB L1 writes
+// 1080p x 32 bf16 lanes); the multiply-adds at mma.sync's rate (about 2/3
+// of wgmma's 989 TFLOP/s) come close (K = 16 dx-expanded lanes at N = 32).
+// At N = 128 the ldmatrix traffic of the fragments nears the shared-memory
+// rate first (each B fragment feeds two mma.sync), which held the RGB
+// model's L5 and L6 at 1.24x and 1.55x cuDNN bf16's time until they moved
+// to conv_wgmma.cu; at n <= 64 the stage ran far below mma.sync's rate,
+// unpipelined across tiles (RGB L4 0.719 ms, 21% of the bf16 peak), until
+// those middles moved there too; the last layer (RGB L7, 0.454-0.459 ms,
+// 36% of its byte bound, its A fragments read again for every tap) until
+// it moved to conv_last_wgmma.cu.
 //
 // Measured (chip_smoke.py [layers], 1080p, NVIDIA H100 80GB HBM3, 700 W):
-// RGB L1 0.316 ms and L7 0.459 ms on this stage, 15% and 36% of their byte
-// bounds (cuDNN bf16 0.533 and 0.686); the other five layers, on
-// conv_wgmma.cu, take 1.67 ms.
+// RGB L1 0.257 ms on this stage, 18% of its byte bound (cuDNN bf16
+// 0.536).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -77,7 +76,6 @@ constexpr int kTile = 16;  // output tile of a chain block: 16 x 16 positions
 __host__ __device__ constexpr int tc_npad(int n) {
   return n <= 8 ? 8 : n <= 16 ? 16 : n <= 32 ? 32 : n <= 64 ? 64 : (n + 127) / 128 * 128;
 }
-__host__ __device__ constexpr int tc_kpad(int k) { return tc_npad(k) < 16 ? 16 : tc_npad(k); }
 __host__ __device__ constexpr int tc_kx(int f, int c) { return (f * c + 15) / 16 * 16; }
 // a block's columns: all of N up to 128, else 128-column chunks
 __host__ __device__ constexpr int tc_nb(int npad) { return npad < 128 ? npad : 128; }
@@ -170,16 +168,16 @@ struct TcAcc {
   }
 };
 
-// Rows [c0, c0 + kc) of taps [t0, t1) of the packed weights wg (taps, kp,
-// npad), columns [n0, n0 + nb), into dst [t - t0][kc][ws], by cp.async.
+// Taps [t0, t1) of the packed weights wg (taps, kp, npad), all kp rows,
+// columns [n0, n0 + nb), into dst [t - t0][kp][ws], by cp.async.
 __device__ __forceinline__ void load_weights_async(const bf16* __restrict__ wg, int kp, int npad,
-                                                   int n0, int nb, int ws, int t0, int t1, int c0,
-                                                   int kc, bf16* dst) {
-  const int pieces = nb / 8, per_tap = kc * pieces, total = (t1 - t0) * per_tap;
+                                                   int n0, int nb, int ws, int t0, int t1,
+                                                   bf16* dst) {
+  const int pieces = nb / 8, per_tap = kp * pieces, total = (t1 - t0) * per_tap;
   for (int i = threadIdx.x; i < total; i += blockDim.x) {
-    const int q = i % pieces, r = (i / pieces) % kc, tt = i / per_tap;
-    cp_async16(dst + (tt * kc + r) * ws + q * 8,
-               wg + (static_cast<size_t>(t0 + tt) * kp + c0 + r) * npad + n0 + q * 8, true);
+    const int q = i % pieces, r = (i / pieces) % kp, tt = i / per_tap;
+    cp_async16(dst + (tt * kp + r) * ws + q * 8,
+               wg + (static_cast<size_t>(t0 + tt) * kp + r) * npad + n0 + q * 8, true);
   }
 }
 
@@ -201,51 +199,32 @@ __device__ __forceinline__ void load_first_window(const float* __restrict__ xi, 
   }
 }
 
-// A middle layer's window chunk: dst[r][x][0:kc] = xi[gy0 + r][gx0 + x][c0 :
-// c0 + kc] (bf16 NHWC, K channels, K % 8 == 0), zero outside the image and
-// past K; by cp.async 16-byte pieces.
-__device__ __forceinline__ void load_window_async(const bf16* __restrict__ xi, int H, int W, int K,
-                                                  int gy0, int gx0, int rows, int cols, int c0,
-                                                  int kc, int as, bf16* dst) {
-  const int pieces = kc / 8, total = rows * cols * pieces;
-  for (int i = threadIdx.x; i < total; i += blockDim.x) {
-    const int q = i % pieces, pos = i / pieces;
-    const int gy = gy0 + pos / cols, gx = gx0 + pos % cols, ln = c0 + q * 8;
-    const bool valid = gy < H && gx < W && ln < K;
-    cp_async16(dst + pos * as + q * 8, valid ? xi + (static_cast<size_t>(gy) * W + gx) * K + ln : xi,
-               valid);
-  }
-}
-
-// The layer's sums over all K rows of the packed weights wg (taps, kp,
+// The layer's sums over all kp rows of the packed weights wg (taps, kp,
 // npad), columns [n0, n0 + NB), streamed in groups of tps taps through two
-// stages at wbuf (one where a single group holds every tap), a chunk of kc
-// window lanes at a time: load_win(c0, kc) fills the window with lanes
-// [c0, c0 + kc) (cp.async or plain stores). Starts and ends with a
-// __syncthreads, so the caller may reuse the window and wbuf right after.
+// stages at wbuf (one where a single group holds every tap), after
+// load_win() fills the window (cp.async or plain stores). Starts and ends
+// with a __syncthreads, so the caller may reuse the window and wbuf right
+// after.
 template <class C, class LoadWin>
-__device__ __forceinline__ void tc_stream(TcAcc<C>& acc, LoadWin load_win, int kp, int kc_full,
-                                          const bf16* win, int as, int ww, int fx, int taps,
-                                          int tps, const bf16* __restrict__ wg, int npad, int n0,
+__device__ __forceinline__ void tc_stream(TcAcc<C>& acc, LoadWin load_win, const bf16* win,
+                                          int as, int ww, int fx, int taps, int tps,
+                                          const bf16* __restrict__ wg, int kp, int npad, int n0,
                                           bf16* wbuf) {
   const int groups = (taps + tps - 1) / tps;
-  const int stage = tps * kc_full * C::WS;
-  for (int c0 = 0; c0 < kp; c0 += kc_full) {
-    const int kc = min(kc_full, kp - c0);
-    __syncthreads();  // every warp is done with the window and both stages
-    load_win(c0, kc);
-    load_weights_async(wg, kp, npad, n0, C::NB, C::WS, 0, min(tps, taps), c0, kc, wbuf);
-    cp_async_commit();
-    for (int g = 0; g < groups; ++g) {
-      if (g + 1 < groups)
-        load_weights_async(wg, kp, npad, n0, C::NB, C::WS, (g + 1) * tps, min(taps, (g + 2) * tps),
-                           c0, kc, wbuf + ((g + 1) & 1) * stage);
-      cp_async_commit();  // an empty group after the last keeps the count
-      cp_async_wait_1();  // group g's copies (and the window's) have landed
-      __syncthreads();
-      acc.taps(win, as, ww, fx, wbuf + (g & 1) * stage, kc, g * tps, min(taps, (g + 1) * tps));
-      __syncthreads();  // every warp is done with the stage before it is refilled
-    }
+  const int stage = tps * kp * C::WS;
+  __syncthreads();  // every warp is done with the window and both stages
+  load_win();
+  load_weights_async(wg, kp, npad, n0, C::NB, C::WS, 0, min(tps, taps), wbuf);
+  cp_async_commit();
+  for (int g = 0; g < groups; ++g) {
+    if (g + 1 < groups)
+      load_weights_async(wg, kp, npad, n0, C::NB, C::WS, (g + 1) * tps, min(taps, (g + 2) * tps),
+                         wbuf + ((g + 1) & 1) * stage);
+    cp_async_commit();  // an empty group after the last keeps the count
+    cp_async_wait_1();  // group g's copies (and the window's) have landed
+    __syncthreads();
+    acc.taps(win, as, ww, fx, wbuf + (g & 1) * stage, kp, g * tps, min(taps, (g + 1) * tps));
+    __syncthreads();  // every warp is done with the stage before it is refilled
   }
 }
 
@@ -267,32 +246,6 @@ __device__ __forceinline__ void tc_store_smem(const TcAcc<C>& acc, int pb, int P
         *reinterpret_cast<__nv_bfloat162*>(dst + p * ds + c) =
             __floats2bfloat162_rn(fmaxf(acc.v[i][j][2 * h] + __ldg(b + c), 0.f),
                                   fmaxf(acc.v[i][j][2 * h + 1] + __ldg(b + c + 1), 0.f));
-      }
-    }
-  }
-}
-
-// Epilogue of a last layer: bias in f32, no ReLU, f32 into yi (one image of
-// (OH, OW, n)) at (gy0, gx0) for the pass's positions of an ow-wide tile,
-// columns below n, inside the image.
-template <class C>
-__device__ __forceinline__ void tc_store_f32(const TcAcc<C>& acc, int pb, int P, int ow,
-                                             const float* __restrict__ b, float* yi, int gy0,
-                                             int gx0, int OH, int OW, int n) {
-#pragma unroll
-  for (int i = 0; i < C::MT; ++i) {
-    if (!acc.live[i]) continue;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int p = acc.pos(pb, i, h);
-      const int gy = gy0 + p / ow, gx = gx0 + p % ow;
-      if (p >= P || gy >= OH || gx >= OW) continue;
-      float* dst = yi + (static_cast<size_t>(gy) * OW + gx) * n;
-#pragma unroll
-      for (int j = 0; j < C::NT; ++j) {
-        const int c = acc.col(j);
-        if (c < n) dst[c] = acc.v[i][j][2 * h] + __ldg(b + c);
-        if (c + 1 < n) dst[c + 1] = acc.v[i][j][2 * h + 1] + __ldg(b + c + 1);
       }
     }
   }

@@ -16,12 +16,13 @@ by ``route``, a pure function of the shapes:
 chain's plan per layer: ``layer_plan``). ``precision="bf16"``
 runs the JAX package's bf16 stream with the int8 first layer
 (``reference`` states the numbers) on the tensor cores (the fused
-kernel on ``wgmma``; the chain's first and last layers on
-``csrc/tc_stage.cuh``, every middle layer on ``csrc/conv_wgmma.cu``), with
-its own plans
+kernel on ``wgmma``; the chain's first layer on ``csrc/tc_stage.cuh``,
+every middle layer on ``csrc/conv_wgmma.cu``, its last layer on
+``csrc/conv_last_wgmma.cu``), with its own plans
 (``bf16_layer_plan``, ``fused_wgmma_plan``) and its weights packed
 tap-major (``pack_bf16``; the fused kernel takes them tiled into its
-shared-memory image, ``fused_weights``), on the JAX rule of where that stream applies
+shared-memory image, ``fused_weights``; the chain's last layer with its dx
+taps side by side in N, ``pack_last``), on the JAX rule of where that stream applies
 (``bf16_envelope``): elsewhere JAX runs its XLA f32 forward, and so this
 takes its f32 route. A stack may take the fused kernel in f32 and the
 chain in bf16 (the wide 9-5-5: its bf16 tiles do not fit one block).
@@ -222,9 +223,9 @@ def _layer_plan(f: int, k: int, n: int, shape) -> LayerPlan:
 
 
 # The bf16 kernels (tensor cores): padded widths, the chain's plan per
-# layer (csrc/tc_stage.cuh, csrc/conv_wgmma.cu) and the fused kernel's
-# (csrc/fused_wgmma.cu). The C side recomputes the same plans and refuses a
-# launch whose shared bytes fall short of them.
+# layer (csrc/tc_stage.cuh, csrc/conv_wgmma.cu, csrc/conv_last_wgmma.cu) and
+# the fused kernel's (csrc/fused_wgmma.cu). The C side recomputes the same
+# plans and refuses a launch whose shared bytes fall short of them.
 
 def n_pad(n: int) -> int:
     """A layer's N on the tensor cores: 8, 16, 32, 64 or a multiple of 128
@@ -254,62 +255,47 @@ def w_stride(nb: int) -> int:
 
 
 class TcPlan(NamedTuple):
-    """One bf16 chain launch (``conv_layer_forward_bf16``): the layer
-    (f, k → n, first or last of the stream), the window's lanes a channel
-    chunk, the taps a weight stage and the dynamic shared bytes. The
-    output tile is TILE_H x TILE_W."""
+    """One bf16 chain launch of the first layer (``conv_layer_forward_bf16``):
+    the layer (f, k → n), its window's dx-expanded lanes (kx), the taps (dy
+    rows) a weight stage and the dynamic shared bytes. The output tile is
+    TILE_H x TILE_W."""
     f: int
     k: int
     n: int
-    first: bool
-    last: bool
-    kc: int
+    kx: int
     tps: int
     smem: int
 
 
-def tc_layer_plan(f: int, k: int, n: int, first: bool = False, last: bool = False) -> TcPlan:
-    """The bf16 chain's ``mma.sync`` plan (``csrc/tc_stage.cuh``) for the
-    first or the last f×f layer, from k to n channels (a middle layer is
-    ``wgmma_layer_plan``'s, and raises NotImplementedError here). The
-    window (the tile plus its halo, position-major, rows of kc + 8 lanes;
-    the first layer dx-expanded, TILE_W positions wide) takes all of K
-    where it fits beside two stages of one tap's weights, else the largest
-    chunk of 16 lanes that does. The weights stay whole in one stage where
-    window and weights fit in half the block limit (two blocks an SM); else
-    they stream in stages of as many taps as fit in two (in half the limit
-    where one tap does, else in all of it). Raises NotImplementedError when
-    not even 16 lanes fit."""
-    if not first and not last:
-        raise NotImplementedError(
-            f"a middle layer ({k} -> {n} channels) takes the wgmma stage (wgmma_layer_plan), "
-            "not tc_stage.cuh")
-    nb = min(n_pad(n), 128)
-    ws = w_stride(nb)
-    rows = TILE_H + f - 1
-    if first:
-        kp, cols, taps = kx_lanes(f, k), TILE_W, f
-    else:
-        kp, cols, taps = k_pad(k), TILE_W + f - 1, f * f
-    win = lambda kc: 2 * rows * cols * (kc + 8)  # noqa: E731
-    tap = lambda kc: 2 * kc * ws  # noqa: E731
-    kc = kp
-    while not first and kc > 16 and win(kc) + 2 * tap(kc) > SMEM_LIMIT:
-        kc -= 16
-    if win(kc) + 2 * tap(kc) > SMEM_LIMIT:
+def tc_layer_plan(f: int, k: int, n: int) -> TcPlan:
+    """The bf16 chain's ``mma.sync`` plan (``csrc/tc_stage.cuh``) for its
+    first f×f layer, from k to n channels (every other layer of the chain
+    takes ``wgmma_layer_plan`` or ``last_layer_plan``: ``bf16_layer_plan``).
+    The window (the tile plus its f − 1 halo rows, TILE_W positions wide,
+    dx-expanded, rows of kx + 8 lanes) takes all of its lanes. The weights
+    stay whole in one stage where window and weights fit in half the block
+    limit (two blocks an SM); else they stream in stages of as many taps as
+    fit in two (in half the limit where one tap does, else in all of it).
+    Raises NotImplementedError when the window and two stages of one tap do
+    not fit."""
+    ws = w_stride(min(n_pad(n), 128))
+    kx = kx_lanes(f, k)
+    win = 2 * (TILE_H + f - 1) * TILE_W * (kx + 8)
+    tap = 2 * kx * ws
+    if win + 2 * tap > SMEM_LIMIT:
         raise NotImplementedError(
             f"a {TILE_H}x{TILE_W} tile of an f={f} layer over {k} channels needs "
-            f"{win(kc)} shared bytes for its window plus {2 * tap(kc)} for weights "
+            f"{win} shared bytes for its window plus {2 * tap} for weights "
             f"(> {SMEM_LIMIT})")
     half = SMEM_LIMIT // 2
-    if kc == kp and win(kc) + taps * tap(kc) <= half:
-        tps = taps
+    if win + f * tap <= half:
+        tps = f
     else:
-        budget = half if win(kc) + 2 * tap(kc) <= half else SMEM_LIMIT
-        tps = min(taps, (budget - win(kc)) // (2 * tap(kc)))
-    stages = 2 if -(-taps // tps) > 1 else 1
-    out = 0 if last else 2 * TILE_H * TILE_W * ws  # the staged bf16 output tile
-    return TcPlan(f, k, n, first, last, kc, tps, max(win(kc) + stages * tps * tap(kc), out))
+        budget = half if win + 2 * tap <= half else SMEM_LIMIT
+        tps = min(f, (budget - win) // (2 * tap))
+    stages = 2 if -(-f // tps) > 1 else 1
+    out = 2 * TILE_H * TILE_W * ws  # the staged bf16 output tile
+    return TcPlan(f, k, n, kx, tps, max(win + stages * tps * tap, out))
 
 
 # The wgmma stage of the bf16 chain's middle layers (csrc/conv_wgmma.cu, its
@@ -366,8 +352,6 @@ class WgmmaPlan(NamedTuple):
     w_bytes: int
     out_bytes: int
     smem: int
-    first: bool = False
-    last: bool = False
 
 
 def wgmma_layer_plan(f: int, k: int, n: int, a_ring: int = 0) -> WgmmaPlan:
@@ -434,14 +418,134 @@ def wgmma_layer_plan(f: int, k: int, n: int, a_ring: int = 0) -> WgmmaPlan:
                      WG_SLACK + a_ring * a_box + out_bytes + w_bytes)
 
 
+# The bf16 chain's last layer (csrc/conv_last_wgmma.cu, its plan
+# csrc/conv_last_plan.cuh): its f dx taps side by side in N, a tile of
+# LAST_COLS input columns, 2 or 1 m64 slabs a warpgroup, A boxes of 32 or 64
+# lanes, W slices of a (dx group, dy)'s lanes x N, resident or through a
+# ring, the f32 sums staged in rows of N + LAST_PAD floats.
+LAST_PAD = 8  # kLastPad
+LAST_COLS = 64  # kLastCols: 32 and 16 ran slower at RGB L7 (PERF.md)
+
+
+def last_slabs(npad: int) -> int:
+    """The m64 slabs a warpgroup owns at ``npad`` columns (``last_slabs``):
+    2 up to 32 (at most 32 sums a thread), else 1."""
+    return 2 if npad <= 32 else 1
+
+
+def last_instances():
+    """The last-layer kernel's instances, ``(npad, lanes, slabs)``: one for
+    each packed width and box lanes."""
+    return [(npad, lanes, last_slabs(npad)) for npad in (8, 16, 32, 64, 128)
+            for lanes in (32, 64)]
+
+
+class LastPlan(NamedTuple):
+    """One last-layer launch (``conv_last_forward_wgmma``), as ``last_plan``
+    in ``csrc/conv_last_plan.cuh`` computes it: the layer (f, k → n), its
+    packed K, the lanes of a box row and K's chunks of them, the dx groups
+    and the dx taps a group, the packed columns (``n_pad(gdx·n)``), the
+    tile's output columns (of ``LAST_COLS``), the slabs a warpgroup and
+    the tile's output rows, the dy taps a box (gy) and the boxes (groups), a
+    box's input rows and bytes, the A stages, a W slice's bytes, whether W is
+    resident (else ``w_ring`` slices stream), the W and staged-sum bytes and
+    the dynamic shared bytes."""
+    f: int
+    k: int
+    n: int
+    kp: int
+    lanes: int
+    chunks: int
+    dgroups: int
+    gdx: int
+    npad: int
+    out_cols: int
+    slabs: int
+    tile_rows: int
+    gy: int
+    groups: int
+    box_rows: int
+    a_box: int
+    a_ring: int
+    w_slice: int
+    w_res: int
+    w_ring: int
+    w_bytes: int
+    e_bytes: int
+    smem: int
+
+
+def last_layer_plan(f: int, k: int, n: int) -> LastPlan:
+    """The plan of the bf16 chain's last f×f layer from k channels to n
+    outputs (f up to 63, k a multiple of 8, n up to 128). The f dx taps of
+    the n outputs sit side by side in N, column (dx − d0)·n + c, in the
+    fewest dx groups of at most 128 columns (one where f·n ≤ 128), their taps
+    evened out; a product's 64 rows are 64 input positions, a row of a tile
+    ``LAST_COLS`` columns wide whose first LAST_COLS − f + 1 columns are its
+    outputs. A box row holds 32 lanes of K (64-byte swizzle) where K pads to
+    32 or less, else 64. A box is the tile's rows plus the halo of gy dy
+    taps: gy is the most taps whose two boxes fit beside two W slices and the
+    staged sums in ``SMEM_LIMIT``, evened out over the boxes. The weights stay
+    resident where all of them fit beside two boxes; the A ring then takes the
+    rest, at most ``WG_MAX_RING`` stages. Else two A stages and a ring of W
+    slices in the rest. Raises NotImplementedError for a layer it does not
+    take."""
+    if f < 1 or f >= LAST_COLS or k <= 0 or k % 8 or not 1 <= n <= 128:
+        raise NotImplementedError(
+            f"the last-layer kernel takes f up to {LAST_COLS - 1}, k a multiple of 8 and n up "
+            f"to 128; got f={f}, k={k}, n={n}")
+    kp = k_pad(k)
+    lanes = 32 if kp <= 32 else 64
+    chunks = -(-k // lanes)
+    dgroups = -(-f // (128 // n))
+    gdx = -(-f // dgroups)
+    npad = n_pad(gdx * n)
+    slabs = last_slabs(npad)
+    tile_rows = 2 * slabs * WG_SLAB // LAST_COLS
+    row = LAST_COLS * lanes * 2
+    w_slice = lanes * npad * 2
+    e_bytes = 2 * slabs * WG_SLAB * (npad + LAST_PAD) * 4
+    budget = SMEM_LIMIT - WG_SLACK - e_bytes
+    gy = f
+    while gy > 0 and 2 * (tile_rows + gy - 1) * row + 2 * w_slice > budget:
+        gy -= 1
+    if gy == 0:
+        raise NotImplementedError(
+            f"a last f={f} layer: two {tile_rows}-row A boxes and two W slices "
+            f"({2 * tile_rows * row + 2 * w_slice} bytes) do not fit beside the "
+            f"{e_bytes}-byte staged sums (> {SMEM_LIMIT})")
+    gy = -(-f // -(-f // gy))
+    box_rows = tile_rows + gy - 1
+    a_box = box_rows * row
+    w_all = -(-chunks * dgroups * f * w_slice // 1024) * 1024
+    w_res = int(w_all + 2 * a_box <= budget)
+    if w_res:
+        a_ring = min(WG_MAX_RING, (budget - w_all) // a_box)
+        w_ring, w_bytes = 0, w_all
+    else:
+        a_ring = 2
+        w_ring = min(WG_MAX_RING, (budget - a_ring * a_box) // w_slice)
+        while w_ring > 0 and -(-w_ring * w_slice // 1024) * 1024 > budget - a_ring * a_box:
+            w_ring -= 1
+        if w_ring < 2:
+            raise NotImplementedError(f"two A stages of {a_box} bytes leave no room for two W "
+                                      f"slices of {w_slice}")
+        w_bytes = -(-w_ring * w_slice // 1024) * 1024
+    return LastPlan(f, k, n, kp, lanes, chunks, dgroups, gdx, npad, LAST_COLS - f + 1, slabs,
+                    tile_rows, gy, -(-f // gy), box_rows, a_box, a_ring, w_slice, w_res, w_ring,
+                    w_bytes, e_bytes, WG_SLACK + a_ring * a_box + w_bytes + e_bytes)
+
+
 def bf16_layer_plan(f: int, k: int, n: int, first: bool = False, last: bool = False):
     """The bf16 chain's plan for one layer, which names its stage: every
-    middle layer takes the wgmma stage (``wgmma_layer_plan``), the first and
-    the last ``tc_stage.cuh`` (``tc_layer_plan``). A pure function of the
-    shape."""
-    if not first and not last:
-        return wgmma_layer_plan(f, k, n)
-    return tc_layer_plan(f, k, n, first, last)
+    middle layer takes the wgmma stage (``wgmma_layer_plan``), the last
+    layer ``conv_last_wgmma.cu`` (``last_layer_plan``) and the first
+    ``tc_stage.cuh`` (``tc_layer_plan``). A pure function of the shape."""
+    if first:
+        return tc_layer_plan(f, k, n)
+    if last:
+        return last_layer_plan(f, k, n)
+    return wgmma_layer_plan(f, k, n)
 
 
 # The bf16 fused kernel (csrc/fused_wgmma.cu, its plan
@@ -559,8 +663,9 @@ def route(c: int, layers, elem: int = 4):
     f32: ``("fused", (wbuf, smem))`` (``smem_plan``) for a stack the
     fused kernel takes, else ``("chain", [LayerPlan, ...])`` (``layer_plan``). bf16:
     ``("fused", FusedWgmmaPlan)`` (``fused_wgmma_plan``) or ``("chain",
-    [TcPlan or WgmmaPlan, ...])`` (``bf16_layer_plan``). The fused kernels
-    take 3-layer stacks with c ≤ 4 and n_out ≤ 4 whose plans fit one block.
+    [TcPlan, WgmmaPlan, ..., LastPlan])`` (``bf16_layer_plan``). The fused
+    kernels take 3-layer stacks with c ≤ 4 and n_out ≤ 4 whose plans fit
+    one block.
     Raises NotImplementedError for a stack neither kernel takes."""
     fits = len(layers) == 3 and c <= 4 and layers[-1][2] <= 4
     if elem == 2:
@@ -698,12 +803,6 @@ def packed_bf16(w: torch.Tensor, b: torch.Tensor, first: bool):
     return _packed(w, b, "_cnn_sr_bf16", first, lambda: pack_bf16(w, b, first))
 
 
-def bf16_weights(params):
-    """The bf16 kernels' ``(weights, bias)`` of every layer
-    (``packed_bf16``, the first layer dx-expanded and folded)."""
-    return [packed_bf16(layer["w"], layer["b"], i == 0) for i, layer in enumerate(params)]
-
-
 def fused_image(wp: torch.Tensor) -> torch.Tensor:
     """The bf16 fused kernel's shared-memory image of packed weights
     ``wp`` (taps, K, N): each tap the K-major wgmma operand in no-swizzle
@@ -722,6 +821,42 @@ def pack_fused_last(w: torch.Tensor) -> torch.Tensor:
     wp = torch.zeros((f, k_pad(k), n_pad(f * n)), dtype=torch.bfloat16, device=w.device)
     wp[:, :k, :f * n] = w.to(torch.bfloat16).permute(0, 2, 1, 3).reshape(f, k, f * n)
     return fused_image(wp)
+
+
+def pack_last(w: torch.Tensor, b: torch.Tensor, plan: LastPlan):
+    """The last-layer kernel's operands, ``w`` (f, f, k, n) HWIO and ``b``
+    (n,) at ``plan`` (``last_layer_plan``): the weights as ``dgroups·f``
+    slices (dx group, dy) of ``kp`` x ``npad`` bf16, column (dx − d0)·n + c
+    of slice dg·f + dy, row ci holding ``w[dy, dx, ci, c]`` for the dx
+    group's taps d0 = dg·gdx ..; the bias ``(n_pad(n),)`` f32; zero in
+    every padding lane."""
+    f, _, k, n = w.shape
+    wl = torch.zeros((plan.dgroups * f, plan.kp, plan.npad), dtype=torch.bfloat16,
+                     device=w.device)
+    wb = w.to(torch.bfloat16)
+    for dg in range(plan.dgroups):
+        d0, d1 = dg * plan.gdx, min(f, (dg + 1) * plan.gdx)
+        wl[dg * f:(dg + 1) * f, :k, :(d1 - d0) * n] = (
+            wb[:, d0:d1].permute(0, 2, 1, 3).reshape(f, k, (d1 - d0) * n))
+    bl = torch.zeros(n_pad(n), dtype=torch.float32, device=b.device)
+    bl[:n] = b
+    return wl, bl
+
+
+def packed_last(w: torch.Tensor, b: torch.Tensor, plan: LastPlan):
+    """``pack_last(w, b, plan)``, made once per weight tensor and packing
+    (and again only after ``w`` or ``b`` changes in place)."""
+    key = (plan.dgroups, plan.gdx, plan.npad, plan.kp)
+    return _packed(w, b, "_cnn_sr_bf16_last", key, lambda: pack_last(w, b, plan))
+
+
+def chain_bf16_weights(params, plans):
+    """The bf16 chain's ``(weights, bias)`` of each layer as its plan's
+    stage takes them: ``packed_last`` for a ``LastPlan``, else
+    ``packed_bf16`` (the first layer dx-expanded and folded)."""
+    return [packed_last(layer["w"], layer["b"], plan) if isinstance(plan, LastPlan)
+            else packed_bf16(layer["w"], layer["b"], i == 0)
+            for i, (layer, plan) in enumerate(zip(params, plans))]
 
 
 def fused_weights(params):

@@ -72,15 +72,17 @@ def fused_forward(params, x: torch.Tensor, precision: str = "f32") -> torch.Tens
 
 def tap_layer(x: torch.Tensor, wp: torch.Tensor, bp: torch.Tensor, f: int, n: int,
               first: bool, last: bool) -> torch.Tensor:
-    """Plain version of one tensor-core layer (``csrc/tc_stage.cuh``) over
-    its packed operands ``wp`` (taps, K_pad, N_pad) bf16 and ``bp``
-    (N_pad,) f32 (``entry.pack_bf16``): the sum over taps of shifted
-    windows of ``x`` (N, H, W, k) @ ``wp[tap]``, in f32, then the bias, ReLU
-    unless ``last``, and bf16 rounding unless ``last``; (N, H−f+1, W−f+1, n)
-    f32. The first layer quantises ``x`` (f32) and builds the dx-expanded
-    window, lane ``dx·k + ci``; its taps are the f rows dy. Padding lanes
-    are zero, as the kernel's. Only the tests call it: they hold the
-    packing and the tap indexing against ``fused_forward``."""
+    """Plain version of one bf16 chain launch (``csrc/tc_stage.cuh`` first,
+    ``csrc/conv_wgmma.cu`` middle, ``csrc/conv_last_wgmma.cu`` last; the
+    last-layer kernel takes the same weights packed with its dx taps side by
+    side, ``entry.pack_last``) over the packed operands ``wp`` (taps, K_pad,
+    N_pad) bf16 and ``bp`` (N_pad,) f32 (``entry.pack_bf16``): the sum over
+    taps of shifted windows of ``x`` (N, H, W, k) @ ``wp[tap]``, in f32, then
+    the bias, ReLU unless ``last``, and bf16 rounding unless ``last``; (N,
+    H−f+1, W−f+1, n) f32. The first layer quantises ``x`` (f32) and builds the
+    dx-expanded window, lane ``dx·k + ci``; its taps are the f rows dy.
+    Padding lanes are zero, as the kernel's. Only the tests call it: they hold
+    the packing and the tap indexing against ``fused_forward``."""
     nb, h, w, k = x.shape
     oh, ow = h - f + 1, w - f + 1
     kp = wp.shape[1]

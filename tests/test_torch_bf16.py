@@ -54,6 +54,13 @@ RGB_CFG = {
 }
 
 
+def _bf16_weights(params):
+    """``entry.packed_bf16`` of every layer, as the kernels' plain version
+    (``reference.tap_layer``) takes them: the first layer dx-expanded and
+    folded, every other one tap-major."""
+    return [entry.packed_bf16(layer["w"], layer["b"], i == 0) for i, layer in enumerate(params)]
+
+
 def _params(specs, seed, he=False):
     """Weights of scale 0.1, or He-scaled (``he``), which keeps the
     activations O(1) through deep stacks."""
@@ -200,8 +207,7 @@ def test_bf16_shared_memory_plan_matches_the_design():
     assert (plan.a_ring, plan.w_ring, plan.chunks) == (2, 5, 2)
     assert plan.smem == 1536 + 2 * 18 * 16 * 128 + 5 * 64 * 128 * 2 + 256 * 128 * 2
     assert plan.smem == 222_720 <= entry.SMEM_LIMIT
-    with pytest.raises(NotImplementedError, match="wgmma stage"):
-        entry.tc_layer_plan(3, 128, 128)
+    assert isinstance(plan, entry.WgmmaPlan)
     # a narrow middle layer takes the wgmma stage too: 32-lane boxes (K
     # pads to 32) of 34 rows x 16 columns (four slabs a warpgroup), five of
     # them, beside the output staging (2 warpgroups x 4 slabs x 64
@@ -211,14 +217,14 @@ def test_bf16_shared_memory_plan_matches_the_design():
     assert (plan.lanes, plan.slabs, plan.a_ring, plan.w_res) == (32, 4, 5, 1)
     assert plan.smem == 1536 + 5 * 34 * 16 * 64 + 2 * 4 * 64 * 32 * 2 + 2 * 9 * 32 * 32
     assert plan.smem == 226_816 <= entry.SMEM_LIMIT
-    with pytest.raises(NotImplementedError, match="wgmma stage"):
-        entry.tc_layer_plan(3, 32, 32)
+    assert isinstance(plan, entry.WgmmaPlan)
     # the first layer: f taps over its dx-expanded window, 16 positions
     # wide (18·16·(16+8) and 3·16·(32+8)); the staged 16x16x(32+8) output
     # tile takes more
-    plan = entry.tc_layer_plan(3, 3, 32, first=True)
+    plan = entry.bf16_layer_plan(3, 3, 32, first=True)
+    assert plan == entry.tc_layer_plan(3, 3, 32)
     assert 2 * (18 * 16 * 24 + 3 * 16 * 40) < 2 * 256 * 40
-    assert (plan.kc, plan.tps, plan.smem) == (16, 3, 2 * 256 * 40)
+    assert (plan.kx, plan.tps, plan.smem) == (16, 3, 2 * 256 * 40)
     # f=9 over 128 channels: admitted in f32 (its window streamed in
     # chunks of 6 channels beside their weights, two stages) and in bf16
     # (two 64-lane chunks; its 331,776 bytes of weights stream through 16
@@ -229,28 +235,32 @@ def test_bf16_shared_memory_plan_matches_the_design():
     assert (plan.chunks, plan.gy, plan.box_rows, plan.w_res, plan.w_ring) == (2, 9, 40, 0, 16)
     assert plan.smem == 1536 + 2 * 40 * 16 * 128 + 2 * 4 * 64 * 16 * 2 + 16 * 64 * 16 * 2
     kind, plans = entry.route(1, WIDE_F9, 2)
-    assert kind == "chain" and len(plans) == 4 and plans[0].first and plans[-1].last
-    # a last layer's window too wide for all its channels takes them in
-    # chunks of 16 lanes; a middle one reads K in chunks of 64
-    plan = entry.tc_layer_plan(9, 256, 1, last=True)
-    assert plan.kc < 256 and plan.kc % 16 == 0 and plan.smem <= entry.SMEM_LIMIT
+    assert kind == "chain" and len(plans) == 4
+    assert isinstance(plans[0], entry.TcPlan) and isinstance(plans[-1], entry.LastPlan)
+    # a last layer over 256 channels reads K in four chunks of 64 lanes,
+    # its nine dx taps side by side in 16 columns, its weights streamed
+    # beside two boxes of 4 + 8 rows x 64 columns; a middle one reads K in
+    # chunks of 64
+    plan = entry.bf16_layer_plan(9, 256, 1, last=True)
+    assert (plan.chunks, plan.npad, plan.box_rows, plan.w_res) == (4, 16, 12, 0)
+    assert plan.smem <= entry.SMEM_LIMIT
     plan = entry.bf16_layer_plan(9, 256, 16)
     assert plan.chunks == 4 and plan.smem <= entry.SMEM_LIMIT
 
 
 def test_bf16_weights_made_once_per_parameter_set():
     params = params_to_torch(_params(NARROW_955, 4), "cpu")
-    first = entry.bf16_weights(params)
+    first = _bf16_weights(params)
     assert [wp.shape for wp, _ in first] == [(9, 16, 8), (25, 16, 8), (25, 16, 8)]
     assert first[0][0].dtype == torch.bfloat16 and first[0][1].dtype == torch.float32
     assert torch.equal(first[0][0][:, :9, :8].reshape(9, 9, 1, 8),
                        reference.fold_first(params[0]["w"]))
     assert torch.equal(first[1][0][:, :8, :8].reshape(5, 5, 8, 8),
                        params[1]["w"].to(torch.bfloat16))
-    again = entry.bf16_weights(params)
+    again = _bf16_weights(params)
     assert all(a is b for a, b in zip(first, again))
     params[1]["w"].mul_(2.0)  # changed in place: made anew
-    third = entry.bf16_weights(params)
+    third = _bf16_weights(params)
     assert third[0] is first[0] and third[1] is not first[1]
     assert torch.equal(third[1][0][:, :8, :8].reshape(5, 5, 8, 8),
                        params[1]["w"].to(torch.bfloat16))

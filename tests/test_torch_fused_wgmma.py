@@ -174,7 +174,14 @@ def test_route_of_each_stack(name):
         return
     assert kind == "chain" and entry.fused_wgmma_plan(c, specs) is None
     assert [p.smem <= entry.SMEM_LIMIT for p in plan] == [True] * 3
-    assert plan[0].first and plan[-1].last
+    assert isinstance(plan[0], entry.TcPlan) and isinstance(plan[-1], entry.LastPlan)
+
+
+def _bf16_weights(params):
+    """``entry.packed_bf16`` of every layer, as the kernels' plain version
+    (``reference.tap_layer``) takes them: the first layer dx-expanded and
+    folded, every other one tap-major."""
+    return [entry.packed_bf16(layer["w"], layer["b"], i == 0) for i, layer in enumerate(params)]
 
 
 def _params(specs, seed, device="cpu"):
@@ -201,7 +208,7 @@ def test_weight_images_unpack_to_the_packed_weights(name):
     specs, _ = FUSED[name]
     params = _params(specs, 1)
     images = entry.fused_weights(params)
-    packed = entry.bf16_weights(params)
+    packed = _bf16_weights(params)
     for i, ((img, bp), (wp, bq)) in enumerate(zip(images, packed)):
         if i == 2:
             f, _, k, n = params[2]["w"].shape

@@ -40,6 +40,13 @@ STACKS = {
 }
 
 
+def _bf16_weights(params):
+    """``entry.packed_bf16`` of every layer, as the kernels' plain version
+    (``reference.tap_layer``) takes them: the first layer dx-expanded and
+    folded, every other one tap-major."""
+    return [entry.packed_bf16(layer["w"], layer["b"], i == 0) for i, layer in enumerate(params)]
+
+
 def _params(specs, seed):
     """He-scaled weights, so that activations stay O(1) through deep stacks."""
     rng = np.random.default_rng(seed)
@@ -57,16 +64,19 @@ def test_bf16_plans_fit_and_route(name):
     if kind == "fused":
         assert plan == entry.fused_wgmma_plan(c, specs) and plan.smem <= entry.SMEM_LIMIT
         return
-    assert len(plan) == len(specs) and plan[0].first and plan[-1].last
+    assert len(plan) == len(specs)
     for i, (p, (f, k, n)) in enumerate(zip(plan, specs)):
         assert (p.f, p.k, p.n) == (f, k, n) and p.smem <= entry.SMEM_LIMIT
         # a middle layer takes the wgmma stage (its plan:
-        # tests/test_torch_wgmma_chain.py), the first and the last the
-        # mma.sync stage
+        # tests/test_torch_wgmma_chain.py), the last the last-layer kernel
+        # (tests/test_torch_last_wgmma.py), the first the mma.sync stage
         if 0 < i < len(specs) - 1:
             assert p == entry.wgmma_layer_plan(f, k, n)
+        elif i == len(specs) - 1:
+            assert p == entry.last_layer_plan(f, k, n)
         else:
-            assert p.kc % 16 == 0 and 1 <= p.tps <= (f if p.first else f * f)
+            assert p == entry.tc_layer_plan(f, k, n)
+            assert p.kx % 16 == 0 and 1 <= p.tps <= f
 
 
 @pytest.mark.parametrize("specs,c,kind", [
@@ -90,7 +100,7 @@ def test_packed_weights_unpack_bit_for_bit(name):
     specs, _, _, _ = STACKS[name]
     params = _params(specs, 1)
     for i, ((wp, bp), (f, k, n), layer) in enumerate(
-            zip(entry.bf16_weights(params), specs, params)):
+            zip(_bf16_weights(params), specs, params)):
         first = i == 0
         taps, kp = (f, entry.kx_lanes(f, k)) if first else (f * f, entry.k_pad(k))
         assert wp.dtype == torch.bfloat16 and wp.shape == (taps, kp, entry.n_pad(n))
@@ -119,7 +129,7 @@ def test_tap_layer_chain_matches_the_stream(name):
     x = torch.from_numpy(np.random.default_rng(3).uniform(-0.5, 0.5, shape).astype(np.float32))
     y = x
     last = len(specs) - 1
-    for i, ((wp, bp), (f, _, n)) in enumerate(zip(entry.bf16_weights(params), specs)):
+    for i, ((wp, bp), (f, _, n)) in enumerate(zip(_bf16_weights(params), specs)):
         layer = params[i]
         w = reference.fold_first(layer["w"]) if i == 0 else layer["w"].to(torch.bfloat16)
         with strict_f32():
@@ -144,10 +154,10 @@ def test_packer_runs_once_per_parameter_set(name, monkeypatch):
     calls = []
     pack = entry.pack_bf16
     monkeypatch.setattr(entry, "pack_bf16", lambda *a: calls.append(a[2]) or pack(*a))
-    first = entry.bf16_weights(params)
+    first = _bf16_weights(params)
     assert calls == [True] + [False] * (len(specs) - 1)
-    again = entry.bf16_weights(params)
+    again = _bf16_weights(params)
     assert len(calls) == len(specs) and all(a is b for a, b in zip(first, again))
     params[-1]["b"].add_(1.0)  # a bias changed in place: that layer alone anew
-    entry.bf16_weights(params)
+    _bf16_weights(params)
     assert len(calls) == len(specs) + 1
