@@ -8,9 +8,10 @@ stack in one launch, ``fused_srcnn.cu`` in f32 on the CUDA cores
 (``ffma_stage.cuh``) and ``fused_wgmma.cu`` in the bf16 stream on the
 tensor cores by ``wgmma``, and ``conv_layer.cu``, the layer chain, one
 launch per layer, in f32 on the CUDA cores and in the bf16 stream on the
-tensor cores (its first layer on ``tc_stage.cuh``, ``mma.sync``; every
-middle layer on ``conv_wgmma.cu`` and the last on ``conv_last_wgmma.cu``,
-both ``wgmma`` fed by tensor copies); and the
+tensor cores (its first layer on ``conv_first_wgmma.cu``, every middle
+layer on ``conv_wgmma.cu`` and the last on ``conv_last_wgmma.cu``, all
+three ``wgmma``, their stores and the middle and last layers' loads by
+tensor copies); and the
 probes' ``winograd.cu``, ``parity_copy.cu``, ``wino5.cu``, ``rowpair.cu``
 and ``xpack.cu``, of which ``winograd.cu`` and ``wino5.cu`` run on the
 tensor cores by ``mma.sync`` and ``rowpair.cu`` and ``xpack.cu`` by
@@ -28,11 +29,14 @@ of the six probes (``cnn_sr_tpu_torch.probes``). Phases, one line each:
 2. build: each source's ptxas report, the registers of the f32 fused
    kernel, of every f32 chain kernel instance and of every ``winograd.cu``
    and ``wino5.cu`` instance (as many as their plans make; none may
-   spill), and the HMMA instructions in the SASS of the bf16 chain's
-   kernels, of ``winograd_f2x3_forward``'s and of ``wino5_forward``'s, in
-   each of its four modes (``cuobjdump -sass``), > 0; ``rowpair_kernel``'s
+   spill), and the HMMA instructions in the SASS of
+   ``winograd_f2x3_forward``'s and of ``wino5_forward``'s, in each of its
+   four modes (``cuobjdump -sass``), > 0; ``rowpair_kernel``'s
    four instances and ``tap_gemm_kernel``'s six (registers and spills:
-   none, beside their plans' dynamic shared bytes), ``conv_layer_wgmma_kernel``'s
+   none, beside their plans' dynamic shared bytes),
+   ``conv_first_wgmma_kernel``'s seven instances (the same, and the HGMMA
+   of each, beside the plans at RGB L1, the flagship's and the wide
+   9-5-5's conv1 and f = 9 4 -> 256), ``conv_layer_wgmma_kernel``'s
    nine instances (the same, and the HGMMA of each, beside the plans at
    the RGB L2-L6 and 128 -> 64), ``conv_last_wgmma_kernel``'s ten (the
    same, beside the plans at RGB L7, f = 5 32 -> 1, f = 9 256 -> 1 and
@@ -59,7 +63,10 @@ of the six probes (``cnn_sr_tpu_torch.probes``). Phases, one line each:
    ragged batch (both with L2-L6 on the wgmma stage and L7 on the
    last-layer kernel), the same 4-layer
    stack (its two narrow middles on the wgmma stage) and a 4-layer stack
-   with two wgmma layers (64 -> 256, and f=9 over 256 channels to 128).
+   with two wgmma layers (64 -> 256, and f=9 over 256 channels to 128),
+   a 4-layer stack whose last layer has f = 4 and a 3-layer stack whose
+   first layer, f = 9 over 4 channels into 256, takes the widest branch of
+   the first-layer plan (four chunks of N, one slab, W streamed).
    Max |kernel − plain| ≤ 2^-7
    of the output's largest magnitude: the products are exact in both, but a sum taken in
    another order can round an activation to the neighbouring bf16 value;
@@ -122,7 +129,7 @@ of the six probes (``cnn_sr_tpu_torch.probes``). Phases, one line each:
 11. profile (``profile_phase``): ``cnn_torch.py ... profile --trace-dir``
    on a 1080p PNG through the flagship checkpoint in bf16 (``--pallas``)
    and f32 and the RGB checkpoint in both: exactly its one fused or seven
-   chain launches (in bf16 one ``conv_layer_tc_kernel``, five
+   chain launches (in bf16 one ``conv_first_wgmma_kernel``, five
    ``conv_layer_wgmma_kernel`` and one ``conv_last_wgmma_kernel``), by the
    counters and in the trace's op
    table, which names the kernels; the PNG byte-equal to an unprofiled run's; the
@@ -178,7 +185,7 @@ of the six probes (``cnn_sr_tpu_torch.probes``). Phases, one line each:
 Then one JSON line of the twelve kernels (the shipped six also with their
 launches on the ``[parallel]`` path, ``parallel_launches``; the wgmma
 stage's times are RGB L2 + ... + L6 at 1080p from ``[layers]``, the
-``mma.sync`` stage's ``conv_layer_bf16`` row L1 and its launches, the
+first-layer kernel's ``conv_first_wgmma`` row L1 and its launches, the
 last-layer kernel's ``conv_last_wgmma`` row L7 and its launches), the
 ``nvidia-smi`` line, and as the last line ``{"ok": true, "device":
 {...}}``. Any failed check raises,
@@ -256,15 +263,16 @@ def make_image(h: int, w: int, seed: int) -> np.ndarray:
 
 def reset_counts() -> None:
     entry.LAUNCHES = entry.LAUNCHES_BF16 = 0
-    chain.LAUNCHES = chain.LAUNCHES_BF16 = chain.LAUNCHES_WGMMA = chain.LAUNCHES_LAST = 0
+    chain.LAUNCHES = chain.LAUNCHES_BF16 = chain.LAUNCHES_FIRST = 0
+    chain.LAUNCHES_WGMMA = chain.LAUNCHES_LAST = 0
 
 
 def counts():
     """Launches of (fused f32, chain f32, fused bf16, chain bf16, and of the
-    chain's bf16 launches those of the wgmma stage and of the last-layer
-    kernel)."""
+    chain's bf16 launches those of the first-layer kernel, of the wgmma
+    stage and of the last-layer kernel)."""
     return (entry.LAUNCHES, chain.LAUNCHES, entry.LAUNCHES_BF16, chain.LAUNCHES_BF16,
-            chain.LAUNCHES_WGMMA, chain.LAUNCHES_LAST)
+            chain.LAUNCHES_FIRST, chain.LAUNCHES_WGMMA, chain.LAUNCHES_LAST)
 
 
 def kernel_vs_plain(name, params, shape, seed, launches, precision="f32") -> float:
@@ -332,7 +340,7 @@ def main_path(name, cfg, params, plain_fn, launches, smi, precision="f32", tol=1
     mpix = h * w / 1e6
     print(f"[main] {smi} | 3 requests 1920x1080 {name} {precision}: "
           + ", ".join(f"{ms:.2f} ms ({mpix / ms * 1e3:.1f} MPix/s)" for ms in req_ms)
-          + f" | launches (fused, chain, fused bf16, chain bf16, wgmma, last) {total}"
+          + f" | launches (fused, chain, fused bf16, chain bf16, first, wgmma, last) {total}"
           + f" | max diff vs plain pipeline {diff} uint8"
           + " | peak device memory per request "
           + ", ".join(f"{b / 2**20:.1f}" for b in peak) + " MiB")
@@ -447,16 +455,16 @@ def layer_times(params, x, smi, precision="f32") -> dict:
     """The chain's time per layer in ``precision`` on the stack's own
     activations (``chain.layer_forward`` with the layer's plan:
     ``entry.layer_plan`` in f32, ``entry.bf16_layer_plan`` in bf16, where
-    the first layer quantises the f32 input on the mma.sync stage, the last
-    writes f32 on the last-layer kernel, the others read and write bf16 on
-    the wgmma stage), beside the library's convolution of that layer on the
+    the first layer quantises the f32 input on the first-layer kernel, the
+    last writes f32 on the last-layer kernel, the others read and write bf16
+    on the wgmma stage), beside the library's convolution of that layer on the
     same activations (CUDA events). In f32 one line; in bf16 a line a layer,
     each checked against and timed beside its plain version
     (``reference.tap_layer`` over ``entry.pack_bf16``'s packing) in turns:
     plain, kernel, kernel, plain, library, library. Returns, in bf16, the
     summed ``ms``, ``plain_ms``, ``library_ms`` and ``bound_ms`` and the
     largest error (``err``) of the wgmma layers (``"wgmma"``), of the first
-    (``"tc"``) and of the last (``"last"``); {} in f32."""
+    (``"first"``) and of the last (``"last"``); {} in f32."""
     bf16 = precision == "bf16"
     lib = build.load_library()
     stream = torch.cuda.current_stream().cuda_stream
@@ -466,7 +474,7 @@ def layer_times(params, x, smi, precision="f32") -> dict:
              for i, d in enumerate(dims)]
     operands = (entry.chain_bf16_weights(params, plans) if bf16
                 else entry.f32_weights(params, [p.nb for p in plans]))
-    parts, src, rows = [], x, {"wgmma": [], "tc": [], "last": []}
+    parts, src, rows = [], x, {"wgmma": [], "first": [], "last": []}
     for i, (layer, (wt, bt), plan) in enumerate(zip(params, operands, plans)):
         f, _, k, n = layer["w"].shape
         nb, h, w, _ = src.shape
@@ -497,17 +505,19 @@ def layer_times(params, x, smi, precision="f32") -> dict:
                                   time_ms(lib_fn), time_ms(lib_fn))
         k_ms, l_ms = (k1 + k2) / 2, (l1 + l2) / 2
         wg, fin = isinstance(plan, entry.WgmmaPlan), isinstance(plan, entry.LastPlan)
-        rows["wgmma" if wg else "last" if fin else "tc"].append(
+        rows["wgmma" if wg else "last" if fin else "first"].append(
             {"ms": k_ms, "plain_ms": (p1 + p2) / 2, "library_ms": l_ms, "bound_ms": bound,
              "bound_by": bound_by, "err": err})
-        w_how = "" if not (wg or fin) else (
-            "resident" if plan.w_res else f"through {plan.w_ring} stages")
+        w_how = "resident" if plan.w_res else f"through {plan.w_ring} stages"
         stage = (f"wgmma ({plan.bn} columns, {plan.lanes}-lane boxes, {plan.slabs} slabs a "
                  f"warpgroup, {plan.a_ring} A stages, W {w_how})" if wg
                  else f"last-layer wgmma ({plan.f} dx taps x {plan.n} in {plan.npad} columns, "
                  f"{plan.tile_rows}x{entry.LAST_COLS} tiles of {plan.out_cols} output columns, "
                  f"{plan.lanes}-lane boxes, {plan.slabs} slabs a warpgroup, {plan.a_ring} A "
-                 f"stages, W {w_how})" if fin else "mma.sync (tc_stage.cuh)")
+                 f"stages, W {w_how})" if fin
+                 else f"first-layer wgmma ({plan.cols}x{plan.tile_rows} tiles, {plan.kx} lanes, "
+                 f"{plan.bn} columns x {plan.nchunks}, {plan.slabs} slabs a warpgroup, "
+                 f"{plan.raw_ring} raw stages, {plan.out_bufs} output buffers, W {w_how})")
         print(f"[layers] {smi} | bf16 {what} {stage}: kernel {k1:.4f}/{k2:.4f} ms, plain "
               f"(tap_layer) {p1:.4f}/{p2:.4f}, library (cuDNN bf16) {l1:.4f}/{l2:.4f}, bound "
               f"{bound:.4f} ({bound_by}, {bound / k_ms * 100:.0f}% of it), library / kernel "
@@ -623,6 +633,35 @@ def wgmma_build(log: str) -> None:
     print("[build] conv_wgmma.cu ptxas remarks on wgmma: " + (" | ".join(remarks) or "none"))
 
 
+def first_build(log: str) -> None:
+    """[build]: ``conv_first_wgmma_kernel``'s instances (one each of
+    ``entry.first_instances``: block columns, slabs a warpgroup) from
+    ptxas: registers and spills (none allowed) of each, beside the plans at
+    RGB L1, the flagship's and the wide 9-5-5's conv1, and ``[kernel]``'s
+    f = 9 over 4 channels into 256 (dynamic shared bytes, the instance each
+    takes); and any ptxas remark on its ``wgmma`` (a serialised pipeline is
+    named there)."""
+    kernels = build.ptxas_entries(log, "conv_first_wgmma_kernel")
+    want = entry.first_instances()
+    check(len(kernels) == len(want), f"conv_first_wgmma.cu: {len(kernels)} kernel instances in "
+          f"the ptxas report, expected {len(want)}")
+    print("[build] conv_first_wgmma.cu (wgmma) instances (columns, slabs): "
+          + ", ".join(f"{name} {regs} registers ({spill})" for name, regs, spill in kernels))
+    for name, _, spill in kernels:
+        check(" 0 bytes spill stores, 0 bytes spill loads" in spill,
+              f"conv_first_wgmma.cu {name} spills: {spill}")
+    plans = {what: entry.first_layer_plan(*layer) for what, layer in (
+        ("RGB L1 3->32", (3, 3, 32)), ("f=9 1->64", (9, 1, 64)), ("f=9 1->128", (9, 1, 128)),
+        ("f=9 4->256", (9, 4, 256)))}
+    print("[build] conv_first_wgmma.cu plans: " + ", ".join(
+        f"{w} {p.smem} bytes (instance {p.bn}, {p.slabs}; {p.cols}x{p.tile_rows} tiles, "
+        f"{p.kx} lanes, {p.raw_ring} raw stages of {p.raw_bytes}, {p.out_bufs} output buffers, "
+        "W " + ("resident" if p.w_res else f"{p.w_ring} slices") + ")" for w, p in plans.items()))
+    remarks = [ln.strip() for ln in log.splitlines() if "gmma" in ln.lower()
+               and "entry function" not in ln and "Function properties" not in ln]
+    print("[build] conv_first_wgmma.cu ptxas remarks on wgmma: " + (" | ".join(remarks) or "none"))
+
+
 def last_build(log: str) -> None:
     """[build]: ``conv_last_wgmma_kernel``'s instances (one each of
     ``entry.last_instances``: packed columns, box lanes, slabs a warpgroup)
@@ -704,11 +743,13 @@ def descriptor_check(smi, dev) -> None:
 
 
 def sass_hmma() -> tuple:
-    """HMMA instructions in the SASS of each bf16 entry point's kernels in
-    the built library (``cuobjdump -sass``, beside ``nvcc``), the Winograd
-    layer's six instances among them, and of ``wino5_forward``'s, in all
-    and in each mode's instance; and the HGMMA (``wgmma``) instructions in
-    ``rowpair_gemm``'s, each of ``conv_layer_forward_wgmma``'s nine
+    """HMMA instructions in the SASS of the ``mma.sync`` entry points'
+    kernels in the built library (``cuobjdump -sass``, beside ``nvcc``): the
+    Winograd layer's six instances, and ``wino5_forward``'s, in all and in
+    each mode's instance; and the HGMMA (``wgmma``) instructions in
+    ``rowpair_gemm``'s, each of ``conv_first_forward_wgmma``'s seven
+    instances (block columns / slabs a warpgroup), each of
+    ``conv_layer_forward_wgmma``'s nine
     instances (block columns / box lanes / slabs a warpgroup), each of
     ``conv_last_forward_wgmma``'s ten (packed columns / box lanes / slabs),
     ``fused_srcnn_forward_bf16``'s (all three of its layers) and in each of
@@ -718,13 +759,14 @@ def sass_hmma() -> tuple:
     tool = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
     sass = subprocess.run([tool, "-sass", build.library_path()], capture_output=True, text=True,
                           check=True, timeout=300).stdout
-    kernel = {"conv_layer_tc_kernel": ["conv_layer_forward_bf16"],
-              "winograd_kernel": ["winograd_f2x3_forward"],
+    kernel = {"winograd_kernel": ["winograd_f2x3_forward"],
               **{f"wino5_quad_kernelILi{code}E": ["wino5_forward", f"wino5_forward {mode}"]
                  for code, mode in enumerate(("quad", "quadp", "quad1"))},
               "wino5_w55f_kernel": ["wino5_forward", "wino5_forward w55f"]}
     counts = {name: 0 for names in kernel.values() for name in names}
     wgmma = {"rowpair_kernel": "rowpair_gemm",
+             **{f"conv_first_wgmma_kernelILi{bn}ELi{s}E": f"conv_first_forward_wgmma {bn}/{s}"
+                for bn, s in entry.first_instances()},
              **{f"conv_layer_wgmma_kernelILi{bn}ELi{lanes}ELi{s}E":
                 f"conv_layer_forward_wgmma {bn}/{lanes}/{s}"
                 for bn, lanes, s in entry.wgmma_instances()},
@@ -1367,9 +1409,9 @@ def serve_path(cfg, params, cfg_rgb, params_rgb, smi) -> tuple:
     probe.join()
     check(seen == [torch.cuda.current_stream().cuda_stream], f"serve: worker stream {seen}")
     check(not worker.is_alive(), "serve: the worker did not stop")
-    check(total == (0, 0, 7, 7, 5, 1),
-          f"serve: launches (fused, chain, fused bf16, chain bf16, wgmma, last) {total}, "
-          "expected (0, 0, 7, 7, 5, 1): one fused batch of 4, one bucketed single, 5 singles; 7 "
+    check(total == (0, 0, 7, 7, 1, 5, 1),
+          f"serve: launches (fused, chain, fused bf16, chain bf16, first, wgmma, last) {total}, "
+          "expected (0, 0, 7, 7, 1, 5, 1): one fused batch of 4, one bucketed single, 5 singles; 7 "
           "chain layers, 5 of them (L2-L6) on the wgmma stage and L7 on the last-layer kernel")
     check(stats["ok"] == 12 and stats["batched_jobs"] == 6 and stats["errors"] == 0,
           f"serve: stats {stats}")
@@ -1416,7 +1458,7 @@ def serve_path(cfg, params, cfg_rgb, params_rgb, smi) -> tuple:
           + f"; flagship 1000x700 (bucketed single) {ms[6]:.2f} | 5 single flagship 1080p: "
           + ", ".join(f"{v:.2f}" for v in single_ms)
           + f" ms | flagship frames/s batched {batch_fps:.2f} vs single {single_fps:.2f}"
-          + f" | launches (fused, chain, fused bf16, chain bf16, wgmma, last) {total}"
+          + f" | launches (fused, chain, fused bf16, chain bf16, first, wgmma, last) {total}"
           + f" | stats ok {stats['ok']} batched_jobs {stats['batched_jobs']} errors "
           f"{stats['errors']} rounds {stats['rounds']} max_batch_seen {stats['max_batch_seen']}"
           + f" | vs plain bf16 pipeline max {worst_plain} uint8 (within ±1: "
@@ -1625,8 +1667,8 @@ def train_phase(smi, dev, work):
         reset_counts()
         out = api.upscale_image(cfg, params, rgba)
         made = counts()
-        check(made == (1, 0, 0, 0, 0, 0),
-              f"[train] upscale launches {made}, expected (1, 0, 0, 0, 0, 0)")
+        check(made == (1, 0, 0, 0, 0, 0, 0),
+              f"[train] upscale launches {made}, expected (1, 0, 0, 0, 0, 0, 0)")
         plain = api._upscale_luma(lambda x: reference.fused_forward(params, x),
                                   torch.from_numpy(rgba).to(dev), add_mean=cfg.zero_mean_target,
                                   squared_mean=cfg.subtract_squared_mean).cpu().numpy()
@@ -1636,7 +1678,8 @@ def train_phase(smi, dev, work):
               and np.array_equal(out[border], rgba[..., :3][border]),
               f"[train] trained upscale: {out.shape}, max diff {diff} uint8 vs plain")
         print(f"[train] saved and loaded back bit-exact (epochs {epochs}); 1920x1080 upscale "
-              f"with the trained weights: launches (fused, chain, fused bf16, chain bf16, wgmma) "
+              f"with the trained weights: launches (fused, chain, fused bf16, chain bf16, first, "
+              "wgmma, last) "
               f"{made}, max diff vs plain pipeline {diff} uint8")
 
         out_path = os.path.join(d, "cli.json")
@@ -1813,7 +1856,7 @@ def parallel_phase(smi, dev, cfg, params, cfg_rgb, params_rgb, data) -> dict:
     rgba = make_image(1080, 1920, SEED)
     img = torch.from_numpy(rgba).to(dev)
     x = subtract_mean(extract_luma(img))[0][None, ..., None].contiguous()
-    for precision, want in (("bf16", (0, 0, 4, 0, 0, 0)), ("f32", (4, 0, 0, 0, 0, 0))):
+    for precision, want in (("bf16", (0, 0, 4, 0, 0, 0, 0)), ("f32", (4, 0, 0, 0, 0, 0, 0))):
         made, diff, ms, single_ms, peak, single_peak = spatial_requests(
             "flagship 9-5-5", cfg, params, rgba, 4, precision, want, 1, smi)
         launches[f"flagship {precision}"] = made
@@ -1821,14 +1864,15 @@ def parallel_phase(smi, dev, cfg, params, cfg_rgb, params_rgb, data) -> dict:
         print(f"[parallel] {smi} | spatial, flagship 9-5-5 {precision}, 1920x1080 over 4 bands "
               f"of cuda:0: ms per request " + ", ".join(f"{v:.2f}" for v in ms)
               + " (unsharded " + ", ".join(f"{v:.2f}" for v in single_ms)
-              + f") | launches (fused, chain, fused bf16, chain bf16, wgmma) {made} | max diff vs "
+              + f") | launches (fused, chain, fused bf16, chain bf16, first, wgmma, last) {made} "
+              "| max diff vs "
               f"unsharded {diff} uint8, conv stack max |float diff| {fdiff:.3e} | halo "
               f"{halo_bytes(params, x, 4)} bytes | peak device memory {peak / 2**20:.1f} MiB "
               f"(unsharded {single_peak / 2**20:.1f})")
     rgb = img[..., :3].to(torch.float32) / 255.0
     x_rgb = (rgb - rgb.mean(dim=(0, 1), keepdim=True))[None].contiguous()
-    for precision, want, tol in (("f32", (0, 14, 0, 0, 0, 0), 1),
-                                 ("bf16", (0, 0, 0, 14, 10, 2), 2)):
+    for precision, want, tol in (("f32", (0, 14, 0, 0, 0, 0, 0), 1),
+                                 ("bf16", (0, 0, 0, 14, 2, 10, 2), 2)):
         made, diff, ms, single_ms, peak, single_peak = spatial_requests(
             "RGB 7-layer", cfg_rgb, params_rgb, rgba, 2, precision, want, tol, smi, n=1)
         launches[f"RGB {precision}"] = made
@@ -1972,7 +2016,7 @@ def profile_phase(smi, work) -> None:
     on one 1920x1080 PNG through the flagship checkpoint in bf16
     (``--pallas``) and f32 and the RGB checkpoint in bf16 and f32, each
     with ``--trace-dir``: rc 0; exactly one ``fused_wgmma_kernel``, one
-    ``fused_srcnn_kernel``, one ``conv_layer_tc_kernel``, five
+    ``fused_srcnn_kernel``, one ``conv_first_wgmma_kernel``, five
     ``conv_layer_wgmma_kernel`` and one ``conv_last_wgmma_kernel`` or seven
     ``conv_layer_kernel`` launches, by
     the ``LAUNCHES*`` counters and by the
@@ -1993,12 +2037,13 @@ def profile_phase(smi, work) -> None:
     src = os.path.join(work, "frame.png")
     write_image(src, make_image(1080, 1920, SEED + 70)[..., :3])
     # each run's kernels and their launches in the op table
-    runs = (("flagship 9-5-5", FLAGSHIP, "bf16", (0, 0, 1, 0, 0, 0), {"fused_wgmma_kernel": 1}),
-            ("flagship 9-5-5", FLAGSHIP, "f32", (1, 0, 0, 0, 0, 0), {"fused_srcnn_kernel": 1}),
-            ("RGB 7-layer", RGB7, "bf16", (0, 0, 0, 7, 5, 1),
-             {"conv_layer_tc_kernel": 1, "conv_layer_wgmma_kernel": 5,
+    runs = (("flagship 9-5-5", FLAGSHIP, "bf16", (0, 0, 1, 0, 0, 0, 0),
+             {"fused_wgmma_kernel": 1}),
+            ("flagship 9-5-5", FLAGSHIP, "f32", (1, 0, 0, 0, 0, 0, 0), {"fused_srcnn_kernel": 1}),
+            ("RGB 7-layer", RGB7, "bf16", (0, 0, 0, 7, 1, 5, 1),
+             {"conv_first_wgmma_kernel": 1, "conv_layer_wgmma_kernel": 5,
               "conv_last_wgmma_kernel": 1}),
-            ("RGB 7-layer", RGB7, "f32", (0, 7, 0, 0, 0, 0), {"conv_layer_kernel": 7}))
+            ("RGB 7-layer", RGB7, "f32", (0, 7, 0, 0, 0, 0, 0), {"conv_layer_kernel": 7}))
     for i, (name, cfg_path, precision, want, kernels) in enumerate(runs):
         line = ["-c", cfg_path, "-i", src] + (["--pallas"] if precision == "bf16" else [])
         plain, profiled = (os.path.join(work, f"{k}{i}.png") for k in ("plain", "profiled"))
@@ -2027,7 +2072,8 @@ def profile_phase(smi, work) -> None:
         copies = [r for r in rows if r[0].startswith(("Memcpy", "Memset"))]
         stages = [STAGE_LINE.match(ln) for ln in text.splitlines()]
         print(f"[profile] {smi} | cnn_torch.py profile, 1920x1080 PNG, {name} {precision}: rc 0 "
-              f"in {secs:.2f} s, launches (fused, chain, fused bf16, chain bf16, wgmma, last) "
+              f"in {secs:.2f} s, launches (fused, chain, fused bf16, chain bf16, first, wgmma, "
+              "last) "
               f"{made}, PNG byte-equal to the unprofiled run's | {kernel} "
               f"x{sum(kernels.values())} "
               f"{kernel_us / 1e3:.3f} ms = {kernel_us * 100 / total:.1f}% of device op time "
@@ -2240,6 +2286,7 @@ def main() -> int:
                 check(" 0 bytes spill stores, 0 bytes spill loads" in spill,
                       f"{src} {name} spills: {spill}")
         rowpair_build(info["logs"]["rowpair.cu"])
+        first_build(info["logs"]["conv_first_wgmma.cu"])
         wgmma_build(info["logs"]["conv_wgmma.cu"])
         last_build(info["logs"]["conv_last_wgmma.cu"])
         fused_wgmma_build(info["logs"]["fused_wgmma.cu"])
@@ -2282,42 +2329,50 @@ def main() -> int:
     wide_n256 = he([(3, 1, 64), (3, 64, 256), (9, 256, 128), (3, 128, 1)])
     # a last layer of even f: the last-layer kernel takes any f up to 63
     even_last = he([(3, 3, 32), (3, 32, 32), (3, 32, 32), (4, 32, 1)])
+    # a first layer on the widest branch of its plan: f = 9 over 4 channels
+    # into 256 (four chunks of N, one slab a warpgroup, W streamed)
+    wide_first = he([(9, 4, 256), (3, 256, 32), (3, 32, 1)])
 
     fused_errs = [
-        kernel_vs_plain("flagship 9-5-5", params, (1, 80, 272, 1), SEED, (1, 0, 0, 0, 0, 0)),
+        kernel_vs_plain("flagship 9-5-5", params, (1, 80, 272, 1), SEED,
+                        (1, 0, 0, 0, 0, 0, 0)),
         kernel_vs_plain("flagship 9-5-5 ragged", params, (2, 97, 131, 1), SEED + 1,
-                        (1, 0, 0, 0, 0, 0)),
-        kernel_vs_plain("9-1-5", params915, (1, 80, 272, 1), SEED + 2, (1, 0, 0, 0, 0, 0))]
+                        (1, 0, 0, 0, 0, 0, 0)),
+        kernel_vs_plain("9-1-5", params915, (1, 80, 272, 1), SEED + 2,
+                        (1, 0, 0, 0, 0, 0, 0))]
     chain_errs = [
         kernel_vs_plain("chain RGB 7-layer", params_rgb, (1, 80, 272, 3), SEED + 3,
-                        (0, 7, 0, 0, 0, 0)),
+                        (0, 7, 0, 0, 0, 0, 0)),
         kernel_vs_plain("chain RGB 7-layer ragged", params_rgb, (2, 97, 131, 3), SEED + 4,
-                        (0, 7, 0, 0, 0, 0)),
-        kernel_vs_plain("chain wide 9-5-5", wide, (1, 80, 272, 1), SEED + 5, (0, 3, 0, 0, 0, 0)),
+                        (0, 7, 0, 0, 0, 0, 0)),
+        kernel_vs_plain("chain wide 9-5-5", wide, (1, 80, 272, 1), SEED + 5,
+                        (0, 3, 0, 0, 0, 0, 0)),
         kernel_vs_plain("chain f=9 over 128 channels, 4-layer", wide_f9, (1, 80, 272, 1),
-                        SEED + 6, (0, 4, 0, 0, 0, 0))]
+                        SEED + 6, (0, 4, 0, 0, 0, 0, 0))]
     fused_bf16_errs = [
-        kernel_vs_plain("flagship 9-5-5", params, (1, 80, 272, 1), SEED, (0, 0, 1, 0, 0, 0),
+        kernel_vs_plain("flagship 9-5-5", params, (1, 80, 272, 1), SEED, (0, 0, 1, 0, 0, 0, 0),
                         "bf16"),
         kernel_vs_plain("flagship 9-5-5 ragged", params, (2, 97, 131, 1), SEED + 1,
-                        (0, 0, 1, 0, 0, 0), "bf16"),
-        kernel_vs_plain("9-1-5", params915, (1, 80, 272, 1), SEED + 2, (0, 0, 1, 0, 0, 0),
+                        (0, 0, 1, 0, 0, 0, 0), "bf16"),
+        kernel_vs_plain("9-1-5", params915, (1, 80, 272, 1), SEED + 2, (0, 0, 1, 0, 0, 0, 0),
                         "bf16"),
         kernel_vs_plain("narrow 9-5-5 (n = 8)", he([(9, 1, 8), (5, 8, 8), (5, 8, 1)]),
-                        (3, 45, 70, 1), SEED + 8, (0, 0, 1, 0, 0, 0), "bf16"),
+                        (3, 45, 70, 1), SEED + 8, (0, 0, 1, 0, 0, 0, 0), "bf16"),
         kernel_vs_plain("RGB 3-layer", he([(3, 3, 16), (3, 16, 8), (3, 8, 3)]), (2, 50, 77, 3),
-                        SEED + 9, (0, 0, 1, 0, 0, 0), "bf16")]
+                        SEED + 9, (0, 0, 1, 0, 0, 0, 0), "bf16")]
     chain_bf16_errs = [
         kernel_vs_plain("chain RGB 7-layer", params_rgb, (1, 80, 272, 3), SEED + 3,
-                        (0, 0, 0, 7, 5, 1), "bf16"),
+                        (0, 0, 0, 7, 1, 5, 1), "bf16"),
         kernel_vs_plain("chain RGB 7-layer ragged", params_rgb, (2, 97, 131, 3), SEED + 4,
-                        (0, 0, 0, 7, 5, 1), "bf16"),
+                        (0, 0, 0, 7, 1, 5, 1), "bf16"),
         kernel_vs_plain("chain f=9 over 128 channels, 4-layer", wide_f9, (1, 80, 272, 1),
-                        SEED + 6, (0, 0, 0, 4, 2, 1), "bf16"),
+                        SEED + 6, (0, 0, 0, 4, 1, 2, 1), "bf16"),
         kernel_vs_plain("chain n=256 and f=9 over 256 channels, 4-layer", wide_n256,
-                        (2, 61, 83, 1), SEED + 7, (0, 0, 0, 4, 2, 1), "bf16"),
+                        (2, 61, 83, 1), SEED + 7, (0, 0, 0, 4, 1, 2, 1), "bf16"),
         kernel_vs_plain("chain f=4 last layer, 4-layer", even_last, (2, 45, 77, 3), SEED + 10,
-                        (0, 0, 0, 4, 2, 1), "bf16")]
+                        (0, 0, 0, 4, 1, 2, 1), "bf16"),
+        kernel_vs_plain("chain f=9 4->256 first layer, 3-layer", wide_first, (2, 40, 90, 4),
+                        SEED + 11, (0, 0, 0, 3, 1, 1, 1), "bf16")]
 
     # the main paths: three requests each through the public API in f32,
     # and one round of the server in bf16
@@ -2326,24 +2381,24 @@ def main() -> int:
         lambda img: api._upscale_luma(lambda x: reference.fused_forward(params, x), img,
                                       add_mean=cfg.zero_mean_target,
                                       squared_mean=cfg.subtract_squared_mean),
-        (1, 0, 0, 0, 0, 0), smi)
+        (1, 0, 0, 0, 0, 0, 0), smi)
     rgb_counts, _ = main_path(
         "RGB 7-layer", cfg_rgb, params_rgb,
         lambda img: api._upscale_rgb(lambda x: reference.fused_forward(params_rgb, x), img,
                                      add_mean=cfg_rgb.zero_mean_target),
-        (0, 7, 0, 0, 0, 0), smi)
+        (0, 7, 0, 0, 0, 0, 0), smi)
     serve_counts = serve_path(cfg, params, cfg_rgb, params_rgb, smi)
     # single bf16 requests of both checkpoints, beside the f32 ones
     main_path("flagship 9-5-5", cfg, params,
               lambda img: api._upscale_luma(
                   lambda x: reference.fused_forward(params, x, "bf16"), img,
                   add_mean=cfg.zero_mean_target, squared_mean=cfg.subtract_squared_mean),
-              (0, 0, 1, 0, 0, 0), smi, "bf16")
+              (0, 0, 1, 0, 0, 0, 0), smi, "bf16")
     main_path("RGB 7-layer", cfg_rgb, params_rgb,
               lambda img: api._upscale_rgb(
                   lambda x: reference.fused_forward(params_rgb, x, "bf16"), img,
                   add_mean=cfg_rgb.zero_mean_target),
-              (0, 0, 0, 7, 5, 1), smi, "bf16", tol=2)
+              (0, 0, 0, 7, 1, 5, 1), smi, "bf16", tol=2)
 
     # each kernel at its main path's 1080p input
     from cnn_sr_tpu_torch.ops.color import extract_luma, subtract_mean
@@ -2377,8 +2432,7 @@ def main() -> int:
     fused_errs.append(t_fused["err"])
     chain_errs.append(t_chain["err"])
     fused_bf16_errs.append(t_fused_bf16["err"])
-    chain_bf16_errs += [t_chain_bf16["err"], t_layers["tc"]["err"]]
-    serve_tc = serve_counts[3] - serve_counts[4] - serve_counts[5]
+    chain_bf16_errs += [t_chain_bf16["err"], t_layers["first"]["err"]]
     rgb_bf16 = parallel_counts["RGB bf16"]
 
     def row(name, source, replaces, launches, errs, t, parallel=None):
@@ -2403,18 +2457,18 @@ def main() -> int:
             t_fused_bf16, parallel_counts["flagship bf16"][2]),
         # the first layer (RGB L1 at 1080p: ms, plain (tap_layer), library
         # (cuDNN bf16) and bound) and its launches
-        row("conv_layer_bf16", "cnn_sr_tpu_torch/csrc/conv_layer.cu",
-            "cnn_sr_tpu/ops/pallas_fused/plane.py:23", serve_tc, chain_bf16_errs,
-            t_layers["tc"], rgb_bf16[3] - rgb_bf16[4] - rgb_bf16[5]),
+        row("conv_first_wgmma", "cnn_sr_tpu_torch/csrc/conv_first_wgmma.cu",
+            "cnn_sr_tpu/ops/pallas_fused/plane.py:23", serve_counts[4], chain_bf16_errs,
+            t_layers["first"], rgb_bf16[4]),
         # every middle layer: RGB L2 + L3 + L4 + L5 + L6 at 1080p, ms, plain
         # (tap_layer), library (cuDNN bf16) and bound summed over the five
         row("conv_layer_wgmma", "cnn_sr_tpu_torch/csrc/conv_wgmma.cu",
-            "cnn_sr_tpu/ops/pallas_fused/kernel.py:499", serve_counts[4],
-            [t_layers["wgmma"]["err"]], t_layers["wgmma"], rgb_bf16[4]),
+            "cnn_sr_tpu/ops/pallas_fused/kernel.py:499", serve_counts[5],
+            [t_layers["wgmma"]["err"]], t_layers["wgmma"], rgb_bf16[5]),
         # the last layer: RGB L7 at 1080p
         row("conv_last_wgmma", "cnn_sr_tpu_torch/csrc/conv_last_wgmma.cu",
-            "cnn_sr_tpu/ops/pallas_fused/kernel.py:585", serve_counts[5],
-            [t_layers["last"]["err"]], t_layers["last"], rgb_bf16[5]),
+            "cnn_sr_tpu/ops/pallas_fused/kernel.py:585", serve_counts[6],
+            [t_layers["last"]["err"]], t_layers["last"], rgb_bf16[6]),
         *(row(r["name"], r["source"], r["replaces"], r["launches"], [r["err"]], r)
           for r in probe_rows),
     ]}))

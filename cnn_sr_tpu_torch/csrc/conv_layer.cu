@@ -16,10 +16,9 @@
 // parity layout and no Winograd transform (Winograd at k >= 64 is a later
 // measurement).
 //
-// Two entry points: conv_layer_forward (f32, on ffma_stage.cuh) and the
-// bf16 stream's conv_layer_forward_bf16 on the tensor cores (tc_stage.cuh;
-// the first layer alone, its note is with its kernel below; the bf16 middle
-// layers are conv_wgmma.cu's and the last conv_last_wgmma.cu's).
+// The f32 chain: conv_layer_forward, on ffma_stage.cuh. The bf16 chain's
+// layers are conv_first_wgmma.cu's (the first), conv_wgmma.cu's (the
+// middles) and conv_last_wgmma.cu's (the last).
 //
 // What bounds the f32 one, by width class (ffma_plan.cuh: ChainPlan): f32
 // FMAs on the CUDA cores in the middle layers (RGB L2-L6: 17.42 ms of the
@@ -64,11 +63,9 @@
 // in registers across the previous chunk's FMAs ran 1-11% slower than
 // the 4-byte cp.async, in every class, and is not kept.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "ffma_stage.cuh"
-#include "tc_stage.cuh"
 
 namespace {
 
@@ -239,128 +236,3 @@ extern "C" int conv_layer_forward(const float* x, const float* w, const float* b
 #undef LAUNCH_CLASS
 }
 
-
-// The first layer of the bf16 stream on the tensor cores: replaces the same
-// TPU kernel as run by cnn_sr_tpu/ops/pallas_fused/entry.py:32 fused_forward
-// with dtype=bf16, input_int8=True (the JAX default under use_pallas) for
-// the stacks the fused kernel does not take, the 7-layer RGB model first:
-// the int8 plane of weights.py:123 _quantize_planes with the 1/127 scale
-// folded into w1 (weights.py:283, entry.py:326), bf16 operands, f32 sums.
-// Every middle layer is conv_wgmma.cu's (conv_layer_forward_wgmma) and the
-// last conv_last_wgmma.cu's (conv_last_forward_wgmma).
-//
-// What bounds it: its bytes (RGB L1, K = 16 dx-expanded lanes), the f32
-// input read and quantised by the threads as they load it, and the bf16
-// output written.
-//
-// What the design does: one block per 16x16 output tile and 128-column
-// chunk of N (blockIdx.x = tile column x N chunks, .y = tile row, .z =
-// image), one tc_stage (tc_stage.cuh): the window with its (f - 1) halo
-// rows, dx-expanded and quantised from the f32 input by the threads; the
-// packed weights streamed tps taps (dy rows) at a time through two cp.async
-// stages; mma.sync m16n8k16 with every tap an address offset into the
-// window. Warps (ChainCfg): 8 x 2 at N = 128 (each 2 m16 by 8 n8 tiles), 4
-// x 2 at N = 64 (4 m16 by 4 n8), 8 x 1 below (2 m16 by N / 8). Epilogue:
-// bias, ReLU and one bf16 rounding staged in shared memory and written in
-// 16-byte pieces.
-// Why not wgmma: the window is quantised by the threads that load it, so no
-// tensor copy lands it (ROADMAP Queue 2 #1s).
-//
-// Measured (chip_smoke.py [layers], 1080p, NVIDIA H100 80GB HBM3, 700 W):
-// RGB L1 0.257 ms (cuDNN bf16 0.536), of the bf16 chain's 2.11-2.15 ms.
-namespace {
-
-// a 16x16 tile a block: 16 warps of 2 m16 by 8 n8 tiles at N = 128 (one
-// block an SM: its window and weights take most of the shared memory), 8
-// warps of 4 m16 at N = 64 and of 2 m16 below (two or more blocks an SM)
-template <int NB>
-using ChainCfg = TcCfg<NB, NB == 128 ? 2 : NB == 64 ? 4 : 2, NB == 128 ? 16 : 8>;
-
-template <int NB>
-__global__ void __launch_bounds__(ChainCfg<NB>::THREADS)
-    conv_layer_tc_kernel(const float* __restrict__ x, const bf16* __restrict__ w,
-                         const float* __restrict__ b, bf16* __restrict__ y, int H, int W, int K,
-                         int f, int n, int kp, int npad, int tps) {
-  using C = ChainCfg<NB>;
-  static_assert(C::PB == kTile * kTile, "a pass covers the 16x16 tile");
-  extern __shared__ float4 smem4[];
-  bf16* const sm = reinterpret_cast<bf16*>(smem4);
-  const int OH = H - f + 1, OW = W - f + 1;
-  const int chunks = npad / NB;
-  const int n0 = (blockIdx.x % chunks) * NB;
-  const int oy0 = blockIdx.y * kTile, ox0 = (blockIdx.x / chunks) * kTile;
-  const size_t img = blockIdx.z;
-  const int rows = kTile + f - 1;
-  const int as = kp + 8;
-  bf16* const win = sm;
-  bf16* const wbuf = sm + rows * kTile * as;
-
-  TcAcc<C> acc;
-  acc.begin(0, C::PB, kTile, kTile);
-  auto load_win = [&] {
-    load_first_window(x + img * H * W * K, H, W, K, oy0, ox0, rows, kTile, f, kp, as, win);
-  };
-  tc_stream<C>(acc, load_win, win, as, kTile, 1, f, tps, w, kp, npad, n0, wbuf);
-  tc_store_bf16<C>(acc, kTile, b + n0, sm, y + img * OH * OW * n, oy0, ox0, OH, OW, n, n0);
-}
-
-// shared bytes of the layer, as ops/fused/entry.py: tc_layer_plan computes them
-int tc_layer_smem(int f, int kp, int nb, int tps) {
-  const int rows = kTile + f - 1;
-  const int stages = (f + tps - 1) / tps > 1 ? 2 : 1;
-  const int pipe = rows * kTile * (kp + 8) + stages * tps * kp * tc_ws(nb);
-  const int out = kTile * kTile * tc_ws(nb);
-  return 2 * (pipe > out ? pipe : out);
-}
-
-template <int NB>
-int launch_tc(const float* x, const bf16* w, const float* b, bf16* y, int N, int H, int W, int K,
-              int f, int n, int kp, int npad, int tps, int smem_bytes, cudaStream_t s) {
-  auto kernel = conv_layer_tc_kernel<NB>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int OH = H - f + 1, OW = W - f + 1;
-  const dim3 grid((OW + kTile - 1) / kTile * (npad / NB), (OH + kTile - 1) / kTile, N);
-  kernel<<<grid, ChainCfg<NB>::THREADS, smem_bytes, s>>>(x, w, b, y, H, W, K, f, n, kp, npad,
-                                                          tps);
-  return static_cast<int>(cudaGetLastError());
-}
-
-}  // namespace
-
-// x is the f32 centred input (N, H, W, K), quantised at the window load,
-// and w the folded first-layer weights packed (f, kx, npad) with lane dx K
-// + ci of tap dy holding w1[dy, dx, ci] / 127 (entry.pack_bf16, first);
-// b: f32, npad values, zero past n; y: bf16 (N, H - f + 1, W - f + 1, n)
-// after ReLU (n % 8 == 0). tps: taps (dy rows) a weight stage. Refused
-// (cudaErrorInvalidValue, nothing launched): a shape the packing or the
-// plan does not describe, or smem_bytes below what the plan needs. Returns
-// cudaGetLastError() of the launch.
-extern "C" int conv_layer_forward_bf16(const void* x, const void* w, const float* b, void* y,
-                                       int N, int H, int W, int K, int f, int n, int tps,
-                                       int smem_bytes, void* stream) {
-  const int bad = static_cast<int>(cudaErrorInvalidValue);
-  if (N <= 0 || N > 65535 || f <= 0 || H < f || W < f || K <= 0 || n <= 0 || n % 8) return bad;
-  const int kp = tc_kx(f, K);
-  const int npad = tc_npad(n);
-  if (tps < 1 || tps > f || smem_bytes < tc_layer_smem(f, kp, tc_nb(npad), tps)) return bad;
-  const auto xs = static_cast<const float*>(x);
-  const auto ws = static_cast<const bf16*>(w);
-  const auto ys = static_cast<bf16*>(y);
-  const auto s = static_cast<cudaStream_t>(stream);
-#define LAUNCH_TC(NB) launch_tc<NB>(xs, ws, b, ys, N, H, W, K, f, n, kp, npad, tps, smem_bytes, s)
-  switch (tc_nb(npad)) {
-    case 8:
-      return LAUNCH_TC(8);
-    case 16:
-      return LAUNCH_TC(16);
-    case 32:
-      return LAUNCH_TC(32);
-    case 64:
-      return LAUNCH_TC(64);
-    default:
-      return LAUNCH_TC(128);
-  }
-#undef LAUNCH_TC
-}

@@ -5,11 +5,11 @@
 // 1, W - f + 1, n) bf16 NHWC out, W the tap-major (taps, K_pad, N_pad) packing
 // of ops/fused/entry.py: pack_bf16, b its (N_pad,) f32 bias. Its plain version
 // is ops/fused/reference.py: tap_layer. The chain (ops/fused/chain.py) takes it
-// for every layer that is neither first nor last; the first stays on
-// tc_stage.cuh (conv_layer.cu), the last is conv_last_wgmma.cu's. Its
+// for every layer that is neither first nor last; the first is
+// conv_first_wgmma.cu's, the last conv_last_wgmma.cu's. Its
 // warpgroups, descriptors and products are wgmma_conv.cuh's.
 //
-// Replaces, with conv_layer_forward_bf16, the TPU kernel
+// Replaces, with the chain's first and last layers, the TPU kernel
 // cnn_sr_tpu/ops/pallas_fused/kernel.py:_fused_tail_single (pl.pallas_call at
 // kernel.py:730) in its bf16-stream mode (entry.py:32 fused_forward with
 // dtype=bf16, input_int8=True): for the 7-layer RGB model's middles the
@@ -61,7 +61,7 @@
 //   128, their 128-column chunks) round robin, so one tile's epilogue runs
 //   beside the next tile's copies;
 // * the epilogue: bias in f32, ReLU, one rounding to bf16 (nearest even, as
-//   tc_stage.cuh's tc_store_bf16), staged in shared memory in the swizzle
+//   the other bf16 kernels), staged in shared memory in the swizzle
 //   and stored by tensor copies, which do not write past the output's edge
 //   or past n.
 //
@@ -85,15 +85,6 @@
 
 namespace {
 
-// byte offset of lane c (even) of row r in a block of R-byte rows swizzled
-// by R bytes (16-byte chunk j of row r at j ^ (r R / 128 % (R / 16)), as the
-// tensor copies write them from a 1024-aligned base)
-template <int R>
-__device__ __forceinline__ int swz(int r, int c) {
-  constexpr int kChunks = R / 16;
-  return r * R + ((((c >> 3) ^ (r * kChunks / 8)) & (kChunks - 1)) << 4) + (c & 7) * 2;
-}
-
 // The tile of item i: the BN-column chunk fastest, then the tile column, the
 // tile row and the image
 struct Tile {
@@ -107,11 +98,6 @@ struct Tile {
     img = i / tiles_y;
   }
 };
-
-__device__ __forceinline__ unsigned bias_relu_bf16x2(float a, float b, float ba, float bb) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(fmaxf(a + ba, 0.f), fmaxf(b + bb, 0.f));
-  return *reinterpret_cast<const unsigned*>(&h);
-}
 
 // ta: x as (K, W, H, N), box (L, 16, box_rows, 1); tw: w as (N_pad, K_pad,
 // taps), box (BN's lanes, L, 1); to: y as (n, OW, OH, N), box (BN's lanes,

@@ -1,13 +1,16 @@
-// The warpgroup layout, operand descriptors and products that the tensor-copy
-// fed wgmma convolutions share: conv_wgmma.cu (the bf16 chain's middle layers)
-// and conv_last_wgmma.cu (its last layer). A block is two consumer warpgroups
-// and a producer warpgroup; A is an input box of 32 or 64 lanes a row (64-
-// or 128-byte swizzle, K-major), W a slice of K rows x BN columns (MN-major,
-// swizzled by its row's bytes), both landed by tensor copies through rings of
-// stages. One copy of each, included where used.
+// The warpgroup layout, operand descriptors, products and output staging that
+// the wgmma convolutions of the bf16 chain share: conv_first_wgmma.cu (its
+// first layer), conv_wgmma.cu (its middle layers) and conv_last_wgmma.cu (its
+// last layer). A block is two consumer warpgroups and a producer warpgroup;
+// A is an input box of 32 or 64 lanes a row (64- or 128-byte swizzle,
+// K-major; the first layer's is its own window in planes of 8 lanes), W a
+// slice of K rows x BN columns (MN-major, swizzled by its row's bytes),
+// landed by tensor copies through rings of stages. One copy of each,
+// included where used.
 #pragma once
 
 #include <cuda.h>
+#include <cuda_bf16.h>
 
 #include "tma.cuh"
 #include "wgmma.cuh"
@@ -88,6 +91,21 @@ __device__ __forceinline__ void mma_ss(float (&d)[BN / 2], unsigned long long da
     wgmma_m64n16k16_ss(d, da, db, scale_d);
   else
     wgmma_m64n8k16_ss(d, da, db, scale_d);
+}
+
+// byte offset of lane c (even) of row r in a block of R-byte rows swizzled
+// by R bytes (16-byte chunk j of row r at j ^ (r R / 128 % (R / 16)), as the
+// tensor copies write them from a 1024-aligned base)
+template <int R>
+__device__ __forceinline__ int swz(int r, int c) {
+  constexpr int kChunks = R / 16;
+  return r * R + ((((c >> 3) ^ (r * kChunks / 8)) & (kChunks - 1)) << 4) + (c & 7) * 2;
+}
+
+// bias, ReLU and one rounding to bf16 (nearest even) of two sums, packed
+__device__ __forceinline__ unsigned bias_relu_bf16x2(float a, float b, float ba, float bb) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(fmaxf(a + ba, 0.f), fmaxf(b + bb, 0.f));
+  return *reinterpret_cast<const unsigned*>(&h);
 }
 
 // A ring's next stage and the parity of its phase

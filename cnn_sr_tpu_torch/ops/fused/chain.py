@@ -1,19 +1,19 @@
-"""The layer chain: ``csrc/conv_layer.cu``, one launch per layer.
+"""The layer chain: one launch per layer.
 
 The route ``entry.fused_forward`` takes on the card for every well-formed
 stack outside the fused kernel's envelope (the 7-layer RGB model first).
 ``entry`` checks the shapes and plans each layer (``entry.layer_plan``
 in f32, ``entry.bf16_layer_plan`` in bf16); ``chain_forward`` allocates two
 intermediates, ping-pongs the layers through them and writes the last
-layer into a fresh f32 output. In f32 (on the CUDA cores,
+layer into a fresh f32 output. In f32 (``csrc/conv_layer.cu`` on the CUDA cores,
 ``csrc/ffma_stage.cuh``) each layer's weights are packed channel-major at
 its plan's NB (``entry.f32_weights``) and its input window streams
 through shared memory beside them, a chunk of input channels at a time.
 In bf16 (on the tensor cores) the intermediates are bf16, the weights
 packed as each layer's stage takes them (``entry.chain_bf16_weights``), the
-first layer quantises the f32 input at its window load and the last writes
-f32; each layer's plan (``entry.bf16_layer_plan``) names its stage:
-``csrc/tc_stage.cuh`` (``conv_layer_forward_bf16``) for the first,
+first layer quantises the f32 input in shared memory and the last writes
+f32; each layer's plan (``entry.bf16_layer_plan``) names its kernel:
+``csrc/conv_first_wgmma.cu`` (``conv_first_forward_wgmma``) for the first,
 ``csrc/conv_wgmma.cu`` (``conv_layer_forward_wgmma``) for every middle
 layer and ``csrc/conv_last_wgmma.cu`` (``conv_last_forward_wgmma``) for the
 last. Its plain version
@@ -29,11 +29,12 @@ import torch
 
 # layer launches in this process, one per layer of each stack, in f32
 # (``LAUNCHES``) and in bf16 (``LAUNCHES_BF16``), and of the bf16 ones
-# those of the wgmma stage (``LAUNCHES_WGMMA``) and of the last-layer
-# kernel (``LAUNCHES_LAST``); the smoke run reads them to show that the
-# main path went through the kernels
+# those of the first-layer kernel (``LAUNCHES_FIRST``), of the wgmma stage
+# (``LAUNCHES_WGMMA``) and of the last-layer kernel (``LAUNCHES_LAST``); the
+# smoke run reads them to show that the main path went through the kernels
 LAUNCHES = 0
 LAUNCHES_BF16 = 0
+LAUNCHES_FIRST = 0
 LAUNCHES_WGMMA = 0
 LAUNCHES_LAST = 0
 
@@ -44,55 +45,58 @@ def layer_forward(lib, src: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     """Launch one layer of ``src`` (N, H, W, K) into ``dst`` (N, H', W', n)
     on ``stream``. f32: ``w`` and ``b`` from ``entry.pack_f32`` at
     ``plan.nb``, ``plan`` an ``entry.LayerPlan``, ReLU unless ``last``.
-    bf16: ``plan`` an ``entry.TcPlan`` (the first layer), ``entry.WgmmaPlan``
-    (a middle layer) or ``entry.LastPlan`` (the last), ``w`` and ``b`` from
-    ``entry.pack_bf16`` or, for a ``LastPlan``, ``entry.pack_last``; the
-    wgmma kernels' tensor maps need 16-byte aligned tensors (raises
-    ValueError otherwise) and the wgmma stage launches at the plan's A
-    stages; ``src`` f32
+    bf16: ``plan`` an ``entry.FirstPlan`` (the first layer),
+    ``entry.WgmmaPlan`` (a middle layer) or ``entry.LastPlan`` (the last),
+    ``w`` and ``b`` from ``entry.pack_bf16`` or, for a ``LastPlan``,
+    ``entry.pack_last``; the wgmma kernels' tensor maps need 16-byte aligned
+    tensors (raises ValueError otherwise), the first layer launches at the
+    plan's tile columns and the wgmma stage at its A stages; ``src`` f32
     when ``first`` else bf16, ``dst`` f32 when ``last`` else bf16, ReLU
     unless ``last``."""
-    global LAUNCHES, LAUNCHES_BF16, LAUNCHES_WGMMA, LAUNCHES_LAST
-    from .entry import LastPlan, WgmmaPlan
+    global LAUNCHES, LAUNCHES_BF16, LAUNCHES_FIRST, LAUNCHES_WGMMA, LAUNCHES_LAST
+    from .entry import FirstPlan, LastPlan, WgmmaPlan
 
     n, h, wd, k = src.shape
     args = (src.data_ptr(), w.data_ptr(), b.data_ptr(), dst.data_ptr(), n, h, wd, k)
-    wgmma = bf16 and isinstance(plan, WgmmaPlan)
-    final = bf16 and isinstance(plan, LastPlan)
-    if (wgmma or final) and any(t.data_ptr() % 16 for t in (src, w, b, dst)):
+    stage = ({FirstPlan: "first", WgmmaPlan: "wgmma", LastPlan: "last"}.get(type(plan))
+             if bf16 else None)
+    if bf16 and stage is None:
+        raise TypeError(f"no bf16 kernel takes a {type(plan).__name__}")
+    if bf16 and any(t.data_ptr() % 16 for t in (src, w, b, dst)):
         raise ValueError("the wgmma kernels' tensor copies need 16-byte aligned tensors")
-    if wgmma:
+    if stage == "first":
+        err = lib.conv_first_forward_wgmma(*args, plan.f, dst.shape[3], plan.cols, plan.smem,
+                                           stream)
+    elif stage == "wgmma":
         err = lib.conv_layer_forward_wgmma(*args, plan.f, dst.shape[3], plan.a_ring, plan.smem,
                                            stream)
-    elif final:
+    elif stage == "last":
         err = lib.conv_last_forward_wgmma(*args, plan.f, dst.shape[3], plan.smem, stream)
-    elif bf16:
-        err = lib.conv_layer_forward_bf16(*args, plan.f, dst.shape[3], plan.tps, plan.smem,
-                                          stream)
     else:
         f = src.shape[1] - dst.shape[1] + 1
         err = lib.conv_layer_forward(*args, f, dst.shape[3], int(not last), plan.tile_h,
                                      plan.tile_w, plan.kc, plan.smem, stream)
     if err:
-        what = ("conv_layer_wgmma" if wgmma else "conv_last_wgmma" if final
-                else "conv_layer_bf16" if bf16 else "conv_layer")
+        what = {"first": "conv_first_wgmma", "wgmma": "conv_layer_wgmma",
+                "last": "conv_last_wgmma", None: "conv_layer"}[stage]
         raise RuntimeError(f"{what} launch failed: " + lib.cnn_sr_error_string(err).decode())
     if bf16:
         LAUNCHES_BF16 += 1
-        LAUNCHES_WGMMA += int(wgmma)
-        LAUNCHES_LAST += int(final)
+        LAUNCHES_FIRST += int(stage == "first")
+        LAUNCHES_WGMMA += int(stage == "wgmma")
+        LAUNCHES_LAST += int(stage == "last")
     else:
         LAUNCHES += 1
 
 
 def chain_forward(params, x: torch.Tensor, plans, bf16: bool = False) -> torch.Tensor:
     """Run ``params`` over the CUDA tensor ``x`` (N, H, W, C), layer i
-    with ``plans[i]`` (``entry.LayerPlan`` or, in bf16, ``entry.TcPlan``,
+    with ``plans[i]`` (``entry.LayerPlan`` or, in bf16, ``entry.FirstPlan``,
     ``entry.WgmmaPlan`` or ``entry.LastPlan``), on the current stream, in
     f32 or, with ``bf16``, as the bf16 stream. The shapes are the caller's
     to check (``entry.fused_forward``)."""
     if not x.is_cuda:
-        raise NotImplementedError(f"conv_layer.cu runs on CUDA tensors, not {x.device}")
+        raise NotImplementedError(f"the layer chain runs on CUDA tensors, not {x.device}")
     from .build import load_library
     from .entry import chain_bf16_weights, f32_weights
 

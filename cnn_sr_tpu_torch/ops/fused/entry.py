@@ -8,15 +8,16 @@ by ``route``, a pure function of the shapes:
   whole stack in one launch, for 3-layer stacks with c_in <= 4 and n_out
   <= 4 whose tiles fit one block's shared memory (the luma models:
   flagship 9-5-5, 9-1-5);
-* ``csrc/conv_layer.cu`` through ``chain.chain_forward``, one launch per
-  layer, for every other well-formed stack (the 7-layer RGB model).
+* the layer chain through ``chain.chain_forward``, one launch per layer,
+  for every other well-formed stack (the 7-layer RGB model):
+  ``csrc/conv_layer.cu`` in f32, the three ``wgmma`` kernels in bf16.
 
 ``precision="f32"`` runs them in f32 on the CUDA cores, both on
 ``csrc/ffma_stage.cuh`` with weights packed once by ``pack_f32`` (the
 chain's plan per layer: ``layer_plan``). ``precision="bf16"``
 runs the JAX package's bf16 stream with the int8 first layer
 (``reference`` states the numbers) on the tensor cores (the fused
-kernel on ``wgmma``; the chain's first layer on ``csrc/tc_stage.cuh``,
+kernel on ``wgmma``; the chain's first layer on ``csrc/conv_first_wgmma.cu``,
 every middle layer on ``csrc/conv_wgmma.cu``, its last layer on
 ``csrc/conv_last_wgmma.cu``), with its own plans
 (``bf16_layer_plan``, ``fused_wgmma_plan``) and its weights packed
@@ -223,7 +224,7 @@ def _layer_plan(f: int, k: int, n: int, shape) -> LayerPlan:
 
 
 # The bf16 kernels (tensor cores): padded widths, the chain's plan per
-# layer (csrc/tc_stage.cuh, csrc/conv_wgmma.cu, csrc/conv_last_wgmma.cu) and
+# layer (csrc/conv_first_wgmma.cu, csrc/conv_wgmma.cu, csrc/conv_last_wgmma.cu) and
 # the fused kernel's (csrc/fused_wgmma.cu). The C side recomputes the same
 # plans and refuses a launch whose shared bytes fall short of them.
 
@@ -247,55 +248,138 @@ def kx_lanes(f: int, c: int) -> int:
     return -(-f * c // 16) * 16
 
 
-def w_stride(nb: int) -> int:
-    """bf16 elements of a shared weight row of nb columns: padded by 16
-    bytes where nb / 8 is even, so that ldmatrix rows fall on distinct
-    banks."""
-    return nb if (nb // 8) % 2 else nb + 8
+# The bf16 chain's first layer (csrc/conv_first_wgmma.cu, its plan
+# csrc/conv_first_plan.cuh): the raw f32 pixels landed through a ring of
+# stages, quantised and dx-expanded by four consumer warpgroups into a window
+# of planes of 8 lanes, W resident or through a ring, the output staged and
+# stored by tensor copies.
+FIRST_MAX_RAW = 4  # kFirstMaxRaw
+FIRST_WGS = 4  # kFirstWgs: consumer warpgroups
+FIRST_COLS = (64, 32, 16, 8, 4)  # kFirstCols: the tile's columns the plan chooses from
 
 
-class TcPlan(NamedTuple):
-    """One bf16 chain launch of the first layer (``conv_layer_forward_bf16``):
-    the layer (f, k → n), its window's dx-expanded lanes (kx), the taps (dy
-    rows) a weight stage and the dynamic shared bytes. The output tile is
-    TILE_H x TILE_W."""
+def first_slabs(bn: int) -> int:
+    """The m64 slabs a warpgroup owns at ``bn`` block columns where the
+    window fits (``first_slabs``): 2 up to 32, 1 at 64 (at most 32 sums a
+    thread)."""
+    return 2 if bn <= 32 else 1
+
+
+def first_instances():
+    """The first-layer kernel's instances, ``(bn, slabs)``: each block width
+    at its ``first_slabs`` and at one slab."""
+    return sorted({(bn, s) for bn in (8, 16, 32, 64) for s in (first_slabs(bn), 1)})
+
+
+class FirstPlan(NamedTuple):
+    """One first-layer launch (``conv_first_forward_wgmma``), as
+    ``first_plan`` in ``csrc/conv_first_plan.cuh`` computes it: the layer
+    (f, k → n, k = c the input's channels), its dx-expanded lanes (kx),
+    packed N, the block's columns (bn) and N's chunks of them, the slabs a
+    warpgroup, the tile's columns and rows, the window's rows, the windows
+    and their bytes, a raw row's pixels (iw) and a raw stage's bytes (each
+    row to 4 floats), the raw stages, a W slice's bytes, whether W is
+    resident (else ``w_ring`` slices stream), the W bytes, the output
+    buffers a warpgroup and their bytes, and the dynamic shared bytes."""
     f: int
     k: int
     n: int
     kx: int
-    tps: int
+    npad: int
+    bn: int
+    nchunks: int
+    slabs: int
+    cols: int
+    tile_rows: int
+    win_rows: int
+    win_bufs: int
+    win_bytes: int
+    iw: int
+    raw_bytes: int
+    raw_ring: int
+    w_slice: int
+    w_res: int
+    w_ring: int
+    w_bytes: int
+    out_bufs: int
+    out_bytes: int
     smem: int
 
 
-def tc_layer_plan(f: int, k: int, n: int) -> TcPlan:
-    """The bf16 chain's ``mma.sync`` plan (``csrc/tc_stage.cuh``) for its
-    first f×f layer, from k to n channels (every other layer of the chain
-    takes ``wgmma_layer_plan`` or ``last_layer_plan``: ``bf16_layer_plan``).
-    The window (the tile plus its f − 1 halo rows, TILE_W positions wide,
-    dx-expanded, rows of kx + 8 lanes) takes all of its lanes. The weights
-    stay whole in one stage where window and weights fit in half the block
-    limit (two blocks an SM); else they stream in stages of as many taps as
-    fit in two (in half the limit where one tap does, else in all of it).
-    Raises NotImplementedError when the window and two stages of one tap do
-    not fit."""
-    ws = w_stride(min(n_pad(n), 128))
-    kx = kx_lanes(f, k)
-    win = 2 * (TILE_H + f - 1) * TILE_W * (kx + 8)
-    tap = 2 * kx * ws
-    if win + 2 * tap > SMEM_LIMIT:
+def first_layer_plan(f: int, c: int, n: int, cols: int = 0) -> FirstPlan:
+    """The plan of the bf16 chain's first f×f layer over c input channels
+    into n outputs (n a multiple of 8) at ``cols`` tile columns, 0 for the
+    plan's own choice. A block computes bn = min(n_pad(n), 64) columns (N
+    in chunks of them; fewer, down to 8, where the window of a wide f
+    leaves no room) of a tile ``cols`` columns wide and
+    ``FIRST_WGS``·slabs·64 / cols rows tall: four warpgroups of ``slabs``
+    m64 slabs. Its window is the tile's rows plus f − 1 by ``cols``
+    positions of kx lanes (bf16), two of them where they fit (the next
+    tile's is expanded while this one's products run); its raw pixels those
+    rows by cols + f − 1 columns of c channels (f32) a stage. A tile fits
+    where its windows, output buffers (two windows and two buffers a
+    warpgroup, else one window, else one of each), two raw stages and all of
+    W (or two W slices) fit ``SMEM_LIMIT``; W stays resident where all of it
+    fits beside two raw stages, which then take the rest (at most
+    ``FIRST_MAX_RAW``), else two raw stages and a ring of W slices in the
+    rest, its bytes to a multiple of 1024. It takes ``first_slabs(bn)``
+    slabs, else one; at the first that fits, of the columns of
+    ``FIRST_COLS`` (or ``cols``) the widest whose rows are at least f − 1
+    (each input row expanded at most twice), else the narrowest that fits.
+    Raises NotImplementedError for a layer or a choice it does not take."""
+    if min(f, c, n) < 1 or n % 8 or (cols and cols not in FIRST_COLS):
         raise NotImplementedError(
-            f"a {TILE_H}x{TILE_W} tile of an f={f} layer over {k} channels needs "
-            f"{win} shared bytes for its window plus {2 * tap} for weights "
-            f"(> {SMEM_LIMIT})")
-    half = SMEM_LIMIT // 2
-    if win + f * tap <= half:
-        tps = f
-    else:
-        budget = half if win + 2 * tap <= half else SMEM_LIMIT
-        tps = min(f, (budget - win) // (2 * tap))
-    stages = 2 if -(-f // tps) > 1 else 1
-    out = 2 * TILE_H * TILE_W * ws  # the staged bf16 output tile
-    return TcPlan(f, k, n, kx, tps, max(win + stages * tps * tap, out))
+            f"the first-layer kernel takes n a multiple of 8 and tile columns in {FIRST_COLS}; "
+            f"got f={f}, c={c}, n={n}, cols={cols}")
+    kx = kx_lanes(f, c)
+    npad = n_pad(n)
+    slack = 1024 + 8 * 2 * (FIRST_MAX_RAW + WG_MAX_RING)
+
+    def fit(bn, slabs, cc, wins, bufs):
+        nchunks = npad // bn
+        w_slice = kx * bn * 2
+        w_all = -(-nchunks * f * w_slice // 1024) * 1024
+        w_two = -(-2 * w_slice // 1024) * 1024
+        tile_rows = FIRST_WGS * slabs * WG_SLAB // cc
+        win_rows = tile_rows + f - 1
+        win_bytes = wins * win_rows * cc * kx * 2
+        iw = cc + f - 1
+        raw_bytes = win_rows * -(-iw * c // 4) * 4 * 4
+        out_bytes = bufs * FIRST_WGS * slabs * WG_SLAB * bn * 2
+        budget = SMEM_LIMIT - slack - out_bytes - win_bytes
+        if budget < 2 * raw_bytes + min(w_all, w_two):
+            return None
+        w_res = int(w_all + 2 * raw_bytes <= budget)
+        if w_res:
+            raw_ring = min(FIRST_MAX_RAW, (budget - w_all) // raw_bytes)
+            w_ring, w_bytes = 0, w_all
+        else:
+            raw_ring = 2
+            w_ring = min(WG_MAX_RING, (budget - 2 * raw_bytes) // w_slice)
+            while w_ring > 0 and -(-w_ring * w_slice // 1024) * 1024 > budget - 2 * raw_bytes:
+                w_ring -= 1
+            if w_ring < 2:
+                return None
+            w_bytes = -(-w_ring * w_slice // 1024) * 1024
+        return FirstPlan(f, c, n, kx, npad, bn, nchunks, slabs, cc, tile_rows, win_rows, wins,
+                         win_bytes, iw, raw_bytes, raw_ring, w_slice, w_res, w_ring, w_bytes,
+                         bufs, out_bytes,
+                         slack + w_bytes + out_bytes + win_bytes + raw_ring * raw_bytes)
+
+    for bn in (b for b in (64, 32, 16, 8) if b <= npad):
+        for slabs in sorted({first_slabs(bn), 1}, reverse=True):
+            best = None
+            for cc in (cols,) if cols else FIRST_COLS:
+                p = fit(bn, slabs, cc, 2, 2) or fit(bn, slabs, cc, 1, 2) or fit(bn, slabs, cc, 1, 1)
+                if p:
+                    best = p
+                    if p.tile_rows >= f - 1:
+                        break
+            if best:
+                return best
+    raise NotImplementedError(
+        f"a first f={f} layer over {c} channels into {n}: the window, output staging, two raw "
+        f"stages and two W slices of its narrowest tile do not fit (> {SMEM_LIMIT})")
 
 
 # The wgmma stage of the bf16 chain's middle layers (csrc/conv_wgmma.cu, its
@@ -537,12 +621,13 @@ def last_layer_plan(f: int, k: int, n: int) -> LastPlan:
 
 
 def bf16_layer_plan(f: int, k: int, n: int, first: bool = False, last: bool = False):
-    """The bf16 chain's plan for one layer, which names its stage: every
+    """The bf16 chain's plan for one layer, which names its kernel: every
     middle layer takes the wgmma stage (``wgmma_layer_plan``), the last
     layer ``conv_last_wgmma.cu`` (``last_layer_plan``) and the first
-    ``tc_stage.cuh`` (``tc_layer_plan``). A pure function of the shape."""
+    ``conv_first_wgmma.cu`` (``first_layer_plan``). A pure function of the
+    shape."""
     if first:
-        return tc_layer_plan(f, k, n)
+        return first_layer_plan(f, k, n)
     if last:
         return last_layer_plan(f, k, n)
     return wgmma_layer_plan(f, k, n)
@@ -663,7 +748,7 @@ def route(c: int, layers, elem: int = 4):
     f32: ``("fused", (wbuf, smem))`` (``smem_plan``) for a stack the
     fused kernel takes, else ``("chain", [LayerPlan, ...])`` (``layer_plan``). bf16:
     ``("fused", FusedWgmmaPlan)`` (``fused_wgmma_plan``) or ``("chain",
-    [TcPlan, WgmmaPlan, ..., LastPlan])`` (``bf16_layer_plan``). The fused
+    [FirstPlan, WgmmaPlan, ..., LastPlan])`` (``bf16_layer_plan``). The fused
     kernels take 3-layer stacks with c ≤ 4 and n_out ≤ 4 whose plans fit
     one block.
     Raises NotImplementedError for a stack neither kernel takes."""

@@ -72,7 +72,7 @@ def fused_forward(params, x: torch.Tensor, precision: str = "f32") -> torch.Tens
 
 def tap_layer(x: torch.Tensor, wp: torch.Tensor, bp: torch.Tensor, f: int, n: int,
               first: bool, last: bool) -> torch.Tensor:
-    """Plain version of one bf16 chain launch (``csrc/tc_stage.cuh`` first,
+    """Plain version of one bf16 chain launch (``csrc/conv_first_wgmma.cu`` first,
     ``csrc/conv_wgmma.cu`` middle, ``csrc/conv_last_wgmma.cu`` last; the
     last-layer kernel takes the same weights packed with its dx taps side by
     side, ``entry.pack_last``) over the packed operands ``wp`` (taps, K_pad,

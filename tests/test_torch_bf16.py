@@ -5,8 +5,9 @@ operands and f32 sums, in ``cnn_sr_tpu_torch.ops.fused`` and through
 On the CPU the plain bf16 version is held against the JAX package's
 Pallas kernel in interpret mode (``fused_forward(..., input_int8=True)``
 at its default bf16 dtype) and against its public API. The bf16 CUDA
-kernels (``fused_srcnn_forward_bf16``, ``conv_layer_forward_bf16`` and
-``conv_layer_forward_wgmma``, on the tensor cores) run only on a card: those tests carry the ``cuda`` marker and skip without
+kernels (``fused_srcnn_forward_bf16``, ``conv_first_forward_wgmma``,
+``conv_layer_forward_wgmma`` and ``conv_last_forward_wgmma``, on the tensor
+cores) run only on a card: those tests carry the ``cuda`` marker and skip without
 one. A machine with a card may have no JAX, so this module imports JAX
 only inside the tests that need it; there the card tests run with
 
@@ -218,13 +219,18 @@ def test_bf16_shared_memory_plan_matches_the_design():
     assert plan.smem == 1536 + 5 * 34 * 16 * 64 + 2 * 4 * 64 * 32 * 2 + 2 * 9 * 32 * 32
     assert plan.smem == 226_816 <= entry.SMEM_LIMIT
     assert isinstance(plan, entry.WgmmaPlan)
-    # the first layer: f taps over its dx-expanded window, 16 positions
-    # wide (18·16·(16+8) and 3·16·(32+8)); the staged 16x16x(32+8) output
-    # tile takes more
+    # the first layer: f taps over two dx-expanded windows of 8 + 2 rows x 64
+    # positions x 16 lanes, beside its 3·16·32 weights (resident), two output
+    # buffers for each of four warpgroups of 2 slabs x 64 positions x 32
+    # columns, four raw stages of 10 rows x 66 pixels x 3 channels of f32
+    # (rows of 198 floats padded to 200) and 1,344 bytes of alignment and
+    # mbarriers
     plan = entry.bf16_layer_plan(3, 3, 32, first=True)
-    assert plan == entry.tc_layer_plan(3, 3, 32)
-    assert 2 * (18 * 16 * 24 + 3 * 16 * 40) < 2 * 256 * 40
-    assert (plan.kx, plan.tps, plan.smem) == (16, 3, 2 * 256 * 40)
+    assert plan == entry.first_layer_plan(3, 3, 32)
+    assert (plan.kx, plan.cols, plan.tile_rows, plan.w_res, plan.raw_ring) == (16, 64, 8, 1, 4)
+    assert plan.smem == (1344 + 2 * 3 * 16 * 32 + 2 * 4 * 2 * 64 * 32 * 2
+                         + 2 * 10 * 64 * 16 * 2 + 4 * 4 * 10 * 200)
+    assert plan.smem == 142_912
     # f=9 over 128 channels: admitted in f32 (its window streamed in
     # chunks of 6 channels beside their weights, two stages) and in bf16
     # (two 64-lane chunks; its 331,776 bytes of weights stream through 16
@@ -236,7 +242,7 @@ def test_bf16_shared_memory_plan_matches_the_design():
     assert plan.smem == 1536 + 2 * 40 * 16 * 128 + 2 * 4 * 64 * 16 * 2 + 16 * 64 * 16 * 2
     kind, plans = entry.route(1, WIDE_F9, 2)
     assert kind == "chain" and len(plans) == 4
-    assert isinstance(plans[0], entry.TcPlan) and isinstance(plans[-1], entry.LastPlan)
+    assert isinstance(plans[0], entry.FirstPlan) and isinstance(plans[-1], entry.LastPlan)
     # a last layer over 256 channels reads K in four chunks of 64 lanes,
     # its nine dx taps side by side in 16 columns, its weights streamed
     # beside two boxes of 4 + 8 rows x 64 columns; a middle one reads K in

@@ -156,7 +156,8 @@ def test_library_hash_covers_headers(monkeypatch, tmp_path):
     """The kernels include shared headers (``ffma_plan.cuh``,
     ``ffma_stage.cuh``): an edited header must rebuild, though only the
     ``.cu`` files are compiled."""
-    assert [p.name for p in build._sources()] == ["conv_last_wgmma.cu", "conv_layer.cu",
+    assert [p.name for p in build._sources()] == ["conv_first_wgmma.cu", "conv_last_wgmma.cu",
+                                                  "conv_layer.cu",
                                                   "conv_wgmma.cu", "fused_srcnn.cu",
                                                   "fused_wgmma.cu", "parity_copy.cu",
                                                   "rowpair.cu", "wino5.cu", "winograd.cu",
@@ -164,6 +165,7 @@ def test_library_hash_covers_headers(monkeypatch, tmp_path):
     hashed = [p.name for p in build._hashed_files()]
     assert "ffma_plan.cuh" in hashed and "ffma_stage.cuh" in hashed
     assert "wgmma_conv.cuh" in hashed and "conv_last_plan.cuh" in hashed
+    assert "conv_first_plan.cuh" in hashed
     assert "conv_stage.cuh" not in hashed  # the f32 chain runs on ffma_stage.cuh
     (tmp_path / "k.cu").write_text('#include "s.cuh"\n')
     (tmp_path / "s.cuh").write_text("// one\n")

@@ -174,7 +174,7 @@ def test_route_of_each_stack(name):
         return
     assert kind == "chain" and entry.fused_wgmma_plan(c, specs) is None
     assert [p.smem <= entry.SMEM_LIMIT for p in plan] == [True] * 3
-    assert isinstance(plan[0], entry.TcPlan) and isinstance(plan[-1], entry.LastPlan)
+    assert isinstance(plan[0], entry.FirstPlan) and isinstance(plan[-1], entry.LastPlan)
 
 
 def _bf16_weights(params):

@@ -166,14 +166,14 @@ def test_plan_fits_a_block(name):
 def test_route_sends_every_last_layer_to_the_last_layer_kernel():
     """The chain's last layer takes ``conv_last_wgmma.cu`` at every shape
     the ``mma.sync`` stage took (n ≤ 8, K a multiple of 8, f odd or even up
-    to 54) and on to f = 63; the first stays on the ``mma.sync`` stage. A
+    to 54) and on to f = 63; the first takes the first-layer kernel. A
     stack whose last layer has an even f runs on the chain in bf16."""
     kind, plans = entry.route(3, RGB7, 2)
     assert kind == "chain" and isinstance(plans[-1], entry.LastPlan)
     assert plans[-1] == entry.last_layer_plan(3, 128, 3)
     assert (plans[-1].npad, plans[-1].w_res, plans[-1].a_ring) == (16, 1, 3)
     assert (plans[-1].tile_rows, plans[-1].out_cols) == (4, 62)
-    assert isinstance(plans[0], entry.TcPlan)
+    assert isinstance(plans[0], entry.FirstPlan)
     for f in range(1, 64):
         for k, n in ((8, 1), (32, 3), (128, 8), (256, 4)):
             assert isinstance(entry.bf16_layer_plan(f, k, n, last=True), entry.LastPlan)
@@ -181,7 +181,8 @@ def test_route_sends_every_last_layer_to_the_last_layer_kernel():
     params = [{"w": torch.zeros((f, f, k, n)), "b": torch.zeros(n)} for f, k, n in EVEN_LAST]
     precision, kind, plans = entry._check(params, x, "bf16")
     assert (precision, kind) == ("bf16", "chain")
-    assert [type(p).__name__ for p in plans] == ["TcPlan", "WgmmaPlan", "WgmmaPlan", "LastPlan"]
+    assert [type(p).__name__ for p in plans] == ["FirstPlan", "WgmmaPlan", "WgmmaPlan",
+                                                 "LastPlan"]
     assert plans[-1] == entry.last_layer_plan(4, 32, 1)
 
 
@@ -329,9 +330,9 @@ def test_last_layer_matches_tap_layer_on_card(cuda_device, name):
 
 @pytest.mark.cuda
 def test_rgb_request_takes_one_last_layer_launch_on_card(cuda_device):
-    """An RGB bf16 stack: one ``mma.sync`` launch (L1), five of the wgmma
-    stage (L2-L6) and one of the last-layer kernel (L7), within 2^-7 of
-    the plain bf16 stream."""
+    """An RGB bf16 stack: one launch of the first-layer kernel (L1), five
+    of the wgmma stage (L2-L6) and one of the last-layer kernel (L7),
+    within 2^-7 of the plain bf16 stream."""
     rng = np.random.default_rng(13)
     params = params_to_torch(
         [{"w": (rng.standard_normal((f, f, k, n)) * np.sqrt(2.0 / (f * f * k))).astype(np.float32),

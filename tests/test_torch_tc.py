@@ -1,5 +1,5 @@
-"""The bf16 stream on the tensor cores (``csrc/tc_stage.cuh``): its plans,
-its packed weights and the plain version of one tensor-core layer.
+"""The bf16 stream on the tensor cores: its plans, its packed weights and
+the plain version of one tensor-core layer.
 
 The kernels themselves run only on a card (``tests/test_torch_bf16.py``,
 ``cuda`` marker). What a card run cannot show is held here on the CPU:
@@ -69,14 +69,15 @@ def test_bf16_plans_fit_and_route(name):
         assert (p.f, p.k, p.n) == (f, k, n) and p.smem <= entry.SMEM_LIMIT
         # a middle layer takes the wgmma stage (its plan:
         # tests/test_torch_wgmma_chain.py), the last the last-layer kernel
-        # (tests/test_torch_last_wgmma.py), the first the mma.sync stage
+        # (tests/test_torch_last_wgmma.py), the first the first-layer
+        # kernel (tests/test_torch_first_wgmma.py)
         if 0 < i < len(specs) - 1:
             assert p == entry.wgmma_layer_plan(f, k, n)
         elif i == len(specs) - 1:
             assert p == entry.last_layer_plan(f, k, n)
         else:
-            assert p == entry.tc_layer_plan(f, k, n)
-            assert p.kx % 16 == 0 and 1 <= p.tps <= f
+            assert p == entry.first_layer_plan(f, k, n)
+            assert p.kx % 16 == 0 and f * k <= p.kx < f * k + 16
 
 
 @pytest.mark.parametrize("specs,c,kind", [

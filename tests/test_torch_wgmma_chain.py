@@ -161,23 +161,22 @@ def test_plan_fits_a_block(name):
 
 def test_route_sends_the_wide_middle_layers_to_wgmma(monkeypatch):
     """Every middle layer takes the wgmma stage, whatever its width; the
-    first stays on the mma.sync stage and the last takes the last-layer
-    kernel (tests/test_torch_last_wgmma.py)."""
+    first takes the first-layer kernel (tests/test_torch_first_wgmma.py)
+    and the last the last-layer kernel (tests/test_torch_last_wgmma.py)."""
     kind, plans = entry.route(3, RGB7, 2)
     assert kind == "chain"
     stages = [type(p).__name__ for p in plans]
-    assert stages == ["TcPlan"] + ["WgmmaPlan"] * 5 + ["LastPlan"]
+    assert stages == ["FirstPlan"] + ["WgmmaPlan"] * 5 + ["LastPlan"]
     for p, layer in zip(plans[1:6], RGB7[1:6]):
         assert p == entry.wgmma_layer_plan(*layer)
     # L2-L4 keep their weights resident; L5 and L6 stream them
     assert [p.w_res for p in plans[1:6]] == [1, 1, 1, 0, 0]
     assert [p.lanes for p in plans[1:6]] == [32, 32, 64, 64, 64]
     assert entry.route(1, FLAGSHIP, 2)[0] == "fused" and entry.route(1, C915, 2)[0] == "fused"
-    # the plan, not a launch, decides: the mma.sync stage has no middle
-    # layer left and no last one, the first layer stays on it
+    # the plan, not a launch, decides: each layer names its kernel
     for layer in ((3, 64, 128), (3, 32, 32), (3, 64, 64)):
         assert entry.bf16_layer_plan(*layer) == entry.wgmma_layer_plan(*layer)
-    assert type(entry.bf16_layer_plan(3, 3, 128, first=True)).__name__ == "TcPlan"
+    assert type(entry.bf16_layer_plan(3, 3, 128, first=True)).__name__ == "FirstPlan"
     assert type(entry.bf16_layer_plan(3, 128, 3, last=True)).__name__ == "LastPlan"
     # a layer the plan refuses raises before any launch, on every device
     monkeypatch.setattr(entry, "SMEM_LIMIT", 100_000)
