@@ -13,8 +13,9 @@ constexpr int kFirstMaxRaw = 4;  // the most stages of raw input pixels
 // bytes past the buffers: room to align them to 1024 (the swizzle's period)
 // and the mbarriers (full and empty a stage of the raw and the W ring)
 constexpr int kFirstSlack = 1024 + 8 * 2 * (kFirstMaxRaw + kWgMaxRing);
-// the consumer warpgroups of a block: four; the luma stacks' conv1 ran
-// 8-25% faster than on two, RGB L1 as fast (PERF.md)
+// the consumer warpgroups of a block: four. On two, each tile half as tall,
+// RGB L1 took 0.137 ms against 0.094 and the 9 -> 64 conv1 0.342 against
+// 0.216-0.220 (probes/first_wgmma_parts.py, PERF.md)
 constexpr int kFirstWgs = 4;
 // the tile's columns the plan chooses from, widest first; 8 and 4 take the
 // widest f, whose windows fit only a few columns wide
@@ -88,20 +89,15 @@ inline int first_fit(FirstPlan& p, int slabs, int cols, int wins, int bufs) {
   return 0;
 }
 
-// Fill p at `cols` tile columns (0: the plan's own choice). The block's
-// columns min(npad, 64), else halved down to 8 (N in more chunks); at each
-// the slabs first_slabs(bn), then 1; at the first that fits, of the columns of
-// kFirstCols (or `cols`) the widest whose rows are at least f - 1 (the
-// window then expands each input row at most twice), else the narrowest
+// Fill p. The block's columns min(npad, 64), else halved down to 8 (N in
+// more chunks); at each the slabs first_slabs(bn), then 1; at the first that
+// fits, of the columns of kFirstCols the widest whose rows are at least f - 1
+// (the window then expands each input row at most twice), else the narrowest
 // that fits; at two windows and two output buffers a warpgroup where they
 // fit, else one window, else one of each. Returns 0, or 1 for a layer the
-// kernel does not take: f, c or n below 1, n not a multiple of 8, `cols`
-// not one of kFirstCols, or no fit.
-inline int first_plan(FirstPlan& p, int f, int c, int n, int cols = 0) {
+// kernel does not take: f, c or n below 1, n not a multiple of 8, or no fit.
+inline int first_plan(FirstPlan& p, int f, int c, int n) {
   if (f < 1 || c < 1 || n < 1 || n % 8) return 1;
-  bool known = cols == 0;
-  for (int cc : kFirstCols) known = known || cc == cols;
-  if (!known) return 1;
   p.f = f;
   p.k = c;
   p.n = n;
@@ -115,7 +111,6 @@ inline int first_plan(FirstPlan& p, int f, int c, int n, int cols = 0) {
       FirstPlan best = p;
       bool found = false;
       for (int cc : kFirstCols) {
-        if (cols && cc != cols) continue;
         FirstPlan q = p;
         if (first_fit(q, slabs, cc, 2, 2) && first_fit(q, slabs, cc, 1, 2) &&
             first_fit(q, slabs, cc, 1, 1))

@@ -69,10 +69,10 @@
 //   (n, OW, OH, N), which clips the ragged edges and the lanes past n (n % 8
 //   == 0 makes every stride a multiple of 16 bytes); a buffer is written
 //   again once the store out of it has read it.
-// Four consumer warpgroups, not two, took the luma stacks' conv1 from 0.24
-// to 0.22 ms (9 -> 64) and 0.44 to 0.34 ms (9 -> 128) and left RGB L1 where
-// it was (PERF.md; probes/first_wgmma_parts.py takes the kernel's parts out
-// one at a time: each is a share of the time, none is most of it).
+// Four consumer warpgroups, not two: on two, each tile half as tall, RGB L1
+// takes 0.137 ms against 0.094 (probes/first_wgmma_parts.py, which also
+// takes the kernel's parts out one at a time: each is a share of the time,
+// none is most of it; PERF.md).
 //
 // Measured: PERF.md (the kernel table, chip_smoke.py [layers]).
 
@@ -444,19 +444,18 @@ int launch_bn(const FirstPlan& p, const void* x, const void* w, const float* b, 
 // y (N, H - f + 1, W - f + 1, n) bf16 on `stream` from x (N, H, W, c) f32,
 // w (f, kx, npad(n)) bf16 and b (npad(n),) f32 (entry.pack_bf16, first), all
 // contiguous and 16-byte aligned: the quantised, dx-expanded input's products,
-// bias, ReLU, one rounding to bf16; the plan at `cols` tile columns (0: the
-// plan's own choice, conv_first_plan.cuh). Refused (cudaErrorInvalidValue,
-// nothing launched): a shape or choice the plan does not take (n not a
-// multiple of 8, a window that does not fit), a misaligned pointer, more
-// than 2^31 - 1 tiles, or smem_bytes below the plan's. Returns
-// cudaGetLastError() of the launch.
+// bias, ReLU, one rounding to bf16, on the plan of conv_first_plan.cuh.
+// Refused (cudaErrorInvalidValue, nothing launched): a shape the plan does
+// not take (n not a multiple of 8, a window that does not fit), a misaligned
+// pointer, more than 2^31 - 1 tiles, or smem_bytes below the plan's.
+// Returns cudaGetLastError() of the launch.
 extern "C" int conv_first_forward_wgmma(const void* x, const void* w, const float* b, void* y,
-                                        int N, int H, int W, int c, int f, int n, int cols,
+                                        int N, int H, int W, int c, int f, int n,
                                         int smem_bytes, void* stream) {
   const int bad = static_cast<int>(cudaErrorInvalidValue);
   const auto misaligned = [](const void* q) { return reinterpret_cast<std::uintptr_t>(q) % 16; };
   FirstPlan p;
-  if (N <= 0 || N > 65535 || H < f || W < f || first_plan(p, f, c, n, cols) ||
+  if (N <= 0 || N > 65535 || H < f || W < f || first_plan(p, f, c, n) ||
       smem_bytes < p.smem || misaligned(x) || misaligned(w) || misaligned(b) || misaligned(y))
     return bad;
   const auto s = static_cast<cudaStream_t>(stream);

@@ -143,7 +143,7 @@ def load_library() -> ctypes.CDLL:
     lib.fused_srcnn_forward_bf16.restype = i
     lib.conv_layer_forward.argtypes = [p] * 4 + [i] * 11 + [p]
     lib.conv_layer_forward.restype = i
-    lib.conv_first_forward_wgmma.argtypes = [p] * 4 + [i] * 8 + [p]
+    lib.conv_first_forward_wgmma.argtypes = [p] * 4 + [i] * 7 + [p]
     lib.conv_first_forward_wgmma.restype = i
     lib.conv_layer_forward_wgmma.argtypes = [p] * 4 + [i] * 8 + [p]
     lib.conv_layer_forward_wgmma.restype = i

@@ -49,8 +49,8 @@ def layer_forward(lib, src: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     ``entry.WgmmaPlan`` (a middle layer) or ``entry.LastPlan`` (the last),
     ``w`` and ``b`` from ``entry.pack_bf16`` or, for a ``LastPlan``,
     ``entry.pack_last``; the wgmma kernels' tensor maps need 16-byte aligned
-    tensors (raises ValueError otherwise), the first layer launches at the
-    plan's tile columns and the wgmma stage at its A stages; ``src`` f32
+    tensors (raises ValueError otherwise), the wgmma stage launches at its
+    plan's A stages; ``src`` f32
     when ``first`` else bf16, ``dst`` f32 when ``last`` else bf16, ReLU
     unless ``last``."""
     global LAUNCHES, LAUNCHES_BF16, LAUNCHES_FIRST, LAUNCHES_WGMMA, LAUNCHES_LAST
@@ -65,8 +65,7 @@ def layer_forward(lib, src: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     if bf16 and any(t.data_ptr() % 16 for t in (src, w, b, dst)):
         raise ValueError("the wgmma kernels' tensor copies need 16-byte aligned tensors")
     if stage == "first":
-        err = lib.conv_first_forward_wgmma(*args, plan.f, dst.shape[3], plan.cols, plan.smem,
-                                           stream)
+        err = lib.conv_first_forward_wgmma(*args, plan.f, dst.shape[3], plan.smem, stream)
     elif stage == "wgmma":
         err = lib.conv_layer_forward_wgmma(*args, plan.f, dst.shape[3], plan.a_ring, plan.smem,
                                            stream)

@@ -306,12 +306,11 @@ class FirstPlan(NamedTuple):
     smem: int
 
 
-def first_layer_plan(f: int, c: int, n: int, cols: int = 0) -> FirstPlan:
+def first_layer_plan(f: int, c: int, n: int) -> FirstPlan:
     """The plan of the bf16 chain's first f×f layer over c input channels
-    into n outputs (n a multiple of 8) at ``cols`` tile columns, 0 for the
-    plan's own choice. A block computes bn = min(n_pad(n), 64) columns (N
+    into n outputs (n a multiple of 8). A block computes bn = min(n_pad(n), 64) columns (N
     in chunks of them; fewer, down to 8, where the window of a wide f
-    leaves no room) of a tile ``cols`` columns wide and
+    leaves no room) of a tile cols columns wide and
     ``FIRST_WGS``·slabs·64 / cols rows tall: four warpgroups of ``slabs``
     m64 slabs. Its window is the tile's rows plus f − 1 by ``cols``
     positions of kx lanes (bf16), two of them where they fit (the next
@@ -324,13 +323,12 @@ def first_layer_plan(f: int, c: int, n: int, cols: int = 0) -> FirstPlan:
     ``FIRST_MAX_RAW``), else two raw stages and a ring of W slices in the
     rest, its bytes to a multiple of 1024. It takes ``first_slabs(bn)``
     slabs, else one; at the first that fits, of the columns of
-    ``FIRST_COLS`` (or ``cols``) the widest whose rows are at least f − 1
-    (each input row expanded at most twice), else the narrowest that fits.
-    Raises NotImplementedError for a layer or a choice it does not take."""
-    if min(f, c, n) < 1 or n % 8 or (cols and cols not in FIRST_COLS):
+    ``FIRST_COLS`` the widest whose rows are at least f − 1 (each input row
+    expanded at most twice), else the narrowest that fits. Raises
+    NotImplementedError for a layer it does not take."""
+    if min(f, c, n) < 1 or n % 8:
         raise NotImplementedError(
-            f"the first-layer kernel takes n a multiple of 8 and tile columns in {FIRST_COLS}; "
-            f"got f={f}, c={c}, n={n}, cols={cols}")
+            f"the first-layer kernel takes n a multiple of 8; got f={f}, c={c}, n={n}")
     kx = kx_lanes(f, c)
     npad = n_pad(n)
     slack = 1024 + 8 * 2 * (FIRST_MAX_RAW + WG_MAX_RING)
@@ -369,7 +367,7 @@ def first_layer_plan(f: int, c: int, n: int, cols: int = 0) -> FirstPlan:
     for bn in (b for b in (64, 32, 16, 8) if b <= npad):
         for slabs in sorted({first_slabs(bn), 1}, reverse=True):
             best = None
-            for cc in (cols,) if cols else FIRST_COLS:
+            for cc in FIRST_COLS:
                 p = fit(bn, slabs, cc, 2, 2) or fit(bn, slabs, cc, 1, 2) or fit(bn, slabs, cc, 1, 1)
                 if p:
                     best = p

@@ -2,7 +2,7 @@
 stage, built and timed side by side on the card.
 
     python -m cnn_sr_tpu_torch.ops.fused.tune [--reps 2] [--variants ...]
-        [--chain-variants ...] [--wgmma-layers ...] [--first-layers ...]
+        [--chain-variants ...] [--wgmma-layers ...]
 
 The fused kernel's block shape is fixed at compile time in
 ``csrc/fused_srcnn.cu``: ``kThreads`` and each layer's ``(kNB, kPX)``
@@ -36,10 +36,6 @@ candidates need no build: for each of ``WGMMA_LAYERS`` (the RGB model's
 middles at 1080p, and 128→64 at L6's shape) each A ring depth of
 ``WGMMA_RINGS`` that fits is held against ``reference.tap_layer`` (within
 2^-7 of its magnitude) and timed beside the plan's own choice, in turns.
-The first-layer kernel (``csrc/conv_first_wgmma.cu``) takes its plan's tile
-width at launch (``entry.first_layer_plan`` with ``cols``): for each of
-``FIRST_LAYERS`` (RGB L1, the luma stacks' conv1) each width of
-``entry.FIRST_COLS`` that fits is checked and timed the same way.
 """
 
 from __future__ import annotations
@@ -100,11 +96,6 @@ WGMMA_LAYERS = {"L2": ((3, 32, 32), (1, 1078, 1918)), "L3": ((3, 32, 64), (1, 10
                 "L6": ((3, 128, 128), (1, 1070, 1910)),
                 "128->64": ((3, 128, 64), (1, 1070, 1910))}
 WGMMA_RINGS = (2, 3, 4, 6, 8)  # A stages tried (0 in a plan: its own choice)
-# name -> ((f, c, n), input (N, H, W)) of the first-layer kernel's
-# candidates: RGB L1 and the luma stacks' conv1 on the chain (the flagship's
-# and the wide 9-5-5's) on 1080p inputs
-FIRST_LAYERS = {"L1": ((3, 3, 32), (1, 1080, 1920)), "9->64": ((9, 1, 64), (1, 1080, 1920)),
-                "9->128": ((9, 1, 128), (1, 1080, 1920))}
 
 
 def chain_shapes(name: str) -> dict:
@@ -369,59 +360,12 @@ def wgmma_main(names, reps: int, smi: str) -> None:
                   + ", ".join(f"{label[i]} {ms[i]:.4f}" for i in range(len(plans))))
 
 
-def first_main(names, reps: int, smi: str) -> None:
-    """Check and time the first-layer kernel at each tile width of
-    ``entry.FIRST_COLS`` that its plan takes, beside the plan's own choice,
-    for each of ``names`` (``FIRST_LAYERS``) on a seeded centred input, in
-    turns."""
-    dev = torch.device("cuda")
-    lib = build.load_library()
-    stream = torch.cuda.current_stream().cuda_stream
-    rng = np.random.default_rng(3)
-    for name in names:
-        (f, c, n), shape = FIRST_LAYERS[name]
-        x = torch.from_numpy(rng.uniform(-0.6, 0.6, (*shape, c)).astype(np.float32)).to(dev)
-        w = torch.from_numpy((rng.standard_normal((f, f, c, n)) * (2 / (f * f * c)) ** 0.5)
-                             .astype(np.float32)).to(dev)
-        b = torch.from_numpy((rng.standard_normal(n) * 0.05).astype(np.float32)).to(dev)
-        wp, bp = entry.pack_bf16(w, b, first=True)
-        y = torch.empty((shape[0], shape[1] - f + 1, shape[2] - f + 1, n), dtype=torch.bfloat16,
-                        device=dev)
-        ref = reference.tap_layer(x, wp, bp, f, n, first=True, last=False)
-        plans = [entry.first_layer_plan(f, c, n)]
-        for cols in entry.FIRST_COLS:
-            try:
-                p = entry.first_layer_plan(f, c, n, cols)
-            except NotImplementedError:
-                continue
-            if p not in plans:
-                plans.append(p)
-        runs = []
-        for p in plans:
-            run = (lambda p=p: chain.layer_forward(lib, x, wp, bp, y, p, True, False, True,
-                                                   stream))
-            run()
-            err = float((y.float() - ref).abs().max())
-            if err > 2 ** -7 * float(ref.abs().max()):
-                raise SystemExit(f"tune: first {name} cols {p.cols}: max |kernel - plain| {err}")
-            runs.append(run)
-        label = [f"{'plan ' if i == 0 else ''}{p.cols}x{p.tile_rows}" for i, p in enumerate(plans)]
-        for rep in range(reps):
-            order = list(range(len(plans)))
-            if rep % 2:
-                order.reverse()
-            ms = {i: time_ms(runs[i]) for i in order}
-            print(f"[tune] {smi} | first {name} {c}->{n} {tuple(x.shape)} turn {rep + 1}, ms: "
-                  + ", ".join(f"{label[i]} {ms[i]:.4f}" for i in range(len(plans))))
-
-
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--reps", type=int, default=2)
     ap.add_argument("--variants", nargs="*", default=list(VARIANTS))
     ap.add_argument("--chain-variants", nargs="*", default=list(CHAIN_VARIANTS))
     ap.add_argument("--wgmma-layers", nargs="*", default=list(WGMMA_LAYERS))
-    ap.add_argument("--first-layers", nargs="*", default=list(FIRST_LAYERS))
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("tune: needs an NVIDIA card")
@@ -468,8 +412,6 @@ def main(argv=None) -> int:
         chain_main(args.chain_variants, args.reps, smi, stack)
     if args.wgmma_layers:
         wgmma_main(args.wgmma_layers, args.reps, smi)
-    if args.first_layers:
-        first_main(args.first_layers, args.reps, smi)
     return 0
 
 

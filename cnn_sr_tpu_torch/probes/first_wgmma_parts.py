@@ -15,9 +15,15 @@ each a set of edits of the source text:
   products read whatever the window holds);
 * ``products``: no ``wgmma``; the sums are zeroed instead;
 * ``staging``: the epilogue writes nothing into the output buffers;
-* ``stores``: no tensor-copy store of the output.
+* ``stores``: no tensor-copy store of the output;
+* ``four warpgroups``: two consumer warpgroups instead of four (the plan's
+  header inlined with ``kFirstWgs`` = 2, ``setmaxnreg`` 224 and 56 as in
+  ``wgmma_conv.cuh``), each tile half as tall. The launch still passes the
+  four-warpgroup plan's shared bytes, more than this copy's plan needs, so
+  the copy takes the launch and computes the right output.
 
-The copies compute wrong outputs by design: only their times are read.
+The other copies compute wrong outputs by design: only their times are
+read.
 
     python -m cnn_sr_tpu_torch.probes.first_wgmma_parts [--reps N] [--rounds N]
 """
@@ -36,6 +42,7 @@ from . import parts as shared
 from .winograd import timer
 
 SOURCE = build.CSRC / "conv_first_wgmma.cu"
+PLAN = build.CSRC / "conv_first_plan.cuh"
 # name -> ((f, c, n), input (N, H, W))
 LAYERS = {"RGB L1 3->32": ((3, 3, 32), (1, 1080, 1920)),
           "conv1 9->64": ((9, 1, 64), (1, 1080, 1920))}
@@ -60,13 +67,20 @@ PARTS = {
                  "        const int col = c8 * 8 + q2, c = col % C::kLanes;\n", 1)],
     "stores": [("          tma_store_4d(&to, ob + blk * kOutBlock, n0 + blk * C::kLanes, ox0, "
                 "oy0, img);\n", "          (void)ob;\n", 1)],
+    "four warpgroups": [
+        ('#include "conv_first_plan.cuh"\n',
+         PLAN.read_text().replace("#pragma once\n", "")
+         .replace("constexpr int kFirstWgs = 4;", "constexpr int kFirstWgs = 2;"), 1),
+        ("constexpr int kFirstConsumerRegs = 104, kFirstProducerRegs = 64;",
+         "constexpr int kFirstConsumerRegs = 224, kFirstProducerRegs = 56;", 1)],
 }
 # the copies: name -> the parts taken out
 VARIANTS = {"kernel": (), "no raw loads": ("raw loads",),
             "no 16-byte copies": ("16-byte copies",), "no expand": ("expand",),
             "no products": ("products",), "no stores": ("stores",),
             "no staging, no stores": ("staging", "stores"),
-            "none of them": ("raw loads", "expand", "products", "staging", "stores")}
+            "none of them": ("raw loads", "expand", "products", "staging", "stores"),
+            "two warpgroups": ("four warpgroups",)}
 
 
 def time_parts(reps: int, rounds: int) -> dict:
@@ -91,7 +105,7 @@ def time_parts(reps: int, rounds: int) -> dict:
         def call(lib):
             err = lib.conv_first_forward_wgmma(
                 x.data_ptr(), wp.data_ptr(), bp.data_ptr(), y.data_ptr(), *shape, c, f, n,
-                plan.cols, plan.smem, torch.cuda.current_stream().cuda_stream)
+                plan.smem, torch.cuda.current_stream().cuda_stream)
             if err:
                 raise RuntimeError(f"first_wgmma_parts: launch failed ({err})")
 

@@ -10,8 +10,8 @@ layer to it, that ``entry.pack_bf16(first=True)`` unpacks to the folded
 weights, and that the kernel's decomposition of the layer (per tile of
 ``cols`` columns x tile_rows rows, the raw f32 pixels of its window rows x
 cols + f − 1 columns with zeros outside the image, quantised and
-dx-expanded into kx lanes, each dy tap a start cols positions on, two
-warpgroups of m64 slabs over N in chunks of bn columns, the stores clipped
+dx-expanded into kx lanes, each dy tap a start cols positions on, the
+consumer warpgroups' m64 slabs over N in chunks of bn columns, the stores clipped
 to the output) is ``reference.tap_layer(..., first=True)`` bit for bit, and
 within the bf16 gate of ``tests/test_torch_bf16.py`` of the JAX package's
 first layer. This module imports no JAX at its top; on a card its tests run
@@ -33,52 +33,50 @@ from cnn_sr_tpu_torch.utils.params_io import params_to_torch
 RGB7 = [(3, 3, 32), (3, 32, 32), (3, 32, 64), (3, 64, 64), (3, 64, 128), (3, 128, 128),
         (3, 128, 3)]
 PLAN_FIELDS = entry.FirstPlan._fields
-# (f, c, n, cols): RGB L1; the flagship's conv1 (on the chain in the
-# three-launch form) and the wide 9-5-5's; n = 8, 16, 128 and 256 (two
-# chunks of N) and 384; c = 2 and 4; the widest f the mma.sync stage took at
-# each c (c = 1: 66 at n = 8, 64 at 128; c = 2: 48; c = 3: 37 at n = 32,
-# 32 at 128; c = 4: 28 at 128 and 256); each tile width at RGB L1
-LAYERS = {"rgb_l1": (3, 3, 32, 0), "flagship_conv1": (9, 1, 64, 0),
-          "wide_955_conv1": (9, 1, 128, 0), "f9_c1_n8": (9, 1, 8, 0), "f3_c3_n8": (3, 3, 8, 0),
-          "f3_c3_n16": (3, 3, 16, 0), "f3_c3_n128": (3, 3, 128, 0),
-          "f3_c3_n256": (3, 3, 256, 0), "f5_c1_n384": (5, 1, 384, 0),
-          "f5_c2_n32": (5, 2, 32, 0), "f3_c4_n64": (3, 4, 64, 0), "f1_c4_n8": (1, 4, 8, 0),
-          "f66_c1_n8": (66, 1, 8, 0), "f64_c1_n128": (64, 1, 128, 0),
-          "f48_c2_n32": (48, 2, 32, 0), "f40_c2_n128": (40, 2, 128, 0),
-          "f37_c3_n32": (37, 3, 32, 0), "f32_c3_n128": (32, 3, 128, 0),
-          "f32_c4_n8": (32, 4, 8, 0), "f28_c4_n128": (28, 4, 128, 0),
-          "f28_c4_n256": (28, 4, 256, 0), "rgb_l1_cols32": (3, 3, 32, 32),
-          "rgb_l1_cols16": (3, 3, 32, 16), "rgb_l1_cols8": (3, 3, 32, 8),
-          "rgb_l1_cols4": (3, 3, 32, 4)}
-REFUSED = {"f0": (0, 1, 8, 0), "c0": (3, 0, 8, 0), "n_not_8": (3, 3, 12, 0),
-           "cols_48": (3, 3, 32, 48), "f90_c1": (90, 1, 8, 0)}
-# (layer (f, c, n, cols), input (N, H, W)): each instance of the kernel
+# (f, c, n): RGB L1; the flagship's conv1 (on the chain in the three-launch
+# form) and the wide 9-5-5's; n = 8, 16, 128 and 256 (two chunks of N) and
+# 384; c = 2 and 4; the widest f the mma.sync stage took at each c (c = 1:
+# 66 at n = 8, 64 at 128; c = 2: 48; c = 3: 37 at n = 32, 32 at 128; c = 4:
+# 28 at 128 and 256); layers whose plans take each narrower tile width
+# (32, 16, 8 and 4 columns)
+LAYERS = {"rgb_l1": (3, 3, 32), "flagship_conv1": (9, 1, 64), "wide_955_conv1": (9, 1, 128),
+          "f9_c1_n8": (9, 1, 8), "f3_c3_n8": (3, 3, 8), "f3_c3_n16": (3, 3, 16),
+          "f3_c3_n128": (3, 3, 128), "f3_c3_n256": (3, 3, 256), "f5_c1_n384": (5, 1, 384),
+          "f5_c2_n32": (5, 2, 32), "f3_c4_n64": (3, 4, 64), "f1_c4_n8": (1, 4, 8),
+          "f66_c1_n8": (66, 1, 8), "f64_c1_n128": (64, 1, 128), "f48_c2_n32": (48, 2, 32),
+          "f40_c2_n128": (40, 2, 128), "f37_c3_n32": (37, 3, 32), "f32_c3_n128": (32, 3, 128),
+          "f32_c4_n8": (32, 4, 8), "f28_c4_n128": (28, 4, 128), "f28_c4_n256": (28, 4, 256),
+          "f13_c1_n32": (13, 1, 32), "f17_c1_n128": (17, 1, 128), "f29_c3_n8": (29, 3, 8),
+          "f34_c1_n64": (34, 1, 64)}
+REFUSED = {"f0": (0, 1, 8), "c0": (3, 0, 8), "n_not_8": (3, 3, 12), "f90_c1": (90, 1, 8),
+           "f34_c4": (34, 4, 8)}
+# (layer (f, c, n), input (N, H, W), its span): each instance of the kernel
 # (bn, slabs), W resident and streamed, one and two output buffers, N in
-# one and two chunks, each tile width, ragged tiles, batches, and a case
-# with more tiles than a card has SMs
-CASES = {"rgb_l1": ((3, 3, 32, 0), (2, 21, 70)),
-         "rgb_l1_many_tiles": ((3, 3, 32, 0), (2, 130, 300)),
-         "rgb_l1_cols32": ((3, 3, 32, 32), (1, 21, 37)),
-         "rgb_l1_cols16": ((3, 3, 32, 16), (1, 40, 37)),
-         "rgb_l1_cols8": ((3, 3, 32, 8), (1, 70, 21)),
-         "rgb_l1_cols4": ((3, 3, 32, 4), (1, 70, 12)),
-         "flagship_conv1": ((9, 1, 64, 0), (1, 30, 41)),
-         "wide_955_conv1": ((9, 1, 128, 0), (2, 20, 75)),
-         "f3_c3_n8": ((3, 3, 8, 0), (1, 12, 70)),
-         "f3_c3_n16": ((3, 3, 16, 0), (2, 11, 40)),
-         "f3_c3_n256": ((3, 3, 256, 0), (1, 9, 70)),
-         "f5_c2_n32": ((5, 2, 32, 0), (1, 18, 80)),
-         "f3_c4_n64": ((3, 4, 64, 0), (1, 10, 66)),
-         "f29_c3_n8": ((29, 3, 8, 0), (1, 40, 45)),
-         "f22_c4_n16": ((22, 4, 16, 0), (1, 30, 40)),
-         "f21_c4_n32": ((21, 4, 32, 0), (1, 30, 40)),
-         "f28_c4_n64": ((28, 4, 64, 0), (1, 36, 40)),
-         "f17_c1_n128": ((17, 1, 128, 0), (1, 30, 40)),
-         "f13_c4_n128": ((13, 4, 128, 0), (1, 24, 40)),
-         "f49_c1_n32": ((49, 1, 32, 0), (1, 70, 56))}
+# one and two chunks, each tile width, ragged tiles, batches, a case with
+# more tiles than a card has SMs, and inputs in (−1.3, 1.3), past the int8
+# plane's clip at ±1, where the others stay in (−0.6, 0.6)
+CASES = {"rgb_l1": ((3, 3, 32), (2, 21, 70), 1.3),
+         "rgb_l1_many_tiles": ((3, 3, 32), (2, 130, 300), 0.6),
+         "flagship_conv1": ((9, 1, 64), (1, 30, 41), 1.3),
+         "wide_955_conv1": ((9, 1, 128), (2, 20, 75), 0.6),
+         "f3_c3_n8": ((3, 3, 8), (1, 12, 70), 0.6),
+         "f3_c3_n16": ((3, 3, 16), (2, 11, 40), 0.6),
+         "f3_c3_n256": ((3, 3, 256), (1, 9, 70), 0.6),
+         "f5_c2_n32": ((5, 2, 32), (1, 18, 80), 0.6),
+         "f3_c4_n64": ((3, 4, 64), (1, 10, 66), 0.6),
+         "f29_c3_n8": ((29, 3, 8), (1, 40, 45), 0.6),
+         "f22_c4_n16": ((22, 4, 16), (1, 30, 40), 0.6),
+         "f21_c4_n32": ((21, 4, 32), (1, 30, 40), 0.6),
+         "f28_c4_n64": ((28, 4, 64), (1, 36, 40), 0.6),
+         "f17_c1_n128": ((17, 1, 128), (1, 30, 40), 0.6),
+         "f13_c4_n128": ((13, 4, 128), (1, 24, 40), 0.6),
+         "f49_c1_n32": ((49, 1, 32), (1, 70, 56), 0.6),
+         "f34_c1_n64": ((34, 1, 64), (1, 40, 44), 1.3),
+         "f38_c3_n32": ((38, 3, 32), (1, 45, 45), 0.6),
+         "f65_c1_n8": ((65, 1, 8), (1, 70, 70), 1.3)}
 # the JAX package's first layer against the decomposition, at small sizes
-JAX_CASES = {"rgb_l1": ((3, 3, 32, 0), (1, 21, 37)),
-             "flagship_conv1": ((9, 1, 64, 0), (1, 30, 41))}
+JAX_CASES = {"rgb_l1": ((3, 3, 32), (1, 21, 37)),
+             "flagship_conv1": ((9, 1, 64), (1, 30, 41))}
 
 
 def _mma_sync_took(f, c, n):
@@ -102,14 +100,14 @@ def cuda_device():
 @pytest.fixture(scope="module")
 def c_plan(tmp_path_factory):
     """``first_plan`` of ``csrc/conv_first_plan.cuh``, compiled with the
-    host's C++ compiler: plan(f, c, n, cols) -> the fields, or None where it
+    host's C++ compiler: plan(f, c, n) -> the fields, or None where it
     refuses the layer."""
     tmp = tmp_path_factory.mktemp("conv_first_plan")
     src = tmp / "plan.cpp"
     src.write_text(
         '#include <cstdio>\n#include "conv_first_plan.cuh"\nint main() {\n'
-        '  int f, c, n, cols;\n  scanf("%d %d %d %d", &f, &c, &n, &cols);\n'
-        '  FirstPlan p;\n  if (first_plan(p, f, c, n, cols)) {\n    printf("refused\\n");\n'
+        '  int f, c, n;\n  scanf("%d %d %d", &f, &c, &n);\n'
+        '  FirstPlan p;\n  if (first_plan(p, f, c, n)) {\n    printf("refused\\n");\n'
         '    return 0;\n  }\n'
         f'  printf("{" ".join(["%d"] * len(PLAN_FIELDS))}\\n", '
         + ", ".join(f"p.{k}" for k in PLAN_FIELDS) + ");\n}\n")
@@ -117,8 +115,8 @@ def c_plan(tmp_path_factory):
     subprocess.run(["g++", "-std=c++17", "-O1", f"-I{build.CSRC}", str(src), "-o", str(exe)],
                    check=True, capture_output=True, timeout=120)
 
-    def plan(f, c, n, cols):
-        out = subprocess.run([str(exe)], input=f"{f} {c} {n} {cols}\n", check=True,
+    def plan(f, c, n):
+        out = subprocess.run([str(exe)], input=f"{f} {c} {n}\n", check=True,
                              capture_output=True, text=True, timeout=60).stdout.strip()
         return None if out == "refused" else dict(zip(PLAN_FIELDS, map(int, out.split())))
 
@@ -150,15 +148,15 @@ def test_plan_fits_a_block(name):
     beside the deepest raw ring that fits (at most ``FIRST_MAX_RAW``), or
     streamed through two slices or more beside two raw stages; N's chunks
     cover its padded columns."""
-    f, c, n, cols = LAYERS[name]
-    p = entry.first_layer_plan(f, c, n, cols)
+    f, c, n = LAYERS[name]
+    p = entry.first_layer_plan(f, c, n)
     assert p.smem <= entry.SMEM_LIMIT
     slack = 1024 + 8 * 2 * (entry.FIRST_MAX_RAW + entry.WG_MAX_RING)
     assert p.smem == slack + p.w_bytes + p.out_bytes + p.win_bytes + p.raw_ring * p.raw_bytes
     assert p.kx == entry.kx_lanes(f, c) and p.kx % 16 == 0 and p.kx >= f * c
     assert p.npad == entry.n_pad(n) and p.bn in (8, 16, 32, 64) and p.bn <= p.npad
     assert p.nchunks * p.bn == p.npad
-    assert p.cols in entry.FIRST_COLS and (not cols or p.cols == cols)
+    assert p.cols in entry.FIRST_COLS
     assert p.slabs in (entry.first_slabs(p.bn), 1)
     assert p.tile_rows * p.cols == entry.FIRST_WGS * p.slabs * 64
     assert p.win_rows == p.tile_rows + f - 1 and p.iw == p.cols + f - 1
@@ -210,7 +208,7 @@ def test_route_sends_every_first_layer_to_the_first_layer_kernel():
     assert (plans[0].cols, plans[0].tile_rows, plans[0].w_res, plans[0].w_bytes) == (64, 8, 1,
                                                                                       3072)
     assert [type(p).__name__ for p in plans] == ["FirstPlan"] + ["WgmmaPlan"] * 5 + ["LastPlan"]
-    for f, c, n, _ in LAYERS.values():
+    for f, c, n in LAYERS.values():
         assert isinstance(entry.bf16_layer_plan(f, c, n, first=True), entry.FirstPlan)
     assert not hasattr(entry, "TcPlan") and not hasattr(entry, "tc_layer_plan")
     x = torch.zeros((1, 40, 40, 1))
@@ -226,7 +224,7 @@ def test_packed_first_weights_unpack_bit_for_bit(name):
     """``pack_bf16(first=True)``: tap dy, row dx·c + ci, column co holds
     ``fold_first(w)[dy, dx, ci, co]``; zero past f·c rows and n columns; the
     bias f32 and zero past n; made once per weight tensor."""
-    f, c, n, _ = LAYERS[name]
+    f, c, n = LAYERS[name]
     w, b = _weights((f, c, n), 21)
     wp, bp = entry.pack_bf16(w, b, first=True)
     assert wp.dtype == torch.bfloat16 and wp.shape == (f, entry.kx_lanes(f, c), entry.n_pad(n))
@@ -250,10 +248,10 @@ def _weights(layer, seed):
     return w, b
 
 
-def _x(shape, c, seed):
-    """A seeded centred input (N, H, W, c) in (−0.6, 0.6): some pixels
-    past the int8 plane's clip, as a mean-subtracted input can be."""
-    return np.random.default_rng(seed).uniform(-0.6, 0.6, (*shape, c)).astype(np.float32)
+def _x(shape, c, seed, span=0.6):
+    """A seeded centred input (N, H, W, c) in (−span, span); past ±1 where
+    span is, so that the int8 plane's clip holds those pixels at ±127."""
+    return np.random.default_rng(seed).uniform(-span, span, (*shape, c)).astype(np.float32)
 
 
 def _emulate(x, wp, bp, plan):
@@ -299,9 +297,9 @@ def _emulate(x, wp, bp, plan):
 
 
 def _case(name):
-    (f, c, n, cols), shape = CASES[name]
-    plan = entry.first_layer_plan(f, c, n, cols)
-    x = torch.from_numpy(_x(shape, c, 11))
+    (f, c, n), shape, span = CASES[name]
+    plan = entry.first_layer_plan(f, c, n)
+    x = torch.from_numpy(_x(shape, c, 11, span))
     w, b = _weights((f, c, n), 12)
     return x, entry.pack_bf16(w, b, first=True), plan
 
@@ -334,7 +332,7 @@ def test_decomposition_matches_jax_first_layer(name):
 
     from cnn_sr_tpu.ops.pallas_fused import weights as jweights
 
-    (f, c, n, cols), shape = JAX_CASES[name]
+    (f, c, n), shape = JAX_CASES[name]
     x = _x(shape, c, 5)
     w, b = _weights((f, c, n), 6)
     patches = jweights._im2col_patches(jnp.asarray(x), f, jnp.bfloat16, int8=True)
@@ -345,7 +343,7 @@ def test_decomposition_matches_jax_first_layer(name):
     want = np.asarray(jnp.maximum(acc + jnp.asarray(b.numpy()), 0.0)
                       .astype(jnp.bfloat16).astype(jnp.float32))
     wp, bp = entry.pack_bf16(w, b, first=True)
-    got = _emulate(torch.from_numpy(x), wp, bp, entry.first_layer_plan(f, c, n, cols)).numpy()
+    got = _emulate(torch.from_numpy(x), wp, bp, entry.first_layer_plan(f, c, n)).numpy()
     assert got.shape == want.shape
     d = np.abs(got - want)
     assert d.max() <= 1e-2 and d.mean() <= 1e-3, (d.max(), d.mean())
@@ -355,16 +353,18 @@ def test_decomposition_matches_jax_first_layer(name):
 def test_cases_cover_every_instance():
     """The card cases launch every instance of the kernel (bn, slabs), W
     resident and streamed, one and two windows and output buffers a
-    warpgroup, N in two chunks,
-    each tile width, a batch, and more tiles than a card has SMs."""
-    plans = [entry.first_layer_plan(*layer) for layer, _ in CASES.values()]
+    warpgroup, N in two chunks, each tile width (each layer at its plan's
+    own), a batch, more tiles than a card has SMs, and pixels past the
+    clip."""
+    plans = [entry.first_layer_plan(*layer) for layer, _, _ in CASES.values()]
     assert {(p.bn, p.slabs) for p in plans} == set(entry.first_instances())
     assert {p.w_res for p in plans} == {0, 1} and {p.out_bufs for p in plans} == {1, 2}
     assert {p.win_bufs for p in plans} == {1, 2}
     assert any(p.nchunks > 1 for p in plans)
     assert {p.cols for p in plans} == set(entry.FIRST_COLS)
-    assert any(shape[0] > 1 for _, shape in CASES.values())
-    layer, shape = CASES["rgb_l1_many_tiles"]
+    assert any(shape[0] > 1 for _, shape, _ in CASES.values())
+    assert any(span > 1 for _, _, span in CASES.values())
+    layer, shape, _ = CASES["rgb_l1_many_tiles"]
     p = entry.first_layer_plan(*layer)
     assert shape[0] * -(-(shape[1] - 2) // p.tile_rows) * -(-(shape[2] - 2) // p.cols) > 132
 
@@ -374,7 +374,9 @@ def test_parts_copies_are_the_kernel_without_their_parts(variant):
     """Each copy ``probes/first_wgmma_parts`` builds is the kernel's source
     with its parts' edits, every edit found once: no pixel copy, no
     16-byte pixel copy, no expansion store, no product, no staging store or no tensor-copy store
-    where its part is out, and the kernel's text elsewhere."""
+    where its part is out, and the plan's header inlined at two warpgroups
+    with their registers where four warpgroups are out; the kernel's text
+    elsewhere."""
     text = first_wgmma_parts.SOURCE.read_text()
     parts = first_wgmma_parts.VARIANTS[variant]
     out = first_wgmma_parts.shared.patched(first_wgmma_parts.SOURCE, first_wgmma_parts.PARTS,
@@ -383,11 +385,14 @@ def test_parts_copies_are_the_kernel_without_their_parts(variant):
             "16-byte copies": ("% 16 == 0 && W * p.k % 4 == 0;",),
             "expand": ("pos < win_pos;",), "products": ("tap(ad, nc, 0,",),
             "staging": ("c8 < BN / 8; ++c8) {\n        const int col",),
-            "stores": ("tma_store_4d(&to",)}
+            "stores": ("tma_store_4d(&to",),
+            "four warpgroups": ('#include "conv_first_plan.cuh"', "kFirstConsumerRegs = 104")}
     for part, texts in gone.items():
         for t in texts:
             assert t in text
             assert (t in out) == (part not in parts), (part, t)
+    assert ("constexpr int kFirstWgs = 2;" in out) == ("four warpgroups" in parts)
+    assert "constexpr int kFirstWgs = 4;" not in out
 
 
 @pytest.mark.cuda
