@@ -14,6 +14,13 @@ the device, and no mean visits the host.
 gives its XLA f32 forward) runs the conv stack in f32; ``"bf16"`` runs
 the bf16 stream with the int8 first layer, the counterpart of
 ``use_pallas=True`` with its default precision.
+
+Each public call is one ``profiling.span`` named after it
+(``api.upscale_batch``, ``api.upscale_image``, ``api.upscale_image_spatial``)
+around spans of its parts: ``api.upload``, ``api.pixels`` (the colour,
+mean and pad work before the net, and the swap and stack after it),
+``model.forward`` (``SRCNN.forward``) and ``api.readback``. They are
+recorded only while a ``torch.profiler`` records.
 """
 
 from __future__ import annotations
@@ -25,6 +32,7 @@ import torch
 
 from .models.srcnn import SRCNN
 from .ops.color import extract_luma, subtract_mean, swap_luma, swap_rgb
+from .profiling import span
 from .utils.config import Config
 
 Net = Callable[[torch.Tensor], torch.Tensor]
@@ -37,11 +45,15 @@ def _upscale_luma_batch(net: Net, rgbas: torch.Tensor, add_mean: bool,
     called once. Each image is centred on its own mean (E[luma²] with
     ``squared_mean``); ``add_mean``: the model predicts mean-relative luma
     (config ``zero_mean_target``), so the mean is added back."""
-    centred = [subtract_mean(extract_luma(im, normalize=True), squared=squared_mean)
-               for im in rgbas]
-    ys = net(torch.stack([luma0 for luma0, _ in centred])[..., None])[..., 0]
-    return torch.stack([swap_luma(im, y + mean if add_mean else y)
-                        for im, y, (_, mean) in zip(rgbas, ys, centred)])
+    with span("api.pixels"):
+        centred = [subtract_mean(extract_luma(im, normalize=True), squared=squared_mean)
+                   for im in rgbas]
+        x = torch.stack([luma0 for luma0, _ in centred])[..., None]
+    ys = net(x)
+    del x  # as large as the batch: free it before the swap
+    with span("api.pixels"):
+        return torch.stack([swap_luma(im, y + mean if add_mean else y)
+                            for im, y, (_, mean) in zip(rgbas, ys[..., 0], centred)])
 
 
 def _upscale_luma(net: Net, rgba: torch.Tensor, add_mean: bool,
@@ -58,11 +70,15 @@ def _upscale_rgb_batch(net: Net, rgbas: torch.Tensor, add_mean: bool) -> torch.T
     ``add_mean``, added back to its output. The RGB model has no
     squared-mean mode (the JAX package's RGB path ignores
     ``subtract_squared_mean`` too)."""
-    rgbs = [im[..., :3].to(torch.float32) / 255.0 for im in rgbas]
-    means = [torch.mean(rgb, dim=(0, 1), keepdim=True) for rgb in rgbs]
-    ys = net(torch.stack([rgb - mean for rgb, mean in zip(rgbs, means)]))
-    return torch.stack([swap_rgb(im, y + mean if add_mean else y)
-                        for im, y, mean in zip(rgbas, ys, means)])
+    with span("api.pixels"):
+        rgbs = [im[..., :3].to(torch.float32) / 255.0 for im in rgbas]
+        means = [torch.mean(rgb, dim=(0, 1), keepdim=True) for rgb in rgbs]
+        x = torch.stack([rgb - mean for rgb, mean in zip(rgbs, means)])
+    ys = net(x)
+    del x  # as large as the batch: free it before the swap
+    with span("api.pixels"):
+        return torch.stack([swap_rgb(im, y + mean if add_mean else y)
+                            for im, y, mean in zip(rgbas, ys, means)])
 
 
 def _upscale_rgb(net: Net, rgba: torch.Tensor, add_mean: bool) -> torch.Tensor:
@@ -101,16 +117,24 @@ def _upscale_bucketed(cfg: Config, net: Net, rgba: torch.Tensor, bucket: int) ->
     unpadded run's."""
     h, w = rgba.shape[0], rgba.shape[1]
     s = cfg.total_padding()
-    padded = _pad_edge(rgba, -(-h // bucket) * bucket, -(-w // bucket) * bucket)
-    if cfg.channels == 3:
-        rgb = padded[..., :3].to(torch.float32) / 255.0
-        mean = _valid_mean(rgb, h, w)
-        y = net((rgb - mean)[None])[0, :h - s, :w - s]
-        return swap_rgb(rgba, y + mean if cfg.zero_mean_target else y)
-    luma = extract_luma(padded, normalize=True)
-    mean = _valid_mean(torch.square(luma) if cfg.subtract_squared_mean else luma, h, w)
-    y = net((luma - mean)[None, ..., None])[0, :h - s, :w - s, 0]
-    return swap_luma(rgba, y + mean if cfg.zero_mean_target else y)
+    with span("api.pixels"):
+        padded = _pad_edge(rgba, -(-h // bucket) * bucket, -(-w // bucket) * bucket)
+        if cfg.channels == 3:
+            rgb = padded[..., :3].to(torch.float32) / 255.0
+            mean = _valid_mean(rgb, h, w)
+            x = (rgb - mean)[None]
+        else:
+            luma = extract_luma(padded, normalize=True)
+            mean = _valid_mean(torch.square(luma) if cfg.subtract_squared_mean else luma, h, w)
+            x = (luma - mean)[None, ..., None]
+    ys = net(x)
+    del x  # as large as the batch: free it before the swap
+    with span("api.pixels"):
+        if cfg.channels == 3:
+            y = ys[0, :h - s, :w - s]
+            return swap_rgb(rgba, y + mean if cfg.zero_mean_target else y)
+        y = ys[0, :h - s, :w - s, 0]
+        return swap_luma(rgba, y + mean if cfg.zero_mean_target else y)
 
 
 def _check_size(cfg: Config, h: int, w: int, what: str) -> None:
@@ -142,17 +166,20 @@ def upscale_image(cfg: Config, params, rgba: np.ndarray, bucket: int = 0,
     match the exact path). ``precision``: "f32" or "bf16" (the module's
     docstring).
     """
-    _check_size(cfg, rgba.shape[0], rgba.shape[1], "image")
-    img = _upload(params, rgba)
-    net = SRCNN(params, precision)
-    if bucket > 0:
-        out = _upscale_bucketed(cfg, net, img, bucket)
-    elif cfg.channels == 3:
-        out = _upscale_rgb(net, img, add_mean=cfg.zero_mean_target)
-    else:
-        out = _upscale_luma(net, img, add_mean=cfg.zero_mean_target,
-                            squared_mean=cfg.subtract_squared_mean)
-    return out.cpu().numpy()
+    with span("api.upscale_image"):
+        with span("api.upload"):
+            _check_size(cfg, rgba.shape[0], rgba.shape[1], "image")
+            img = _upload(params, rgba)
+        net = SRCNN(params, precision)
+        if bucket > 0:
+            out = _upscale_bucketed(cfg, net, img, bucket)
+        elif cfg.channels == 3:
+            out = _upscale_rgb(net, img, add_mean=cfg.zero_mean_target)
+        else:
+            out = _upscale_luma(net, img, add_mean=cfg.zero_mean_target,
+                                squared_mean=cfg.subtract_squared_mean)
+        with span("api.readback"):
+            return out.cpu().numpy()
 
 
 def upscale_batch(cfg: Config, params, rgbas: np.ndarray,
@@ -163,15 +190,18 @@ def upscale_batch(cfg: Config, params, rgbas: np.ndarray,
     readback. Each image's output equals ``upscale_image``'s."""
     if rgbas.ndim != 4 or rgbas.shape[0] == 0:
         raise ValueError(f"rgbas must be (S, H, W, 4), got shape {rgbas.shape}")
-    _check_size(cfg, rgbas.shape[1], rgbas.shape[2], "images")
-    imgs = _upload(params, rgbas)
-    net = SRCNN(params, precision)
-    if cfg.channels == 3:
-        out = _upscale_rgb_batch(net, imgs, add_mean=cfg.zero_mean_target)
-    else:
-        out = _upscale_luma_batch(net, imgs, add_mean=cfg.zero_mean_target,
-                                  squared_mean=cfg.subtract_squared_mean)
-    return out.cpu().numpy()
+    with span("api.upscale_batch"):
+        with span("api.upload"):
+            _check_size(cfg, rgbas.shape[1], rgbas.shape[2], "images")
+            imgs = _upload(params, rgbas)
+        net = SRCNN(params, precision)
+        if cfg.channels == 3:
+            out = _upscale_rgb_batch(net, imgs, add_mean=cfg.zero_mean_target)
+        else:
+            out = _upscale_luma_batch(net, imgs, add_mean=cfg.zero_mean_target,
+                                      squared_mean=cfg.subtract_squared_mean)
+        with span("api.readback"):
+            return out.cpu().numpy()
 
 
 def upscale_image_spatial(cfg: Config, params, rgba: np.ndarray, n_shards: int,
@@ -209,7 +239,6 @@ def upscale_image_spatial(cfg: Config, params, rgba: np.ndarray, n_shards: int,
         raise ValueError(f"shard height {shard_rows} < receptive-field shrink {shrink}; "
                          f"use fewer shards for this image")
     mesh = make_mesh(n_data=1, n_spatial=n_shards, devices=devices[:n_shards])
-    img = _upload(params, rgba)
 
     def net(x: torch.Tensor) -> torch.Tensor:
         # bottom-pad the rows to a multiple of the shards; the padded rows
@@ -219,9 +248,13 @@ def upscale_image_spatial(cfg: Config, params, rgba: np.ndarray, n_shards: int,
                             forward_fn=lambda p, band: SRCNN(p, precision)(band))
         return y[:, :h - shrink]
 
-    if cfg.channels == 3:
-        out = _upscale_rgb(net, img, add_mean=cfg.zero_mean_target)
-    else:
-        out = _upscale_luma(net, img, add_mean=cfg.zero_mean_target,
-                            squared_mean=cfg.subtract_squared_mean)
-    return out.cpu().numpy()
+    with span("api.upscale_image_spatial"):
+        with span("api.upload"):
+            img = _upload(params, rgba)
+        if cfg.channels == 3:
+            out = _upscale_rgb(net, img, add_mean=cfg.zero_mean_target)
+        else:
+            out = _upscale_luma(net, img, add_mean=cfg.zero_mean_target,
+                                squared_mean=cfg.subtract_squared_mean)
+        with span("api.readback"):
+            return out.cpu().numpy()

@@ -23,6 +23,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..profiling import span
+
 
 @contextlib.contextmanager
 def strict_f32():
@@ -190,8 +192,9 @@ def luma_mse_metrics(params, x: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
 class SRCNN(nn.Module):
     """Inference model holding one layer list; ``forward`` runs the whole
     stack through ``ops.fused.fused_forward`` (the fused kernel or the
-    layer chain, by shape) in ``precision`` ("f32" or "bf16"). The tensors
-    are buffers, shared with the list it was built from."""
+    layer chain, by shape) in ``precision`` ("f32" or "bf16"), inside a
+    ``model.forward`` span. The tensors are buffers, shared with the list
+    it was built from."""
 
     def __init__(self, params, precision: str = "f32"):
         super().__init__()
@@ -208,4 +211,5 @@ class SRCNN(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         from ..ops.fused import fused_forward
 
-        return fused_forward(self.layers(), x, self.precision)
+        with span("model.forward"):
+            return fused_forward(self.layers(), x, self.precision)

@@ -20,6 +20,12 @@ signatures and printed format:
   self time, so the shares add up to 100%.
 * ``idle_share`` — the device's busy and idle time in a trace's window.
 * ``print_device_memory`` — in-use, peak and limit of each CUDA device.
+* ``span`` — the port's own spans at its layer boundaries (``api.*``,
+  ``model.forward``, ``serve.*``; the stages above too): a
+  ``torch.profiler.record_function`` while a ``torch.profiler`` records
+  (the CLI's ``--profile``, a traced benchmark run), so they land in the
+  same trace as the device's events, on its clock; otherwise a shared
+  no-op that costs one flag read.
 """
 
 from __future__ import annotations
@@ -29,8 +35,25 @@ import time
 from collections import defaultdict
 from typing import Optional
 
+import torch
+from torch.autograd import profiler as _autograd_profiler
+
 TRACE_SUFFIX = ".pt.trace.json.gz"
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context manager around one layer's work, recorded as ``name`` in
+    the trace of a ``torch.profiler`` that records now (on every thread
+    it records); outside one, a shared no-op context that reads no clock
+    and allocates nothing. ``name`` is a fixed string (no shape, no id), so
+    a trace's readers sum the spans by name."""
+    if _autograd_profiler._is_profiler_enabled:
+        return torch.profiler.record_function(name)
+    return _OFF
 
 
 class StageProfiler:
@@ -45,7 +68,6 @@ class StageProfiler:
 
     def start_trace(self):
         if self._trace_dir and self._prof is None:
-            import torch
             from torch.profiler import ProfilerActivity, profile
 
             activities = [ProfilerActivity.CPU]
@@ -72,7 +94,8 @@ class StageProfiler:
             return
         t0 = time.perf_counter()
         try:
-            yield
+            with span(name):
+                yield
         finally:
             dt = time.perf_counter() - t0
             self.totals[name] += dt
@@ -83,12 +106,11 @@ class StageProfiler:
         if not self.enabled:
             return fn(*args, **kwargs)
         t0 = time.perf_counter()
-        out = fn(*args, **kwargs)
-        # a CUDA tensor may still be computing; numpy and CPU outputs are ready
-        if getattr(out, "is_cuda", False):
-            import torch
-
-            torch.cuda.synchronize(out.device)
+        with span(name):
+            out = fn(*args, **kwargs)
+            # a CUDA tensor may still be computing; numpy and CPU outputs are ready
+            if getattr(out, "is_cuda", False):
+                torch.cuda.synchronize(out.device)
         dt = time.perf_counter() - t0
         self.totals[name] += dt
         self.counts[name] += 1
@@ -220,8 +242,6 @@ def print_device_memory(log=print, device="cuda"):
     and the peak (the caching allocator's tensors) and the card's total
     memory as the limit, for every CUDA device; the CPU (or a machine
     without a card) has no such accounting."""
-    import torch
-
     if torch.device(device).type != "cuda" or not torch.cuda.is_available():
         log(f"[{torch.device(device)}] memory stats unavailable")
         return

@@ -60,6 +60,8 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
 
+from .profiling import span
+
 
 class DeadlineExceeded(Exception):
     """A request spent longer than the latency deadline in the queue
@@ -100,6 +102,11 @@ class DeviceWorker(threading.Thread):
     ``upscale_batch``, each single through ``upscale_image``. With
     ``spatial_shard`` > 0 (latency mode) every job runs alone through
     ``upscale_image_spatial`` over that many devices of its slot's kind.
+
+    Its spans (``profiling.span``, recorded only while a ``torch.profiler``
+    records): ``serve.wait`` for a round's first job, ``serve.gather`` for
+    the rest of the round, ``serve.dispatch`` around each group and
+    ``serve.pre_scale`` around each job's pre-scale.
     """
 
     def __init__(self, slots: dict, precision: str = "f32",
@@ -223,23 +230,25 @@ class DeviceWorker(threading.Thread):
 
     def run(self) -> None:
         while not self._stopping:
-            job = self.queue.get()
+            with span("serve.wait"):
+                job = self.queue.get()
             if job is None:
                 break
             batch = [job]
             deadline = time.monotonic() + self.batch_wait_s
-            while len(batch) < self.max_batch:
-                timeout = deadline - time.monotonic()
-                if timeout <= 0:
-                    break
-                try:
-                    nxt = self.queue.get(timeout=timeout)
-                except queue.Empty:
-                    break
-                if nxt is None:
-                    self._stopping = True
-                    break
-                batch.append(nxt)
+            with span("serve.gather"):
+                while len(batch) < self.max_batch:
+                    timeout = deadline - time.monotonic()
+                    if timeout <= 0:
+                        break
+                    try:
+                        nxt = self.queue.get(timeout=timeout)
+                    except queue.Empty:
+                        break
+                    if nxt is None:
+                        self._stopping = True
+                        break
+                    batch.append(nxt)
 
             if self.deadline_s:
                 # shed at dequeue: a job whose queue wait already blew the
@@ -265,7 +274,8 @@ class DeviceWorker(threading.Thread):
             self._dispatch_started = t0
             try:
                 for group in groups.values():
-                    self._process_group(group)
+                    with span("serve.dispatch"):
+                        self._process_group(group)
             finally:
                 self._dispatch_started = None
             if batch:
@@ -322,9 +332,10 @@ class DeviceWorker(threading.Thread):
 
         from .ops.resize import upscale_rgba
 
-        img = torch.as_tensor(np.require(rgba, requirements=("C", "W")),
-                              device=params[0]["w"].device)
-        return upscale_rgba(img, self.scale).cpu().numpy()
+        with span("serve.pre_scale"):
+            img = torch.as_tensor(np.require(rgba, requirements=("C", "W")),
+                                  device=params[0]["w"].device)
+            return upscale_rgba(img, self.scale).cpu().numpy()
 
 
 def build_handler(worker: DeviceWorker):
