@@ -8,7 +8,9 @@ Counterpart of ``cnn_sr_tpu/api.py``: ``upscale_image`` (exact shapes,
 and ``upscale_image_spatial`` (one image's rows over several devices).
 The uint8 images go to the device once and uint8 RGB comes back once; in
 between, the color ops, the means, the conv stack and the swap all run on
-the device, and no mean visits the host.
+the device, and no mean visits the host. On a card both copies go through
+page-locked host memory a frame at a time (``_upload``, ``_readback``;
+``TRANSFERS`` counts their bytes); the answer is a new array each call.
 
 ``precision="f32"`` (the default, as JAX's default ``use_pallas=False``
 gives its XLA f32 forward) runs the conv stack in f32; ``"bf16"`` runs
@@ -37,10 +39,16 @@ from .utils.config import Config
 
 Net = Callable[[torch.Tensor], torch.Tensor]
 
+# Bytes the public calls move between the caller's arrays and the device,
+# by way: staged through page-locked host memory on a card (``pinned_in``,
+# ``pinned_out``), or copied pageable (``pageable_in``, ``pageable_out``:
+# on the CPU, and on a card where page-locked memory cannot be had).
+TRANSFERS = {"pinned_in": 0, "pinned_out": 0, "pageable_in": 0, "pageable_out": 0}
+
 
 def _upscale_luma_batch(net: Net, rgbas: torch.Tensor, add_mean: bool,
-                        squared_mean: bool) -> torch.Tensor:
-    """uint8 RGBA (S, H, W, 4) → uint8 RGB (S, H, W, 3) through ``net``, a
+                        squared_mean: bool) -> list[torch.Tensor]:
+    """uint8 RGBA (S, H, W, 4) → S uint8 RGB (H, W, 3) through ``net``, a
     function from (S, H, W, 1) to (S, H−s, W−s, 1) on the images' device,
     called once. Each image is centred on its own mean (E[luma²] with
     ``squared_mean``); ``add_mean``: the model predicts mean-relative luma
@@ -52,8 +60,8 @@ def _upscale_luma_batch(net: Net, rgbas: torch.Tensor, add_mean: bool,
     ys = net(x)
     del x  # as large as the batch: free it before the swap
     with span("api.pixels"):
-        return torch.stack([swap_luma(im, y + mean if add_mean else y)
-                            for im, y, (_, mean) in zip(rgbas, ys[..., 0], centred)])
+        return [swap_luma(im, y + mean if add_mean else y)
+                for im, y, (_, mean) in zip(rgbas, ys[..., 0], centred)]
 
 
 def _upscale_luma(net: Net, rgba: torch.Tensor, add_mean: bool,
@@ -63,8 +71,9 @@ def _upscale_luma(net: Net, rgba: torch.Tensor, add_mean: bool,
     return _upscale_luma_batch(net, rgba[None], add_mean, squared_mean)[0]
 
 
-def _upscale_rgb_batch(net: Net, rgbas: torch.Tensor, add_mean: bool) -> torch.Tensor:
-    """uint8 RGBA (S, H, W, 4) → uint8 RGB (S, H, W, 3) through ``net``, a
+def _upscale_rgb_batch(net: Net, rgbas: torch.Tensor,
+                       add_mean: bool) -> list[torch.Tensor]:
+    """uint8 RGBA (S, H, W, 4) → S uint8 RGB (H, W, 3) through ``net``, a
     function from (S, H, W, 3) to (S, H−s, W−s, 3), called once: each
     image's per-channel mean is subtracted from its input and, with
     ``add_mean``, added back to its output. The RGB model has no
@@ -77,8 +86,8 @@ def _upscale_rgb_batch(net: Net, rgbas: torch.Tensor, add_mean: bool) -> torch.T
     ys = net(x)
     del x  # as large as the batch: free it before the swap
     with span("api.pixels"):
-        return torch.stack([swap_rgb(im, y + mean if add_mean else y)
-                            for im, y, mean in zip(rgbas, ys, means)])
+        return [swap_rgb(im, y + mean if add_mean else y)
+                for im, y, mean in zip(rgbas, ys, means)]
 
 
 def _upscale_rgb(net: Net, rgba: torch.Tensor, add_mean: bool) -> torch.Tensor:
@@ -145,10 +154,70 @@ def _check_size(cfg: Config, h: int, w: int, what: str) -> None:
             f"model's receptive field ({shrink}+1 px per side)")
 
 
+def _pinned(shape) -> torch.Tensor | None:
+    """A page-locked uint8 host tensor from torch's caching host allocator,
+    which keeps its blocks between calls and hands one out again only
+    after the copies recorded on it have run; None where page-locked
+    memory cannot be had."""
+    try:
+        return torch.empty(shape, dtype=torch.uint8, pin_memory=True)
+    except RuntimeError:
+        return None
+
+
+def _stage(host: torch.Tensor, frame: np.ndarray) -> None:
+    """Copy one frame of the caller's array into page-locked ``host`` in
+    one pass: torch's multi-threaded copy, which gathers a strided frame as
+    it goes, or numpy's where torch cannot wrap the array (read-only, as a
+    decoded image may be, or with a negative stride)."""
+    if frame.flags.writeable and min(frame.strides) >= 0:
+        host.copy_(torch.from_numpy(frame))
+    else:
+        np.copyto(host.numpy(), frame)
+
+
 def _upload(params, arr: np.ndarray) -> torch.Tensor:
-    # torch refuses to wrap read-only arrays (a decoded image may be one)
-    return torch.as_tensor(np.require(arr, requirements=("C", "W")),
-                           device=params[0]["w"].device)
+    """The caller's uint8 array on the parameters' device. On a card it
+    goes through page-locked memory a frame (a leading index of a batch;
+    an image is one frame) at a time, each frame's copy to the device
+    issued without blocking as soon as it is staged, so the host stages
+    frame s+1 while frame s crosses the link. On the CPU, and where
+    page-locked memory cannot be had, ``torch.as_tensor``'s copy."""
+    device = params[0]["w"].device
+    host = (_pinned(arr.shape) if device.type == "cuda" and arr.dtype == np.uint8
+            else None)
+    if host is None:
+        TRANSFERS["pageable_in"] += arr.nbytes
+        # torch refuses to wrap read-only arrays (a decoded image may be one)
+        return torch.as_tensor(np.require(arr, requirements=("C", "W")), device=device)
+    TRANSFERS["pinned_in"] += arr.nbytes
+    out = torch.empty(arr.shape, dtype=torch.uint8, device=device)
+    frames = zip(host, out, arr) if arr.ndim == 4 else [(host, out, arr)]
+    for host_frame, frame, src in frames:
+        _stage(host_frame, src)
+        frame.copy_(host_frame, non_blocking=True)
+    return out
+
+
+def _readback(frames: list[torch.Tensor]) -> np.ndarray:
+    """The uint8 (H, W, 3) answers, on one device, as one host array
+    (S, H, W, 3) that owns its memory. On a card each frame's copy into a
+    new page-locked tensor is issued without blocking and the call waits
+    on the stream once, before the array is handed out; on the CPU, and
+    where page-locked memory cannot be had, ``torch.stack`` and
+    ``.cpu()``."""
+    device = frames[0].device
+    host = (_pinned((len(frames), *frames[0].shape)) if device.type == "cuda"
+            else None)
+    if host is None:
+        out = torch.stack(frames).cpu().numpy()
+        TRANSFERS["pageable_out"] += out.nbytes
+        return out
+    for host_frame, frame in zip(host, frames):
+        host_frame.copy_(frame, non_blocking=True)
+    torch.cuda.current_stream(device).synchronize()
+    TRANSFERS["pinned_out"] += host.nbytes
+    return host.numpy()
 
 
 def upscale_image(cfg: Config, params, rgba: np.ndarray, bucket: int = 0,
@@ -179,7 +248,7 @@ def upscale_image(cfg: Config, params, rgba: np.ndarray, bucket: int = 0,
             out = _upscale_luma(net, img, add_mean=cfg.zero_mean_target,
                                 squared_mean=cfg.subtract_squared_mean)
         with span("api.readback"):
-            return out.cpu().numpy()
+            return _readback([out])[0]
 
 
 def upscale_batch(cfg: Config, params, rgbas: np.ndarray,
@@ -196,12 +265,12 @@ def upscale_batch(cfg: Config, params, rgbas: np.ndarray,
             imgs = _upload(params, rgbas)
         net = SRCNN(params, precision)
         if cfg.channels == 3:
-            out = _upscale_rgb_batch(net, imgs, add_mean=cfg.zero_mean_target)
+            outs = _upscale_rgb_batch(net, imgs, add_mean=cfg.zero_mean_target)
         else:
-            out = _upscale_luma_batch(net, imgs, add_mean=cfg.zero_mean_target,
-                                      squared_mean=cfg.subtract_squared_mean)
+            outs = _upscale_luma_batch(net, imgs, add_mean=cfg.zero_mean_target,
+                                       squared_mean=cfg.subtract_squared_mean)
         with span("api.readback"):
-            return out.cpu().numpy()
+            return _readback(outs)
 
 
 def upscale_image_spatial(cfg: Config, params, rgba: np.ndarray, n_shards: int,
@@ -257,4 +326,4 @@ def upscale_image_spatial(cfg: Config, params, rgba: np.ndarray, n_shards: int,
             out = _upscale_luma(net, img, add_mean=cfg.zero_mean_target,
                                 squared_mean=cfg.subtract_squared_mean)
         with span("api.readback"):
-            return out.cpu().numpy()
+            return _readback([out])[0]

@@ -372,3 +372,68 @@ def test_bf16_batch_matches_jax_use_pallas(name):
     want = japi.upscale_batch(jcfg, params, rgbas, use_pallas=True)
     assert got.shape == want.shape == (2, 40, 52, 3)
     assert _max_diff(got, want) <= 1
+
+
+# ---- the API layer's copies: pageable on the CPU (the card's page-locked
+# path is held to it in test_torch_api_card.py) ----
+
+@pytest.mark.parametrize("raw", [SMALL, SMALL_RGB], ids=["luma", "rgb"])
+def test_cpu_device_counts_pageable_bytes_only(raw):
+    cfg = parse_config(raw)
+    params = params_to_torch(random_parameters(cfg.layer_specs(), cfg.distributions, 0), "cpu")
+    rgbas = np.random.default_rng(13).integers(0, 256, (2, 30, 37, 4), dtype=np.uint8)
+    before = dict(api.TRANSFERS)
+    batch = api.upscale_batch(cfg, params, rgbas)
+    single = api.upscale_image(cfg, params, rgbas[0], bucket=64)
+    moved = {k: api.TRANSFERS[k] - before[k] for k in before}
+    assert moved == {"pinned_in": 0, "pinned_out": 0,
+                     "pageable_in": rgbas.nbytes + rgbas[0].nbytes,
+                     "pageable_out": batch.nbytes + single.nbytes}
+
+
+def _channel_planar(frames):
+    """The same pixels with each image's channels planar (strides W, 1,
+    H·W), as ``serve._pre_scale`` returns them."""
+    return np.moveaxis(np.ascontiguousarray(np.moveaxis(frames, -1, -3)), -3, -1)
+
+
+@pytest.mark.parametrize("raw", [SMALL, SMALL_RGB], ids=["luma", "rgb"])
+def test_read_only_and_channel_planar_inputs_give_todays_answers(raw):
+    cfg = parse_config(raw)
+    params = params_to_torch(random_parameters(cfg.layer_specs(), cfg.distributions, 1), "cpu")
+    rgbas = np.random.default_rng(14).integers(0, 256, (2, 30, 37, 4), dtype=np.uint8)
+    read_only = rgbas.copy()
+    read_only.setflags(write=False)
+    planar = _channel_planar(rgbas)
+    assert not planar.flags.c_contiguous and planar.strides[-1] == 30 * 37
+    want = api.upscale_batch(cfg, params, rgbas)
+    for arr in (read_only, planar):
+        np.testing.assert_array_equal(api.upscale_batch(cfg, params, arr), want)
+        for bucket in (0, 64):
+            np.testing.assert_array_equal(api.upscale_image(cfg, params, arr[1], bucket=bucket),
+                                          api.upscale_image(cfg, params, rgbas[1], bucket=bucket))
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "read_only", "channel_planar", "flipped"])
+def test_stage_copies_a_frame_in_any_layout(layout):
+    """``api._stage``, the host copy into the page-locked buffer (a plain
+    host tensor here), takes torch's copy where torch can wrap the frame
+    and numpy's where it cannot."""
+    frame = np.random.default_rng(15).integers(0, 256, (21, 34, 4), dtype=np.uint8)
+    src = {"contiguous": frame, "read_only": frame.copy(),
+           "channel_planar": _channel_planar(frame), "flipped": frame[::-1]}[layout]
+    if layout == "read_only":
+        src.setflags(write=False)
+    host = torch.empty(src.shape, dtype=torch.uint8)
+    api._stage(host, src)
+    np.testing.assert_array_equal(host.numpy(), src)
+
+
+def test_link_probe_needs_a_card(monkeypatch, capsys):
+    """``probes.link`` times the API's copies on a card only: without one
+    it says so and exits 1, reading no host clock as a link rate."""
+    from cnn_sr_tpu_torch.probes import link
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert link.main(["--reps", "1"]) == 1
+    assert "needs an NVIDIA card" in capsys.readouterr().err
