@@ -65,6 +65,27 @@ class Cell:
     def precision(self) -> str:
         return self.mix["precision"]
 
+    def _counts(self, fn: str):
+        """The reference module's ``fn`` (``flops`` or ``bound_ms``), or None
+        for a stack of VALID convolutions (``roofline``)."""
+        ref = importlib.import_module(f"benchmark.reference.{self.config['reference']}")
+        return getattr(ref, fn, None)
+
+    def flops(self, shape) -> int:
+        """2 x the model's multiply-adds on the API's input ``(n, h, w, c)``."""
+        flops = self._counts("flops")
+        if flops is None:
+            return roofline.stack_flops(self.layers, shape)
+        return flops(self.config, shape)
+
+    def bound_ms(self, shape) -> tuple:
+        """``(ms, "operations" | "bytes")``: the model's least time on this
+        card at ``shape`` in the cell's precision."""
+        bound_ms = self._counts("bound_ms")
+        if bound_ms is None:
+            return roofline.bound_ms(self.layers, shape, self.precision)
+        return bound_ms(self.config, shape, self.precision)
+
 
 def load_cell(name: str, overrides=None) -> Cell:
     man = manifest()
@@ -153,7 +174,7 @@ class Context:
 
     def frames_flops(self) -> int:
         c = self.cell.config["channels"]
-        return sum(roofline.stack_flops(self.cell.layers, (1, h, w, c)) for h, w in self.win.frames)
+        return sum(self.cell.flops((1, h, w, c)) for h, w in self.win.frames)
 
 
 def read_metric(name: str, ctx: Context):
@@ -197,11 +218,9 @@ def run_cell(name: str, seed: int, seconds: float, traced: bool, device: str = "
     torch = program.torch
     spans = prof = tmpdir = None
     if traced:
-        from cnn_sr_tpu_torch.models.srcnn import SRCNN
-
         from .spans import Spans
 
-        spans = Spans(program.api, SRCNN)
+        spans = Spans(program.api)
         spans.install()
         acts = [torch.profiler.ProfilerActivity.CPU]
         if device != "cpu":

@@ -22,6 +22,10 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
+from benchmark import set_host_threads  # noqa: E402
+
+set_host_threads()
+
 
 def split(events, top: int = 25) -> dict:
     from benchmark import program_spans, trace

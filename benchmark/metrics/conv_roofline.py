@@ -1,10 +1,9 @@
-"""``conv_roofline`` (%): the conv stack's least time over its device
-time. The least time is ``roofline.bound_ms`` of the model on each call's
-unpadded images (the ``bench.api`` span's shape); the device time is
-every device op launched inside the model's forward call (the
-``bench.net`` span), whatever kernel or library ran it."""
-
-from benchmark import roofline
+"""``conv_roofline`` (%): the model's least time over its device time.
+The least time is the cell's ``bound_ms`` (``core.Cell``: the
+reference module's ``bound_ms``, or ``roofline.bound_ms`` of its conv stack)
+on each call's unpadded images (the ``bench.api`` span's shape); the
+device time is every device op launched inside the model's forward call
+(the ``bench.net`` span), whatever kernel or library ran it."""
 
 
 def read(ctx):
@@ -16,7 +15,7 @@ def read(ctx):
         if api_name is None:
             continue
         s, h, w = (int(v) for v in api_name.split(":", 1)[1].split("x"))
-        bound_ms += roofline.bound_ms(ctx.cell.layers, (s, h, w, c), ctx.cell.precision)[0]
+        bound_ms += ctx.cell.bound_ms((s, h, w, c))[0]
         device_us += us
     if device_us <= 0:
         return None

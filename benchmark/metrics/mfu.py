@@ -1,8 +1,8 @@
 """``mfu`` (%): the model's operations for every frame completed in the
-traced window (2 x multiply-adds of the valid convolutions on the
-unpadded image) over the window's seconds times the peak of the cell's
-precision: the whole step's share of the card. Read from a card's
-traced run only."""
+traced window (the cell's ``flops``, ``core.Cell``: 2 x the model's
+multiply-adds on the unpadded image) over the window's seconds times the
+peak of the cell's precision: the whole step's share of the card. Read
+from a card's traced run only."""
 
 
 def read(ctx):

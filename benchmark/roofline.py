@@ -2,7 +2,13 @@
 
 ``bound_ms`` is a frozen copy of ``chip_smoke.bound_ms``; ``stack_flops``
 counts the same operations (2 x multiply-adds of the valid convolutions on
-the unpadded image). Peaks: NVIDIA H100 SXM data sheet, dense.
+the unpadded image). They count a configuration whose reference module
+defines no counts of its own: its ``layers`` as a stack of VALID
+convolutions. A model of another shape (SAME padding, upsampling, dense
+concatenations) counts its mathematics beside its plain statement, as
+``flops(cfg, shape)`` and ``bound_ms(cfg, shape, precision)`` in its
+``reference/<reference>.py`` (``core.Cell.flops``, ``core.Cell.bound_ms``),
+which divides by the same peaks. Peaks: NVIDIA H100 SXM data sheet, dense.
 """
 
 from __future__ import annotations

@@ -9,7 +9,8 @@ metrics, or with ``--trace 1`` its per-layer ones), ``device``, with
 ``--trace 1`` ``breakdown``, and last ``checks``. Exits non-zero, printing
 no result, without a CUDA card (or with fewer than the cell asks for),
 when a module of JAX or of the JAX package is loaded once the window has
-closed, or when the program or a file the cell names is missing.
+closed, or when the program or a file the cell names is missing. Runs the
+program on the benchmark's host threads (``benchmark.HOST_THREADS``).
 """
 
 from __future__ import annotations
@@ -23,6 +24,10 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 os.environ.setdefault("USE_FLAX", "0")
+
+from benchmark import set_host_threads  # noqa: E402
+
+set_host_threads()
 
 
 def main(argv=None) -> int:

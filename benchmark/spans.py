@@ -3,10 +3,13 @@ recorded only in a traced run (``--trace 1``):
 
 * ``bench.api:<S>x<H>x<W>`` around ``api.upscale_batch`` and
   ``api.upscale_image`` (S images of H x W, after any pre-scale): the API
-  layer, whose shape is the unpadded image the model's work is counted on;
-* ``bench.net:<input shape>`` around the forward call of every module of
-  the model's class (``models/srcnn.py: SRCNN``), by a global module
-  forward hook: everything launched inside it is the conv stack's.
+  layer, whose shape is the input the model's work is counted on;
+* ``bench.net:<input shape>`` around the outermost forward call of any
+  module whose class is defined in the port's model package
+  (``type(m).__module__`` under ``cnn_sr_tpu_torch.models``), by a global
+  module forward hook: everything launched inside it is the model's.
+  Forward calls of the port's modules nested inside it open none, so a
+  model built of child modules is one span a call, as ``SRCNN`` is.
 
 Both are ``torch.profiler`` annotations on the calling thread.
 """
@@ -18,10 +21,17 @@ import threading
 
 import torch
 
+MODELS = "cnn_sr_tpu_torch.models"
+
+
+def is_port_model(module) -> bool:
+    name = type(module).__module__
+    return name == MODELS or name.startswith(MODELS + ".")
+
 
 class Spans:
-    def __init__(self, api_module, model_cls):
-        self.api, self.model_cls = api_module, model_cls
+    def __init__(self, api_module):
+        self.api = api_module
         self.local = threading.local()
         self.saved = {}
         self.handles = []
@@ -43,15 +53,20 @@ class Spans:
         setattr(self.api, name, wrapped)
 
     def _pre(self, module, args):
-        if isinstance(module, self.model_cls):
-            rec = torch.profiler.record_function(
-                "bench.net:" + "x".join(str(d) for d in args[0].shape))
-            rec.__enter__()
-            self._stack().append(rec)
+        if is_port_model(module):
+            stack = self._stack()
+            rec = None
+            if not stack:  # the outermost call opens the span
+                rec = torch.profiler.record_function(
+                    "bench.net:" + "x".join(str(d) for d in args[0].shape))
+                rec.__enter__()
+            stack.append(rec)
 
     def _post(self, module, args, out):
-        if isinstance(module, self.model_cls):
-            self._stack().pop().__exit__(None, None, None)
+        if is_port_model(module):
+            rec = self._stack().pop()
+            if rec is not None:
+                rec.__exit__(None, None, None)
 
     def install(self) -> None:
         for name in ("upscale_batch", "upscale_image"):

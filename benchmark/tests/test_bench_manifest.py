@@ -47,6 +47,13 @@ def test_configs():
         assert cfg["name"] == c["name"]
         assert (core.HERE / "reference" / f"{cfg['reference']}.py").is_file()
         assert all(NAME.match(k) for k in c["reduced"])
+        # weights: a checkpoint or a seeded init, exactly one; the init module exists
+        assert ("weights" in cfg) != ("init" in cfg) and "weights_sha256" in cfg
+        if "init" in cfg:
+            assert NAME.match(cfg["init"]) and isinstance(cfg["weights_seed"], int)
+            assert (core.HERE / "inits" / f"{cfg['init']}.py").is_file()
+        else:
+            assert (core.ROOT / cfg["weights"]).is_file()
 
 
 def test_workloads():

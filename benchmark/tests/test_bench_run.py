@@ -41,3 +41,16 @@ def test_unknown_workload():
                           "1", "--seconds", "1"], cwd=str(core.ROOT), capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 2 and out.stdout.strip() == ""
+
+
+def test_host_threads_set_before_torch():
+    """``run.py`` gives its process the benchmark's host threads before
+    torch is imported, so torch's pool takes them."""
+    code = ("import runpy; runpy.run_path('benchmark/run.py'); import os, torch, benchmark; "
+            "print(torch.get_num_threads(), os.environ['OMP_WAIT_POLICY'], "
+            "benchmark.HOST_THREADS['OMP_NUM_THREADS'])")
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(core.ROOT),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    n, policy, want = out.stdout.split()
+    assert (n, policy) == (want, "PASSIVE")
