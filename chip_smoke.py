@@ -40,7 +40,8 @@ of the six probes (``cnn_sr_tpu_torch.probes``). Phases, one line each:
    nine instances (the same, and the HGMMA of each, beside the plans at
    the RGB L2-L6 and 128 -> 64), ``conv_last_wgmma_kernel``'s ten (the
    same, beside the plans at RGB L7, f = 5 32 -> 1, f = 9 256 -> 1 and
-   f = 17 32 -> 8), ``fused_wgmma_kernel`` and
+   f = 17 32 -> 8), each beside its SAME twins (``entry.same_instances``:
+   one first, two middle, one last), ``fused_wgmma_kernel`` and
    ``wgmma_desc_probe_kernel`` (the same, the fused plan at the flagship,
    9-1-5 and RGB 3-layer stacks, and ptxas's injected ``warpgroup.arrive``
    count) and the HGMMA (``wgmma``) in the SASS of each, > 0; then the
@@ -94,6 +95,12 @@ of the six probes (``cnn_sr_tpu_torch.probes``). Phases, one line each:
    1080p requests of each checkpoint through ``api.upscale_image`` in
    bf16 (one fused bf16 or seven chain bf16 launches each, within ±1 or
    ±2 uint8 of the plain bf16 pipeline), for their latency and memory;
+   then ``[rrdb]`` (``rrdb_phase``): each SAME launch of the three wgmma
+   kernels at the Real-ESRGAN x4plus cell's shapes against
+   ``reference.same_layer``, and one bf16 ``api.upscale_batch`` of 8
+   540x960 frames through x4plus, its launches counted from 0 (351 SAME,
+   70 with residuals: first 1, wgmma 349, last 1) and its first frame
+   against the plain bf16 schedule;
 7. times (CUDA events, turns plain/kernel/kernel/plain) of each kernel in
    f32 and in bf16, its plain version and the library's convolutions (f32
    with TF32 off, or bf16 on channels-last tensors: cuDNN on the tensor
@@ -185,7 +192,9 @@ of the six probes (``cnn_sr_tpu_torch.probes``). Phases, one line each:
    with the share of the bound and packed / sep per pair.
 
 Then one JSON line of the twelve kernels (the shipped six also with their
-launches on the ``[parallel]`` path, ``parallel_launches``; the wgmma
+launches on the ``[parallel]`` path, ``parallel_launches``, and the three
+wgmma kernels with their SAME launches in ``[rrdb]``'s forward,
+``same_launches``; the wgmma
 stage's times are RGB L2 + ... + L6 at 1080p from ``[layers]``, the
 first-layer kernel's ``conv_first_wgmma`` row L1 and its launches, the
 last-layer kernel's ``conv_last_wgmma`` row L7 and its launches), the
@@ -230,6 +239,7 @@ C915 = os.path.join(ROOT, "configs", "srcnn_9-1-5.json")
 RGB7 = os.path.join(ROOT, "configs", "waifu2x_7layer_rgb_pretrained.json")
 ATOL = 1e-4
 BF16_REL = 2.0 ** -7
+RRDB_SENTINEL = 7.0  # what a SAME launch must leave in the channels it does not own
 SEED = 0
 # published peaks of one H100 SXM: f32 outside the tensor cores, bf16 on
 # the tensor cores (dense), HBM3
@@ -267,6 +277,7 @@ def reset_counts() -> None:
     entry.LAUNCHES = entry.LAUNCHES_BF16 = 0
     chain.LAUNCHES = chain.LAUNCHES_BF16 = chain.LAUNCHES_FIRST = 0
     chain.LAUNCHES_WGMMA = chain.LAUNCHES_LAST = 0
+    chain.LAUNCHES_SAME = chain.LAUNCHES_RESIDUAL = 0
 
 
 def counts():
@@ -607,18 +618,24 @@ def xpack_build(log: str) -> None:
     print("[build] xpack.cu ptxas remarks on wgmma: " + (" | ".join(remarks) or "none"))
 
 
+def same_of(kind: str) -> list:
+    """The SAME instances of one wgmma kernel (``entry.same_instances``),
+    without the kernel's name: ``kind`` "first", "wgmma" or "last"."""
+    return [inst[1:] for inst in entry.same_instances() if inst[0] == kind]
+
+
 def wgmma_build(log: str) -> None:
     """[build]: ``conv_layer_wgmma_kernel``'s instances (one each of
-    ``entry.wgmma_instances``: block columns, box lanes, slabs a warpgroup)
-    from ptxas: registers and spills (none allowed) of each, beside the
-    plans at the RGB model's L2-L6, at 128 -> 64 and at the widest f the
-    card tests take (dynamic shared bytes, the instance each takes); and
-    any ptxas remark on its ``wgmma`` (a serialised pipeline is named
-    there)."""
+    ``entry.wgmma_instances``: block columns, box lanes, slabs a warpgroup;
+    then the SAME twins of ``entry.same_instances``) from ptxas: registers
+    and spills (none allowed) of each, beside the plans at the RGB model's
+    L2-L6, at 128 -> 64 and at the widest f the card tests take (dynamic
+    shared bytes, the instance each takes); and any ptxas remark on its
+    ``wgmma`` (a serialised pipeline is named there)."""
     kernels = build.ptxas_entries(log, "conv_layer_wgmma_kernel")
-    want = entry.wgmma_instances()
-    check(len(kernels) == len(want), f"conv_wgmma.cu: {len(kernels)} kernel instances in the "
-          f"ptxas report, expected {len(want)}")
+    want = len(entry.wgmma_instances()) + len(same_of("wgmma"))  # VALID, then the SAME twins
+    check(len(kernels) == want, f"conv_wgmma.cu: {len(kernels)} kernel instances in the "
+          f"ptxas report, expected {want}")
     print("[build] conv_wgmma.cu (wgmma) instances (columns, lanes, slabs): "
           + ", ".join(f"{name} {regs} registers ({spill})" for name, regs, spill in kernels))
     for name, _, spill in kernels:
@@ -639,16 +656,16 @@ def wgmma_build(log: str) -> None:
 
 def first_build(log: str) -> None:
     """[build]: ``conv_first_wgmma_kernel``'s instances (one each of
-    ``entry.first_instances``: block columns, slabs a warpgroup) from
-    ptxas: registers and spills (none allowed) of each, beside the plans at
-    RGB L1, the flagship's and the wide 9-5-5's conv1, and ``[kernel]``'s
-    f = 9 over 4 channels into 256 (dynamic shared bytes, the instance each
-    takes); and any ptxas remark on its ``wgmma`` (a serialised pipeline is
-    named there)."""
+    ``entry.first_instances``: block columns, slabs a warpgroup; then the
+    SAME twin of ``entry.same_instances``) from ptxas: registers and spills
+    (none allowed) of each, beside the plans at RGB L1, the flagship's and
+    the wide 9-5-5's conv1, and ``[kernel]``'s f = 9 over 4 channels into
+    256 (dynamic shared bytes, the instance each takes); and any ptxas
+    remark on its ``wgmma`` (a serialised pipeline is named there)."""
     kernels = build.ptxas_entries(log, "conv_first_wgmma_kernel")
-    want = entry.first_instances()
-    check(len(kernels) == len(want), f"conv_first_wgmma.cu: {len(kernels)} kernel instances in "
-          f"the ptxas report, expected {len(want)}")
+    want = len(entry.first_instances()) + len(same_of("first"))  # VALID, then the SAME twins
+    check(len(kernels) == want, f"conv_first_wgmma.cu: {len(kernels)} kernel instances in "
+          f"the ptxas report, expected {want}")
     print("[build] conv_first_wgmma.cu (wgmma) instances (columns, slabs): "
           + ", ".join(f"{name} {regs} registers ({spill})" for name, regs, spill in kernels))
     for name, _, spill in kernels:
@@ -668,15 +685,15 @@ def first_build(log: str) -> None:
 
 def last_build(log: str) -> None:
     """[build]: ``conv_last_wgmma_kernel``'s instances (one each of
-    ``entry.last_instances``: packed columns, box lanes, slabs a warpgroup)
-    from ptxas: registers and spills (none allowed) of each, beside the
-    plans at RGB L7, the luma stacks' conv3 on the chain (f = 5 over 32
-    lanes), f = 9 over 256 channels (W streamed) and f = 17 at 8 outputs
-    (two dx groups)."""
+    ``entry.last_instances``: packed columns, box lanes, slabs a warpgroup;
+    then the SAME twin of ``entry.same_instances``) from ptxas: registers
+    and spills (none allowed) of each, beside the plans at RGB L7, the luma
+    stacks' conv3 on the chain (f = 5 over 32 lanes), f = 9 over 256
+    channels (W streamed) and f = 17 at 8 outputs (two dx groups)."""
     kernels = build.ptxas_entries(log, "conv_last_wgmma_kernel")
-    want = entry.last_instances()
-    check(len(kernels) == len(want), f"conv_last_wgmma.cu: {len(kernels)} kernel instances in "
-          f"the ptxas report, expected {len(want)}")
+    want = len(entry.last_instances()) + len(same_of("last"))  # VALID, then the SAME twins
+    check(len(kernels) == want, f"conv_last_wgmma.cu: {len(kernels)} kernel instances in "
+          f"the ptxas report, expected {want}")
     print("[build] conv_last_wgmma.cu (wgmma) instances (columns, lanes, slabs): "
           + ", ".join(f"{name} {regs} registers ({spill})" for name, regs, spill in kernels))
     for name, _, spill in kernels:
@@ -756,6 +773,7 @@ def sass_hmma() -> tuple:
     ``conv_layer_forward_wgmma``'s nine
     instances (block columns / box lanes / slabs a warpgroup), each of
     ``conv_last_forward_wgmma``'s ten (packed columns / box lanes / slabs),
+    and of their SAME twins (``conv_*_forward_wgmma_same``, one key each),
     ``fused_srcnn_forward_bf16``'s (all three of its layers) and in each of
     ``tap_gemm_bf16``'s six instances (N = 32, 64, 128, resident or through
     the ring): the proof that they run on the tensor cores.
@@ -769,14 +787,18 @@ def sass_hmma() -> tuple:
               "wino5_w55f_kernel": ["wino5_forward", "wino5_forward w55f"]}
     counts = {name: 0 for names in kernel.values() for name in names}
     wgmma = {"rowpair_kernel": "rowpair_gemm",
-             **{f"conv_first_wgmma_kernelILi{bn}ELi{s}E": f"conv_first_forward_wgmma {bn}/{s}"
-                for bn, s in entry.first_instances()},
-             **{f"conv_layer_wgmma_kernelILi{bn}ELi{lanes}ELi{s}E":
-                f"conv_layer_forward_wgmma {bn}/{lanes}/{s}"
-                for bn, lanes, s in entry.wgmma_instances()},
-             **{f"conv_last_wgmma_kernelILi{npad}ELi{lanes}ELi{s}E":
-                f"conv_last_forward_wgmma {npad}/{lanes}/{s}"
-                for npad, lanes, s in entry.last_instances()},
+             **{f"conv_first_wgmma_kernelILi{bn}ELi{s}ELb{same:d}E":
+                f"conv_first_forward_wgmma{'_same' * same} {bn}/{s}"
+                for same, insts in ((False, entry.first_instances()), (True, same_of("first")))
+                for bn, s in insts},
+             **{f"conv_layer_wgmma_kernelILi{bn}ELi{lanes}ELi{s}ELb{same:d}E":
+                f"conv_layer_forward_wgmma{'_same' * same} {bn}/{lanes}/{s}"
+                for same, insts in ((False, entry.wgmma_instances()), (True, same_of("wgmma")))
+                for bn, lanes, s in insts},
+             **{f"conv_last_wgmma_kernelILi{npad}ELi{lanes}ELi{s}ELb{same:d}E":
+                f"conv_last_forward_wgmma{'_same' * same} {npad}/{lanes}/{s}"
+                for same, insts in ((False, entry.last_instances()), (True, same_of("last")))
+                for npad, lanes, s in insts},
              "fused_wgmma_kernel": "fused_srcnn_forward_bf16",
              **{f"tap_gemm_kernelILi{n}ELb{ring}E": f"tap_gemm_bf16 N={n} "
                 + ("ring" if ring else "resident") for n in (32, 64, 128) for ring in (0, 1)}}
@@ -2244,6 +2266,163 @@ def tools_phase(smi, work) -> None:
     print(f"[tools] phase {time.perf_counter() - t_phase:.1f} s")
 
 
+def same_close(name, got, want, sentinel=None) -> float:
+    """``got`` within 2^-7 of ``want``'s largest magnitude (the same bf16
+    products in f32, summed in another order), finite, ``want`` not all
+    zero, and every value of ``sentinel`` (the channels the launch does not
+    own) still ``RRDB_SENTINEL``. Returns the relative error."""
+    check(got.shape == want.shape, f"{name}: shape {tuple(got.shape)} vs {tuple(want.shape)}")
+    check(bool(torch.isfinite(got).all()), f"{name}: non-finite output")
+    err, scale = float((got.float() - want).abs().max()), float(want.abs().max())
+    check(scale > 0, f"{name}: the plain version is all zero")
+    check(err <= BF16_REL * scale, f"{name}: err {err} > 2^-7 x output scale {scale}")
+    if sentinel is not None:
+        check(bool((sentinel == RRDB_SENTINEL).all()), f"{name}: wrote outside its channels")
+    return err / scale
+
+
+def rrdb_phase(smi, dev) -> dict:
+    """[rrdb]: the SAME launches of the three wgmma kernels
+    (``chain.same_forward``, ``entry.same_instances``) at the shapes of the
+    benchmark's Real-ESRGAN x4plus cell (8 frames of 540x960 in, 2160x3840
+    out), each held against ``reference.same_layer`` in bf16 on the card
+    within 2^-7 of the output's magnitude (``same_close``): conv_first (RGB
+    in 0..1 as its 0..255 levels, no activation) into the first 64 channels
+    of a 192-channel buffer; the dense block's conv1-4 (channel prefixes K
+    64, 96, 128, 160, LeakyReLU, each into the n = 32 slice after its
+    input) and conv5 (K 192 into another buffer's first 64 channels with
+    two scaled f32 residuals, its f32 copy written over the second in
+    place); conv_body's residual of scale 1; a head conv (64 -> 64,
+    LeakyReLU) at 2 x 2160x3840; conv_last (64 -> 3, f32 out) at 8 x
+    2160x3840; the channels outside each launch's slice untouched. Then
+    one bf16 ``api.upscale_batch`` of 8 540x960 frames through x4plus (the
+    benchmark's seeded init) with the counters set to 0 just before: 351
+    SAME launches, 70 with residuals, first 1 / wgmma 349 / last 1; the
+    answers (8, 2160, 3840, 3) uint8; the first frame against the plain bf16
+    schedule on the card (``rrdb``'s plain version) within the cell's
+    limits (mean gap 1.5 levels, widest 16, share off by two or more 0.1).
+    Returns the forward's launches of each kernel."""
+    from benchmark.inits import rrdbnet_basicsr
+    from cnn_sr_tpu_torch.ops.fused import rrdb
+    from cnn_sr_tpu_torch.utils.config import parse_config
+
+    lib = build.load_library()
+    stream = torch.cuda.current_stream().cuda_stream
+    rng = np.random.default_rng(SEED + 29)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 29)
+    n, h, w = 8, 540, 960
+
+    def rand(*shape, normal=False):  # seeded, made on the card
+        make = torch.randn if normal else torch.rand
+        return make(shape, generator=gen, device=dev)
+
+    def weights(f, k, nn):
+        return (torch.from_numpy((rng.standard_normal((f, f, k, nn)) * (2 / (f * f * k)) ** 0.5)
+                                 .astype(np.float32)).to(dev),
+                torch.from_numpy((rng.standard_normal(nn) * 0.05).astype(np.float32)).to(dev))
+
+    def launch(src, k, wt, bt, dst, c0, lrelu=False, residuals=(), out32=None, first=False,
+               last=False):
+        plan = entry.bf16_layer_plan(3, k, wt.shape[3], first=first, last=last)
+        wp, bp = (entry.pack_last(wt, bt, plan) if last
+                  else entry.pack_bf16(wt, bt, first, 255 if first else 127))
+        chain.same_forward(lib, src, k, wp, bp, dst, c0, plan, lrelu, residuals, out32, stream)
+
+    errs = {}
+    reset_counts()
+    x = torch.floor(rand(n, h, w, 3) * 256.0) / 255.0  # each value a 0..255 level
+    buf = torch.full((n, h, w, 192), RRDB_SENTINEL, dtype=torch.bfloat16, device=dev)
+    wt, bt = weights(3, 3, 64)
+    launch(x, 3, wt, bt, buf, 0, first=True)
+    want, _ = reference.same_layer(x, wt, bt, False, first=True)
+    errs["conv_first 3->64"] = same_close("conv_first", buf[..., :64], want, buf[..., 64:])
+    del x, want
+    for i, k in enumerate((64, 96, 128, 160)):
+        wt, bt = weights(3, k, 32)
+        launch(buf, k, wt, bt, buf, k, lrelu=True)
+        want, _ = reference.same_layer(buf[..., :k].float(), wt, bt, True)
+        errs[f"conv{i + 1} {k}->32"] = same_close(f"conv{i + 1}", buf[..., k:k + 32], want,
+                                                  buf[..., k + 32:])
+        del want
+    r0, r1 = rand(n, h, w, 64, normal=True), rand(n, h, w, 64, normal=True)
+    wt, bt = weights(3, 192, 64)
+    want, want32 = reference.same_layer(buf.float(), wt, bt, False, [(r0, 0.2), (r1, 0.2)])
+    out = torch.full((n, h, w, 192), RRDB_SENTINEL, dtype=torch.bfloat16, device=dev)
+    launch(buf, 192, wt, bt, out, 0, residuals=[(r0, 0.2), (r1, 0.2)], out32=r1)
+    errs["conv5 192->64, two residuals"] = same_close("conv5", out[..., :64], want, out[..., 64:])
+    errs["conv5's f32 copy"] = same_close("conv5 f32 copy", r1, want32)
+    del want, want32, r1
+    wt, bt = weights(3, 64, 64)
+    out.fill_(RRDB_SENTINEL)
+    launch(buf, 64, wt, bt, out, 0, residuals=[(r0, 1.0)])
+    want, _ = reference.same_layer(buf[..., :64].float(), wt, bt, False, [(r0, 1.0)])
+    errs["conv_body 64->64, residual"] = same_close("conv_body", out[..., :64], want,
+                                                    out[..., 64:])
+    del buf, out, r0, want
+    hr = rand(2, 4 * h, 4 * w, 64).to(torch.bfloat16)
+    y = torch.empty_like(hr)
+    launch(hr, 64, wt, bt, y, 0, lrelu=True)
+    want, _ = reference.same_layer(hr.float(), wt, bt, True)
+    errs["head 64->64 at 2160x3840"] = same_close("head conv", y, want)
+    del hr, y, want
+    hr = rand(n, 4 * h, 4 * w, 64).to(torch.bfloat16)
+    wt, bt = weights(3, 64, 3)
+    y = torch.empty((n, 4 * h, 4 * w, 3), dtype=torch.float32, device=dev)
+    launch(hr, 64, wt, bt, y, 0, last=True)
+    want, _ = reference.same_layer(hr.float(), wt, bt, False, last=True)
+    errs["conv_last 64->3 at 2160x3840"] = same_close("conv_last", y, want)
+    del hr, y, want
+    torch.cuda.synchronize()
+    seen = (chain.LAUNCHES_SAME, chain.LAUNCHES_RESIDUAL, chain.LAUNCHES_FIRST,
+            chain.LAUNCHES_WGMMA, chain.LAUNCHES_LAST)
+    check(seen == (9, 2, 1, 7, 1), f"the SAME launches (same, residual, first, wgmma, last) "
+          f"{seen}, expected (9, 2, 1, 7, 1)")
+    print(f"[rrdb] {smi} | SAME launches against reference.same_layer (bf16), 8 x 540x960 in: "
+          + ", ".join(f"{k} rel {v:.3e}" for k, v in errs.items()))
+    torch.cuda.empty_cache()
+
+    cfg = parse_config({"arch": "rrdbnet", "channels": 3, "scale": 4, "num_feat": 64,
+                        "num_grow_ch": 32, "num_block": 23})
+    params = [{"w": torch.from_numpy(wa).to(dev), "b": torch.from_numpy(ba).to(dev)}
+              for wa, ba in rrdbnet_basicsr.make(cfg.layers(), SEED + 29)]
+    rgbas = np.stack([make_image(h, w, SEED + 30 + i) for i in range(n)])
+    api.upscale_batch(cfg, params, rgbas[:1, :64, :64], "bf16")  # builds the packed weights
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    got = api.upscale_batch(cfg, params, rgbas, "bf16")
+    ms = (time.perf_counter() - t0) * 1e3
+    made = {"same": chain.LAUNCHES_SAME, "residual": chain.LAUNCHES_RESIDUAL,
+            "first": chain.LAUNCHES_FIRST, "wgmma": chain.LAUNCHES_WGMMA,
+            "last": chain.LAUNCHES_LAST, "bf16": chain.LAUNCHES_BF16,
+            "other": entry.LAUNCHES + chain.LAUNCHES + entry.LAUNCHES_BF16}
+    check(made == {"same": 351, "residual": 70, "first": 1, "wgmma": 349, "last": 1,
+                   "bf16": 351, "other": 0}, f"x4plus forward: launches {made}")
+    check(got.shape == (n, 4 * h, 4 * w, 3) and got.dtype == np.uint8,
+          f"x4plus: answers {got.shape} {got.dtype}")
+    peak = torch.cuda.max_memory_allocated()
+    x = torch.from_numpy(rgbas[:1, ..., :3].astype(np.float32) / 255.0).to(dev)
+    plain = rrdb._schedule(rrdb._plain_conv(params, "bf16"), rrdb._plain_alloc(x), x,
+                           rrdb.layout(params))
+    plain = torch.round(torch.clamp(plain, 0.0, 1.0) * 255.0).to(torch.uint8)[0].cpu().numpy()
+    gap = np.abs(got[0].astype(np.int16) - plain.astype(np.int16))
+    mean_gap, max_gap, over_1 = float(gap.mean()), int(gap.max()), float((gap >= 2).mean())
+    check(mean_gap <= 1.5 and max_gap <= 16 and over_1 <= 0.1,
+          f"x4plus vs the plain bf16 schedule: mean {mean_gap}, max {max_gap}, "
+          f"share off by 2 or more {over_1}")
+    inside = float(((got > 0) & (got < 255)).mean())
+    print(f"[rrdb] {smi} | x4plus bf16 upscale_batch 8 x 540x960 -> 2160x3840: {ms:.1f} ms "
+          f"({n * 16 * h * w / ms / 1e3:.1f} MPix/s out, first call after a warm-up), "
+          f"peak device memory {peak / 2**30:.2f} GiB | launches {made} | frame 0 vs the plain "
+          f"bf16 schedule: mean {mean_gap:.4f}, max {max_gap}, share off by 2 or more "
+          f"{over_1:.3e} | values inside 1..254 {inside:.3f}")
+    del params, got, x, plain
+    torch.cuda.empty_cache()
+    return made
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on an NVIDIA card",
@@ -2403,6 +2582,8 @@ def main() -> int:
                   lambda x: reference.fused_forward(params_rgb, x, "bf16"), img,
                   add_mean=cfg_rgb.zero_mean_target),
               (0, 0, 0, 7, 1, 5, 1), smi, "bf16", tol=2)
+    # Real-ESRGAN x4plus: the SAME launches at its cell's shapes, then a batch
+    same_counts = rrdb_phase(smi, dev)
 
     # each kernel at its main path's 1080p input
     from cnn_sr_tpu_torch.ops.color import extract_luma, subtract_mean
@@ -2439,9 +2620,11 @@ def main() -> int:
     chain_bf16_errs += [t_chain_bf16["err"], t_layers["first"]["err"]]
     rgb_bf16 = parallel_counts["RGB bf16"]
 
-    def row(name, source, replaces, launches, errs, t, parallel=None):
+    def row(name, source, replaces, launches, errs, t, parallel=None, same=None):
         check(launches > 0, f"{name}: no launch on its main path")
         extra = {} if parallel is None else {"parallel_launches": parallel}
+        if same is not None:
+            extra["same_launches"] = same
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches, **extra, "max_abs_err": max(errs), "ms": t["ms"],
                 "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
@@ -2463,16 +2646,16 @@ def main() -> int:
         # (cuDNN bf16) and bound) and its launches
         row("conv_first_wgmma", "cnn_sr_tpu_torch/csrc/conv_first_wgmma.cu",
             "cnn_sr_tpu/ops/pallas_fused/plane.py:23", serve_counts[4], chain_bf16_errs,
-            t_layers["first"], rgb_bf16[4]),
+            t_layers["first"], rgb_bf16[4], same_counts["first"]),
         # every middle layer: RGB L2 + L3 + L4 + L5 + L6 at 1080p, ms, plain
         # (tap_layer), library (cuDNN bf16) and bound summed over the five
         row("conv_layer_wgmma", "cnn_sr_tpu_torch/csrc/conv_wgmma.cu",
             "cnn_sr_tpu/ops/pallas_fused/kernel.py:499", serve_counts[5],
-            [t_layers["wgmma"]["err"]], t_layers["wgmma"], rgb_bf16[5]),
+            [t_layers["wgmma"]["err"]], t_layers["wgmma"], rgb_bf16[5], same_counts["wgmma"]),
         # the last layer: RGB L7 at 1080p
         row("conv_last_wgmma", "cnn_sr_tpu_torch/csrc/conv_last_wgmma.cu",
             "cnn_sr_tpu/ops/pallas_fused/kernel.py:585", serve_counts[6],
-            [t_layers["last"]["err"]], t_layers["last"], rgb_bf16[6]),
+            [t_layers["last"]["err"]], t_layers["last"], rgb_bf16[6], same_counts["last"]),
         *(row(r["name"], r["source"], r["replaces"], r["launches"], [r["err"]], r)
           for r in probe_rows),
     ]}))

@@ -17,6 +17,13 @@ gives its XLA f32 forward) runs the conv stack in f32; ``"bf16"`` runs
 the bf16 stream with the int8 first layer, the counterpart of
 ``use_pallas=True`` with its default precision.
 
+A SAME model (``cfg.same``; the arch "rrdbnet": Real-ESRGAN x4plus, ``RRDBNet``)
+takes the low-resolution image and returns it four times as wide and tall,
+as Real-ESRGAN's ``RealESRGANer`` does: RGB/255 in f32, no mean, the net,
+then clamp to 0..1, ×255 and round (``_upscale_x4_batch``); only
+``upscale_batch`` and ``upscale_image`` without buckets take it, in bf16 on
+a card (f32 on the CPU too).
+
 Each public call is one ``profiling.span`` named after it
 (``api.upscale_batch``, ``api.upscale_image``, ``api.upscale_image_spatial``)
 around spans of its parts: ``api.upload``, ``api.pixels`` (the colour,
@@ -32,6 +39,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from .models.rrdbnet import RRDBNet
 from .models.srcnn import SRCNN
 from .ops.color import extract_luma, subtract_mean, swap_luma, swap_rgb
 from .profiling import span
@@ -96,6 +104,35 @@ def _upscale_rgb(net: Net, rgba: torch.Tensor, add_mean: bool) -> torch.Tensor:
     return _upscale_rgb_batch(net, rgba[None], add_mean)[0]
 
 
+def _upscale_x4_batch(net: Net, rgbas: torch.Tensor) -> list[torch.Tensor]:
+    """uint8 RGBA (S, h, w, 4) → S uint8 RGB (4h, 4w, 3) through a SAME
+    model ``net``, a function from (S, h, w, 3) to (S, 4h, 4w, 3), called
+    once: RealESRGANer's pipeline, RGB/255 in f32 with no mean, then the
+    output clamped to 0..1, ×255 and rounded (half to even). The alpha
+    channel is dropped."""
+    with span("api.pixels"):
+        x = rgbas[..., :3].to(torch.float32).contiguous() / 255.0
+    ys = net(x)
+    del x  # free it before the output's own pass
+    with span("api.pixels"):
+        out = torch.round(torch.clamp(ys, 0.0, 1.0) * 255.0).to(torch.uint8)
+    return list(out.unbind(0))
+
+
+def _model(cfg: Config, params, precision: str):
+    """The config's inference model over ``params``: ``RRDBNet`` for a SAME
+    model (``cfg.same``: the arch "rrdbnet"), else ``SRCNN``."""
+    return RRDBNet(params, precision) if cfg.same else SRCNN(params, precision)
+
+
+def _valid_only(cfg: Config, what: str) -> None:
+    """A SAME model on a path whose equal-to-exact guarantee needs VALID
+    convolutions (buckets, bands): ValueError (ROADMAP #C5)."""
+    if cfg.same:
+        raise ValueError(f"{what} needs VALID convolutions; a {cfg.arch} model takes only "
+                         "upscale_batch and upscale_image without buckets (ROADMAP #C5)")
+
+
 def _pad_edge(img: torch.Tensor, hp: int, wp: int) -> torch.Tensor:
     """(H, W, C) → (hp, wp, C), the last row and column repeated
     (``np.pad(mode="edge")``)."""
@@ -147,6 +184,11 @@ def _upscale_bucketed(cfg: Config, net: Net, rgba: torch.Tensor, bucket: int) ->
 
 
 def _check_size(cfg: Config, h: int, w: int, what: str) -> None:
+    if cfg.same:  # SAME convolutions: any image of at least 1 px
+        if h < 1 or w < 1:
+            raise ValueError(f"{what} {w}x{h} {'is' if what == 'image' else 'are'} smaller "
+                             "than 1 px")
+        return
     shrink = cfg.total_padding()
     if h <= shrink or w <= shrink:
         raise ValueError(
@@ -233,14 +275,19 @@ def upscale_image(cfg: Config, params, rgba: np.ndarray, bucket: int = 0,
     ``bucket`` > 0 runs the net on the image edge-padded to multiples of
     ``bucket`` (the JAX package's compile-reuse buckets; the results
     match the exact path). ``precision``: "f32" or "bf16" (the module's
-    docstring).
+    docstring). A SAME model returns uint8 RGB four times as wide and tall
+    (``_upscale_x4_batch``) and takes no ``bucket``.
     """
+    if bucket > 0:
+        _valid_only(cfg, "upscale_image with a bucket")
     with span("api.upscale_image"):
         with span("api.upload"):
             _check_size(cfg, rgba.shape[0], rgba.shape[1], "image")
             img = _upload(params, rgba)
-        net = SRCNN(params, precision)
-        if bucket > 0:
+        net = _model(cfg, params, precision)
+        if cfg.same:
+            out = _upscale_x4_batch(net, img[None])[0]
+        elif bucket > 0:
             out = _upscale_bucketed(cfg, net, img, bucket)
         elif cfg.channels == 3:
             out = _upscale_rgb(net, img, add_mean=cfg.zero_mean_target)
@@ -256,15 +303,18 @@ def upscale_batch(cfg: Config, params, rgbas: np.ndarray,
     """Batched upscaling of same-sized uint8 RGBA images (S, H, W, 4) →
     uint8 RGB (S, H, W, 3): one upload, one conv-stack call over the
     batch (one fused launch, or one chain launch per layer), one
-    readback. Each image's output equals ``upscale_image``'s."""
+    readback. Each image's output equals ``upscale_image``'s. A SAME model
+    returns (S, 4H, 4W, 3) (``_upscale_x4_batch``)."""
     if rgbas.ndim != 4 or rgbas.shape[0] == 0:
         raise ValueError(f"rgbas must be (S, H, W, 4), got shape {rgbas.shape}")
     with span("api.upscale_batch"):
         with span("api.upload"):
             _check_size(cfg, rgbas.shape[1], rgbas.shape[2], "images")
             imgs = _upload(params, rgbas)
-        net = SRCNN(params, precision)
-        if cfg.channels == 3:
+        net = _model(cfg, params, precision)
+        if cfg.same:
+            outs = _upscale_x4_batch(net, imgs)
+        elif cfg.channels == 3:
             outs = _upscale_rgb_batch(net, imgs, add_mean=cfg.zero_mean_target)
         else:
             outs = _upscale_luma_batch(net, imgs, add_mean=cfg.zero_mean_target,
@@ -294,6 +344,7 @@ def upscale_image_spatial(cfg: Config, params, rgba: np.ndarray, n_shards: int,
     from .parallel.mesh import available_devices, make_mesh
     from .parallel.spatial import sharded_forward
 
+    _valid_only(cfg, "upscale_image_spatial")
     if devices is None:
         devices = available_devices(params[0]["w"].device.type)
     if n_shards > len(devices):

@@ -74,6 +74,14 @@
 // takes the kernel's parts out one at a time: each is a share of the time,
 // none is most of it; PERF.md).
 //
+// One instance has a SAME twin (kSame; conv_first_forward_wgmma_same): the
+// plan of Real-ESRGAN x4plus's conv_first (ops/fused/rrdb.py; 64 columns,
+// one slab; entry.same_instances). The raw window starts (f - 1) / 2 up and
+// left of the tile, zeros outside the image landed 4 bytes a copy; the RGB
+// input in 0..1 is quantised to its 0..255 levels (the 1/255 folded into
+// w); the output is a channel slice of a wider buffer; the epilogue is the
+// bias alone, no activation (basicsr's conv_first).
+//
 // Measured: PERF.md (the kernel table, chip_smoke.py [layers]).
 
 #include <cuda_bf16.h>
@@ -105,14 +113,20 @@ __device__ __forceinline__ void cp_async16_n(void* dst, const void* src, int byt
                "r"(bytes));
 }
 
-// the int8 plane's integer of x (ties to even, as jnp.round), exact in bf16
+// the int8 plane's integer of x (ties to even, as jnp.round), exact in bf16;
+// kLevels (the SAME models' RGB input in 0..1): its 0..255 level, which the
+// integer also is, exact in bf16
+template <bool kLevels>
 __device__ __forceinline__ float quantize(float v) {
-  return rintf(fminf(fmaxf(v, -1.f), 1.f) * 127.f);
+  return rintf(fminf(fmaxf(v, -1.f), 1.f) * (kLevels ? 255.f : 127.f));
 }
 
 // tw: w as (npad, kx, f), box (BN's lanes, 16, 1); to: y as (n, OW, OH, N),
-// box (BN's lanes, cols, S 64 / cols, 1)
-template <int BN, int S>
+// box (BN's lanes, cols, S 64 / cols, 1). kSame: the layer of a SAME model,
+// SAME-padded (the raw pixels (f - 1) / 2 up and left of the tile's output
+// corner, zeros outside the image), its input quantised to 0..255 levels and
+// its epilogue the bias alone; else VALID, the int8 plane, bias and ReLU
+template <int BN, int S, bool kSame>
 __global__ void __launch_bounds__(kFirstThreads, 1)
     conv_first_wgmma_kernel(const __grid_constant__ FirstPlan p, const float* __restrict__ x,
                             const float* __restrict__ b, int H, int W, int items, int tiles_x,
@@ -180,23 +194,41 @@ __global__ void __launch_bounds__(kFirstThreads, 1)
     for (int i = blockIdx.x; i < items; i += gridDim.x) {
       const int ox0 = i % tiles_x * p.cols, oy0 = i / tiles_x % tiles_y * p.tile_rows;
       const int img = i / tiles_x / tiles_y;
-      const int in_row = (W - ox0) * p.k;  // floats of a raw row inside the image
       mbar_wait_or_trap(raw_empty + rr.stage, rr.phase ^ 1);
       float* dst = reinterpret_cast<float*>(raw + rr.stage * p.raw_bytes);
-      // rows inside the image, then rows past it (zeros); 16 bytes a copy
-      // where every row starts on 16 bytes, else 4
-      const int rows_in = min(p.win_rows, H - oy0);
-      const float* src = x + ((static_cast<size_t>(img) * H + oy0) * W + ox0) * p.k;
-      const bool vec = reinterpret_cast<std::uintptr_t>(src) % 16 == 0 && W * p.k % 4 == 0;
-      for (int r = 0; r < p.win_rows; ++r, dst += row_stride, src += W * p.k) {
-        const int in = r < rows_in ? in_row : 0;  // floats of the row to copy
-        if (vec)
-          for (int j = 4 * lane; j < row_floats; j += 128) {
-            const int bytes = 4 * max(0, min(4, in - j));
-            cp_async16_n(dst + j, bytes ? src + j : x, bytes);
+      if constexpr (kSame) {
+        // the window's corner (f - 1) / 2 up and left of the tile's: the
+        // floats of each row from lo to hi lie inside the image, rows above
+        // and below it and the rest are zeros; 4 bytes a copy
+        const int iy0 = oy0 - p.f / 2, ix0 = ox0 - p.f / 2;
+        const int lo = max(0, -ix0) * p.k, hi = (W - ix0) * p.k;
+        for (int r = 0; r < p.win_rows; ++r, dst += row_stride) {
+          const int iy = iy0 + r;
+          const bool row_in = iy >= 0 && iy < H;
+          const long long at = ((static_cast<long long>(img) * H + iy) * W + ix0) * p.k;
+          for (int j = lane; j < row_floats; j += 32) {
+            const bool ok = row_in && j >= lo && j < hi;
+            cp_async4(dst + j, ok ? x + at + j : x, ok);
           }
-        else
-          for (int j = lane; j < row_floats; j += 32) cp_async4(dst + j, j < in ? src + j : x, j < in);
+        }
+      } else {
+        // rows inside the image, then rows past it (zeros); 16 bytes a copy
+        // where every row starts on 16 bytes, else 4
+        const int in_row = (W - ox0) * p.k;  // floats of a raw row inside the image
+        const int rows_in = min(p.win_rows, H - oy0);
+        const float* src = x + ((static_cast<size_t>(img) * H + oy0) * W + ox0) * p.k;
+        const bool vec = reinterpret_cast<std::uintptr_t>(src) % 16 == 0 && W * p.k % 4 == 0;
+        for (int r = 0; r < p.win_rows; ++r, dst += row_stride, src += W * p.k) {
+          const int in = r < rows_in ? in_row : 0;  // floats of the row to copy
+          if (vec)
+            for (int j = 4 * lane; j < row_floats; j += 128) {
+              const int bytes = 4 * max(0, min(4, in - j));
+              cp_async16_n(dst + j, bytes ? src + j : x, bytes);
+            }
+          else
+            for (int j = lane; j < row_floats; j += 32)
+              cp_async4(dst + j, j < in ? src + j : x, j < in);
+        }
       }
       cp_async_mbar_arrive(raw_full + rr.stage);
       rr.next(p.raw_ring);
@@ -264,8 +296,8 @@ __global__ void __launch_bounds__(kFirstThreads, 1)
         unsigned v[4];
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const float lo = l0 + 2 * e < fc ? quantize(src[l0 + 2 * e]) : 0.f;
-          const float hi = l0 + 2 * e + 1 < fc ? quantize(src[l0 + 2 * e + 1]) : 0.f;
+          const float lo = l0 + 2 * e < fc ? quantize<kSame>(src[l0 + 2 * e]) : 0.f;
+          const float hi = l0 + 2 * e + 1 < fc ? quantize<kSame>(src[l0 + 2 * e + 1]) : 0.f;
           const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
           v[e] = *reinterpret_cast<const unsigned*>(&h);
         }
@@ -366,10 +398,17 @@ __global__ void __launch_bounds__(kFirstThreads, 1)
 #pragma unroll
         for (int s = 0; s < S; ++s) {
           const int r = s * kWgSlab + rr0;
-          *reinterpret_cast<unsigned*>(blk + swz<C::kRow>(r, c)) =
-              bias_relu_bf16x2(acc[s][4 * c8], acc[s][4 * c8 + 1], b0, b1);
-          *reinterpret_cast<unsigned*>(blk + swz<C::kRow>(r + 8, c)) =
-              bias_relu_bf16x2(acc[s][4 * c8 + 2], acc[s][4 * c8 + 3], b0, b1);
+          if constexpr (kSame) {
+            *reinterpret_cast<unsigned*>(blk + swz<C::kRow>(r, c)) =
+                bias_bf16x2(acc[s][4 * c8], acc[s][4 * c8 + 1], b0, b1);
+            *reinterpret_cast<unsigned*>(blk + swz<C::kRow>(r + 8, c)) =
+                bias_bf16x2(acc[s][4 * c8 + 2], acc[s][4 * c8 + 3], b0, b1);
+          } else {
+            *reinterpret_cast<unsigned*>(blk + swz<C::kRow>(r, c)) =
+                bias_relu_bf16x2(acc[s][4 * c8], acc[s][4 * c8 + 1], b0, b1);
+            *reinterpret_cast<unsigned*>(blk + swz<C::kRow>(r + 8, c)) =
+                bias_relu_bf16x2(acc[s][4 * c8 + 2], acc[s][4 * c8 + 3], b0, b1);
+          }
         }
       }
       fence_proxy_async();
@@ -390,19 +429,19 @@ __global__ void __launch_bounds__(kFirstThreads, 1)
   if (tid == 0) bulk_wait_read<0>();  // the stores have read the staging
 }
 
-template <int BN, int S>
+template <int BN, int S, bool kSame>
 int launch(const FirstPlan& p, const void* x, const void* w, const float* b, void* y, int N,
-           int H, int W, int smem_bytes, cudaStream_t stream) {
+           int H, int W, int ys, int smem_bytes, cudaStream_t stream) {
   const int bad = static_cast<int>(cudaErrorInvalidValue);
   using C = Cols<BN>;
-  const int OH = H - p.f + 1, OW = W - p.f + 1;
+  const int OH = kSame ? H : H - p.f + 1, OW = kSame ? W : W - p.f + 1;
   const cuuint64_t wdims[3] = {static_cast<cuuint64_t>(p.npad), static_cast<cuuint64_t>(p.kx),
                                static_cast<cuuint64_t>(p.f)};
   const cuuint64_t wstrides[2] = {2ull * p.npad, 2ull * p.npad * p.kx};
   const cuuint32_t wbox[3] = {C::kLanes, 16, 1};
   const cuuint64_t odims[4] = {static_cast<cuuint64_t>(p.n), static_cast<cuuint64_t>(OW),
                                static_cast<cuuint64_t>(OH), static_cast<cuuint64_t>(N)};
-  const cuuint64_t ostrides[3] = {2ull * p.n, 2ull * p.n * OW, 2ull * p.n * OW * OH};
+  const cuuint64_t ostrides[3] = {2ull * ys, 2ull * ys * OW, 2ull * ys * OW * OH};
   const cuuint32_t obox[4] = {C::kLanes, static_cast<cuuint32_t>(p.cols),
                               static_cast<cuuint32_t>(S * kWgSlab / p.cols), 1};
   CUtensorMap tw, to;
@@ -417,7 +456,7 @@ int launch(const FirstPlan& p, const void* x, const void* w, const float* b, voi
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return static_cast<int>(err);
-  auto kernel = conv_first_wgmma_kernel<BN, S>;
+  auto kernel = conv_first_wgmma_kernel<BN, S, kSame>;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int grid = static_cast<int>(items < sms ? items : sms);  // one block an SM
@@ -433,11 +472,13 @@ int launch_bn(const FirstPlan& p, const void* x, const void* w, const float* b, 
               int H, int W, int smem_bytes, cudaStream_t s) {
   constexpr int S = BN <= 32 ? 2 : 1;
   if constexpr (S == 1)
-    return launch<BN, 1>(p, x, w, b, y, N, H, W, smem_bytes, s);
+    return launch<BN, 1, false>(p, x, w, b, y, N, H, W, p.n, smem_bytes, s);
   else
-    return p.slabs == S ? launch<BN, S>(p, x, w, b, y, N, H, W, smem_bytes, s)
-                        : launch<BN, 1>(p, x, w, b, y, N, H, W, smem_bytes, s);
+    return p.slabs == S ? launch<BN, S, false>(p, x, w, b, y, N, H, W, p.n, smem_bytes, s)
+                        : launch<BN, 1, false>(p, x, w, b, y, N, H, W, p.n, smem_bytes, s);
 }
+
+bool misaligned(const void* q) { return reinterpret_cast<std::uintptr_t>(q) % 16; }
 
 }  // namespace
 
@@ -453,7 +494,6 @@ extern "C" int conv_first_forward_wgmma(const void* x, const void* w, const floa
                                         int N, int H, int W, int c, int f, int n,
                                         int smem_bytes, void* stream) {
   const int bad = static_cast<int>(cudaErrorInvalidValue);
-  const auto misaligned = [](const void* q) { return reinterpret_cast<std::uintptr_t>(q) % 16; };
   FirstPlan p;
   if (N <= 0 || N > 65535 || H < f || W < f || first_plan(p, f, c, n) ||
       smem_bytes < p.smem || misaligned(x) || misaligned(w) || misaligned(b) || misaligned(y))
@@ -469,4 +509,25 @@ extern "C" int conv_first_forward_wgmma(const void* x, const void* w, const floa
     default:
       return launch_bn<64>(p, x, w, b, y, N, H, W, smem_bytes, s);
   }
+}
+
+// The first layer of a SAME model (ops/fused/rrdb.py): y (N, H, W, n) bf16,
+// n channels of a buffer of ys channels a pixel from the pointer y (a
+// channel slice), from x (N, H, W, c) f32 in 0..1, SAME-padded, each value
+// taken as its 0..255 level round(clip(x, -1, 1) 255) with the 1/255 folded
+// into w (entry.pack_bf16(levels=255)); the sum and bias, no activation, one
+// rounding to bf16. Refused as conv_first_forward_wgmma, and for an even f,
+// ys below n or not a multiple of 8, or a plan with no SAME instance (64
+// columns, one slab: entry.same_instances).
+extern "C" int conv_first_forward_wgmma_same(const void* x, const void* w, const float* b,
+                                             void* y, int ys, int N, int H, int W, int c, int f,
+                                             int n, int smem_bytes, void* stream) {
+  const int bad = static_cast<int>(cudaErrorInvalidValue);
+  FirstPlan p;
+  if (N <= 0 || N > 65535 || H < 1 || W < 1 || f % 2 == 0 || first_plan(p, f, c, n) ||
+      p.bn != 64 || p.slabs != 1 || smem_bytes < p.smem || misaligned(x) || misaligned(w) ||
+      misaligned(b) || misaligned(y) || ys < n || ys % 8)
+    return bad;
+  return launch<64, 1, true>(p, x, w, b, y, N, H, W, ys, smem_bytes,
+                             static_cast<cudaStream_t>(stream));
 }

@@ -61,6 +61,11 @@
 //   neighbouring addresses (a tensor copy takes no row of 3 floats). A dx
 //   group after the first adds to what the same thread wrote before.
 //
+// One instance has a SAME twin (kSame; conv_last_forward_wgmma_same): that
+// of the plan of Real-ESRGAN x4plus's conv_last (ops/fused/rrdb.py: 16
+// packed columns over 64-lane boxes; entry.same_instances). The boxes start
+// (f - 1) / 2 up and left of the tile, the copies' zero fill the padding.
+//
 // Measured (chip_smoke.py [layers], RGB 1080p, NVIDIA H100 80GB HBM3,
 // 700 W): L7 0.204 ms, 80% of its byte bound, against cuDNN bf16's 0.687
 // and the mma.sync stage's 0.455 that it replaces; the RGB bf16 chain
@@ -81,8 +86,10 @@
 namespace {
 
 // ta: x as (K, W, H, N), box (L, kLastCols, box_rows, 1); tw: w as (N_pad,
-// K_pad, dgroups f), box (N's lanes, L, 1)
-template <int N, int L, int S>
+// K_pad, dgroups f), box (N's lanes, L, 1). kSame: the layer is SAME-padded,
+// the tile's input corner (f - 1) / 2 up and left of its output corner (the
+// copies bring zeros outside the image); else VALID
+template <int N, int L, int S, bool kSame>
 __global__ void __launch_bounds__(kThreads, 1)
     conv_last_wgmma_kernel(const __grid_constant__ LastPlan p, const float* __restrict__ b,
                            float* __restrict__ y, int OH, int OW, int items, int tiles_x,
@@ -133,6 +140,7 @@ __global__ void __launch_bounds__(kThreads, 1)
             load_w<N, L>(wbuf + (c * slices + sl) * kWSlice, &tw, 0, c * L, sl, w_full);
       }
       Ring ra, rw;
+      const int pad = kSame ? p.f / 2 : 0;
       for (int i = blockIdx.x; i < items; i += gridDim.x) {
         const int ox0 = i % tiles_x * p.out_cols, oy0 = i / tiles_x % tiles_y * p.tile_rows;
         const int img = i / tiles_x / tiles_y;
@@ -141,7 +149,7 @@ __global__ void __launch_bounds__(kThreads, 1)
             for (int g0 = 0; g0 < p.f; g0 += p.gy) {
               mbar_wait_or_trap(a_empty + ra.stage, ra.phase ^ 1);
               mbar_arrive_expect_tx(a_full + ra.stage, p.a_box);
-              tma_load_4d(aring + ra.stage * p.a_box, &ta, c * L, ox0, oy0 + g0, img,
+              tma_load_4d(aring + ra.stage * p.a_box, &ta, c * L, ox0 - pad, oy0 + g0 - pad, img,
                           a_full + ra.stage);
               ra.next(p.a_ring);
               if (w_res) continue;
@@ -287,12 +295,12 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-template <int N, int L, int S>
+template <int N, int L, int S, bool kSame>
 int launch(const LastPlan& p, const void* x, const void* w, const float* b, float* y, int NI,
            int H, int W, int K, int smem_bytes, cudaStream_t stream) {
   const int bad = static_cast<int>(cudaErrorInvalidValue);
   using C = Cols<N>;
-  const int OH = H - p.f + 1, OW = W - p.f + 1;
+  const int OH = kSame ? H : H - p.f + 1, OW = kSame ? W : W - p.f + 1;
   const cuuint64_t adims[4] = {static_cast<cuuint64_t>(K), static_cast<cuuint64_t>(W),
                                static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(NI)};
   const cuuint64_t astrides[3] = {2ull * K, 2ull * K * W, 2ull * K * W * H};
@@ -313,7 +321,7 @@ int launch(const LastPlan& p, const void* x, const void* w, const float* b, floa
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return static_cast<int>(err);
-  auto kernel = conv_last_wgmma_kernel<N, L, S>;
+  auto kernel = conv_last_wgmma_kernel<N, L, S, kSame>;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int grid = static_cast<int>(items < sms ? items : sms);  // one block an SM
@@ -327,9 +335,11 @@ template <int N>
 int launch_n(const LastPlan& p, const void* x, const void* w, const float* b, float* y, int NI,
              int H, int W, int K, int smem_bytes, cudaStream_t s) {
   constexpr int S = N <= 32 ? 2 : 1;
-  return p.lanes == 32 ? launch<N, 32, S>(p, x, w, b, y, NI, H, W, K, smem_bytes, s)
-                       : launch<N, 64, S>(p, x, w, b, y, NI, H, W, K, smem_bytes, s);
+  return p.lanes == 32 ? launch<N, 32, S, false>(p, x, w, b, y, NI, H, W, K, smem_bytes, s)
+                       : launch<N, 64, S, false>(p, x, w, b, y, NI, H, W, K, smem_bytes, s);
 }
+
+bool misaligned(const void* q) { return reinterpret_cast<std::uintptr_t>(q) % 16; }
 
 }  // namespace
 
@@ -344,7 +354,6 @@ extern "C" int conv_last_forward_wgmma(const void* x, const void* w, const float
                                        int N, int H, int W, int K, int f, int n, int smem_bytes,
                                        void* stream) {
   const int bad = static_cast<int>(cudaErrorInvalidValue);
-  const auto misaligned = [](const void* q) { return reinterpret_cast<std::uintptr_t>(q) % 16; };
   LastPlan p;
   if (N <= 0 || N > 65535 || H < f || W < f || last_plan(p, f, K, n) ||
       smem_bytes < p.smem || misaligned(x) || misaligned(w) || misaligned(b) || misaligned(y))
@@ -362,4 +371,21 @@ extern "C" int conv_last_forward_wgmma(const void* x, const void* w, const float
     default:
       return launch_n<128>(p, x, w, b, y, N, H, W, K, smem_bytes, s);
   }
+}
+
+// The last layer of a SAME model (ops/fused/rrdb.py): y (N, H, W, n) f32
+// from x (N, H, W, K) bf16, SAME-padded (f odd: an even f is refused);
+// otherwise as conv_last_forward_wgmma. A plan with no SAME instance (16
+// packed columns over 64-lane boxes: entry.same_instances) is refused.
+extern "C" int conv_last_forward_wgmma_same(const void* x, const void* w, const float* b,
+                                            float* y, int N, int H, int W, int K, int f, int n,
+                                            int smem_bytes, void* stream) {
+  const int bad = static_cast<int>(cudaErrorInvalidValue);
+  LastPlan p;
+  if (N <= 0 || N > 65535 || H < 1 || W < 1 || f % 2 == 0 || last_plan(p, f, K, n) ||
+      p.npad != 16 || p.lanes != 64 || smem_bytes < p.smem ||
+      misaligned(x) || misaligned(w) || misaligned(b) || misaligned(y))
+    return bad;
+  return launch<16, 64, 2, true>(p, x, w, b, y, N, H, W, K, smem_bytes,
+                                 static_cast<cudaStream_t>(stream));
 }

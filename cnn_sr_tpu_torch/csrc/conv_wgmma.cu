@@ -65,6 +65,15 @@
 //   and stored by tensor copies, which do not write past the output's edge
 //   or past n.
 //
+// Two instances have a SAME twin (kSame; conv_layer_forward_wgmma_same): those
+// of the plans Real-ESRGAN x4plus's middle layers reach (ops/fused/rrdb.py:
+// 32 and 64 columns over 64-lane boxes; entry.same_instances). The boxes start
+// (f - 1) / 2 up and left of the tile, so the copies' zero fill is the
+// padding; the input is the first K channels of a wider buffer and the
+// output a channel slice of one (the maps' strides); the epilogue is
+// wgmma_conv.cuh's SameEpi (LeakyReLU or none, f32 residuals, an f32 copy).
+// The VALID instances are as before.
+//
 // Measured (chip_smoke.py [layers], RGB 1080p, NVIDIA H100 80GB HBM3, 700 W):
 // L2 0.117 ms, L3 0.158, L4 0.235, L5 0.412, L6 0.748: 67%, 74%, 67%, 74%
 // and 81% of their bounds, against cuDNN bf16's 0.398, 0.615, 0.717, 1.236
@@ -101,14 +110,18 @@ struct Tile {
 
 // ta: x as (K, W, H, N), box (L, 16, box_rows, 1); tw: w as (N_pad, K_pad,
 // taps), box (BN's lanes, L, 1); to: y as (n, OW, OH, N), box (BN's lanes,
-// 16, 4 S, 1)
-template <int BN, int L, int S>
+// 16, 4 S, 1). kSame: the layer is SAME-padded (the tile's input corner
+// (f - 1) / 2 up and left of its output corner; the copies bring zeros
+// outside the image) and its epilogue is `e`'s; else VALID, bias and ReLU
+// (e unused)
+template <int BN, int L, int S, bool kSame>
 __global__ void __launch_bounds__(kThreads, 1)
     conv_layer_wgmma_kernel(const __grid_constant__ WgmmaPlan p, const float* __restrict__ b,
                             int items, int tiles_x, int tiles_y,
                             const __grid_constant__ CUtensorMap ta,
                             const __grid_constant__ CUtensorMap tw,
-                            const __grid_constant__ CUtensorMap to) {
+                            const __grid_constant__ CUtensorMap to,
+                            const __grid_constant__ SameEpi e) {
   using C = Cols<BN>;
   constexpr int kARow = 2 * L;                    // bytes of an A box row
   constexpr int kRows = 8 * S;                    // the tile's rows
@@ -156,6 +169,7 @@ __global__ void __launch_bounds__(kThreads, 1)
             load_w<BN, L>(wbuf + (c * taps + t) * kWSlice, &tw, 0, c * L, t, w_full);
       }
       Ring ra, rw;
+      const int pad = kSame ? p.f / 2 : 0;
       for (int i = blockIdx.x; i < items; i += gridDim.x) {
         const Tile t(i, chunks, tiles_x, tiles_y, BN, kRows);
         for (int c = 0; c < p.chunks; ++c)
@@ -163,8 +177,8 @@ __global__ void __launch_bounds__(kThreads, 1)
             for (int g0 = 0; g0 < p.f; g0 += p.gy) {
               mbar_wait_or_trap(a_empty + ra.stage, ra.phase ^ 1);
               mbar_arrive_expect_tx(a_full + ra.stage, p.a_box);
-              tma_load_4d(aring + ra.stage * p.a_box, &ta, c * L, t.ox0 + dx, t.oy0 + g0, t.img,
-                          a_full + ra.stage);
+              tma_load_4d(aring + ra.stage * p.a_box, &ta, c * L, t.ox0 + dx - pad,
+                          t.oy0 + g0 - pad, t.img, a_full + ra.stage);
               ra.next(p.a_ring);
               if (w_res) continue;
               const int g1 = min(p.f, g0 + p.gy);
@@ -267,9 +281,9 @@ __global__ void __launch_bounds__(kThreads, 1)
     release(a_empty + prev_a);
     prev_w = prev_a = -1;
 
-    // the epilogue: bias, ReLU, bf16 into this warpgroup's staging once the
-    // previous tile's copies out of it have read it, then one tensor copy a
-    // block of 64 lanes
+    // the epilogue: bias, ReLU (kSame: e's), bf16 into this warpgroup's
+    // staging once the previous tile's copies out of it have read it, then
+    // one tensor copy a block of 64 lanes
     const Tile t(i, chunks, tiles_x, tiles_y, BN, kRows);
     const int warp = tid / 32;
     const int rr = warp * 16 + lane / 4, q2 = (lane % 4) * 2;  // rows rr, rr + 8; lanes q2, q2 + 1
@@ -283,10 +297,24 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
       for (int s = 0; s < S; ++s) {
         const int r = s * kWgSlab + rr;
-        *reinterpret_cast<unsigned*>(blk + swz<C::kRow>(r, c)) =
-            bias_relu_bf16x2(acc[s][4 * c8], acc[s][4 * c8 + 1], b0, b1);
-        *reinterpret_cast<unsigned*>(blk + swz<C::kRow>(r + 8, c)) =
-            bias_relu_bf16x2(acc[s][4 * c8 + 2], acc[s][4 * c8 + 3], b0, b1);
+        if constexpr (kSame) {
+          // staged position r: output row oy0 + 4 g S + r / 16, column ox0 +
+          // r % 16 (0 to 7); position r + 8 is 8 columns on in the same row
+          const int oy = t.oy0 + g * (kRows / 2) + r / kWgTileCols, ox = t.ox0 + r % kWgTileCols;
+          const long long pix = (static_cast<long long>(t.img) * e.oh + oy) * e.ow + ox;
+          const bool in = t.n0 + col < p.n && oy < e.oh;
+          *reinterpret_cast<unsigned*>(blk + swz<C::kRow>(r, c)) =
+              same_bf16x2(e, acc[s][4 * c8], acc[s][4 * c8 + 1], b0, b1, pix, t.n0 + col,
+                          in && ox < e.ow);
+          *reinterpret_cast<unsigned*>(blk + swz<C::kRow>(r + 8, c)) =
+              same_bf16x2(e, acc[s][4 * c8 + 2], acc[s][4 * c8 + 3], b0, b1, pix + 8,
+                          t.n0 + col, in && ox + 8 < e.ow);
+        } else {
+          *reinterpret_cast<unsigned*>(blk + swz<C::kRow>(r, c)) =
+              bias_relu_bf16x2(acc[s][4 * c8], acc[s][4 * c8 + 1], b0, b1);
+          *reinterpret_cast<unsigned*>(blk + swz<C::kRow>(r + 8, c)) =
+              bias_relu_bf16x2(acc[s][4 * c8 + 2], acc[s][4 * c8 + 3], b0, b1);
+        }
       }
     }
     fence_proxy_async();
@@ -302,15 +330,16 @@ __global__ void __launch_bounds__(kThreads, 1)
   if (tid == 0) bulk_wait_read<0>();  // the copies have read the staging
 }
 
-template <int BN, int L, int S>
+template <int BN, int L, int S, bool kSame>
 int launch(const WgmmaPlan& p, const void* x, const void* w, const float* b, void* y, int N,
-           int H, int W, int K, int f, int n, int smem_bytes, cudaStream_t stream) {
+           int H, int W, int K, int f, int n, int xs, int ys, SameEpi e, int smem_bytes,
+           cudaStream_t stream) {
   const int bad = static_cast<int>(cudaErrorInvalidValue);
   using C = Cols<BN>;
-  const int OH = H - f + 1, OW = W - f + 1;
+  const int OH = kSame ? H : H - f + 1, OW = kSame ? W : W - f + 1;
   const cuuint64_t adims[4] = {static_cast<cuuint64_t>(K), static_cast<cuuint64_t>(W),
                                static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(N)};
-  const cuuint64_t astrides[3] = {2ull * K, 2ull * K * W, 2ull * K * W * H};
+  const cuuint64_t astrides[3] = {2ull * xs, 2ull * xs * W, 2ull * xs * W * H};
   const cuuint32_t abox[4] = {L, kWgTileCols, static_cast<cuuint32_t>(p.box_rows), 1};
   const cuuint64_t wdims[3] = {static_cast<cuuint64_t>(p.npad), static_cast<cuuint64_t>(p.kp),
                                static_cast<cuuint64_t>(f) * f};
@@ -318,7 +347,7 @@ int launch(const WgmmaPlan& p, const void* x, const void* w, const float* b, voi
   const cuuint32_t wbox[3] = {C::kLanes, L, 1};
   const cuuint64_t odims[4] = {static_cast<cuuint64_t>(n), static_cast<cuuint64_t>(OW),
                                static_cast<cuuint64_t>(OH), static_cast<cuuint64_t>(N)};
-  const cuuint64_t ostrides[3] = {2ull * n, 2ull * n * OW, 2ull * n * OW * OH};
+  const cuuint64_t ostrides[3] = {2ull * ys, 2ull * ys * OW, 2ull * ys * OW * OH};
   const cuuint32_t obox[4] = {C::kLanes, kWgTileCols, 4 * S, 1};
   CUtensorMap ta, tw, to;
   if (!bf16_map(&ta, x, 4, adims, astrides, abox, swizzle_of(2 * L)) ||
@@ -329,16 +358,18 @@ int launch(const WgmmaPlan& p, const void* x, const void* w, const float* b, voi
   const int tiles_y = (OH + 8 * S - 1) / (8 * S);
   const long long items = static_cast<long long>(N) * tiles_y * tiles_x * (p.npad / BN);
   if (items > 0x7fffffffLL) return bad;
+  e.oh = OH;
+  e.ow = OW;
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return static_cast<int>(err);
-  auto kernel = conv_layer_wgmma_kernel<BN, L, S>;
+  auto kernel = conv_layer_wgmma_kernel<BN, L, S, kSame>;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int grid = static_cast<int>(items < sms ? items : sms);  // one block an SM
   kernel<<<grid, kThreads, smem_bytes, stream>>>(p, b, static_cast<int>(items), tiles_x, tiles_y,
-                                                 ta, tw, to);
+                                                 ta, tw, to, e);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -349,11 +380,16 @@ int launch_bn(const WgmmaPlan& p, const void* x, const void* w, const float* b, 
               int H, int W, int K, int f, int n, int smem_bytes, cudaStream_t s) {
   constexpr int S = BN <= 32 ? 4 : 2;
   if constexpr (BN == 128)
-    return launch<128, 64, S>(p, x, w, b, y, N, H, W, K, f, n, smem_bytes, s);
+    return launch<128, 64, S, false>(p, x, w, b, y, N, H, W, K, f, n, K, n, SameEpi{},
+                                     smem_bytes, s);
   else
-    return p.lanes == 32 ? launch<BN, 32, S>(p, x, w, b, y, N, H, W, K, f, n, smem_bytes, s)
-                         : launch<BN, 64, S>(p, x, w, b, y, N, H, W, K, f, n, smem_bytes, s);
+    return p.lanes == 32 ? launch<BN, 32, S, false>(p, x, w, b, y, N, H, W, K, f, n, K, n,
+                                                    SameEpi{}, smem_bytes, s)
+                         : launch<BN, 64, S, false>(p, x, w, b, y, N, H, W, K, f, n, K, n,
+                                                    SameEpi{}, smem_bytes, s);
 }
+
+bool misaligned(const void* q) { return reinterpret_cast<std::uintptr_t>(q) % 16; }
 
 }  // namespace
 
@@ -369,7 +405,6 @@ extern "C" int conv_layer_forward_wgmma(const void* x, const void* w, const floa
                                         int N, int H, int W, int K, int f, int n, int a_ring,
                                         int smem_bytes, void* stream) {
   const int bad = static_cast<int>(cudaErrorInvalidValue);
-  const auto misaligned = [](const void* q) { return reinterpret_cast<std::uintptr_t>(q) % 16; };
   WgmmaPlan p;
   if (N <= 0 || N > 65535 || H < f || W < f || wgmma_plan(p, f, K, n, a_ring) ||
       smem_bytes < p.smem || misaligned(x) || misaligned(w) || misaligned(b) || misaligned(y))
@@ -387,4 +422,52 @@ extern "C" int conv_layer_forward_wgmma(const void* x, const void* w, const floa
     default:
       return launch_bn<128>(p, x, w, b, y, N, H, W, K, f, n, smem_bytes, s);
   }
+}
+
+// The SAME-padded layer of the SAME models (ops/fused/rrdb.py): y (N, H, W,
+// n) bf16 from x (N, H, W, K), both NHWC with their own channel strides: x
+// the first K channels of a buffer of xs channels a pixel (a channel
+// prefix), y n channels of a buffer of ys channels a pixel from the pointer
+// y (a channel slice: y points at its first channel). The epilogue is
+// SameEpi's (wgmma_conv.cuh): the sum and bias, LeakyReLU(0.2) of it where
+// lrelu is 1, then r0 (f32, r0s channels a pixel) + s0 v where r0 is not
+// null, then r1 + s1 v where r1 is not null; v to y32 (f32, y32s channels a
+// pixel) where y32 is not null; one rounding to bf16 into y. w, b and the
+// plan as conv_layer_forward_wgmma's. Refused (cudaErrorInvalidValue,
+// nothing launched): as there, and xs below K, ys below n, xs or ys not a
+// multiple of 8, lrelu not 0 or 1, an f32 tensor not 8-byte aligned or with
+// a stride below n or odd, or a plan with no SAME instance (32 or 64
+// columns over 64-lane boxes: entry.same_instances).
+extern "C" int conv_layer_forward_wgmma_same(const void* x, int xs, const void* w,
+                                             const float* b, void* y, int ys, int N, int H,
+                                             int W, int K, int f, int n, int lrelu,
+                                             const float* r0, int r0s, float s0, const float* r1,
+                                             int r1s, float s1, float* y32, int y32s, int a_ring,
+                                             int smem_bytes, void* stream) {
+  const int bad = static_cast<int>(cudaErrorInvalidValue);
+  const auto bad32 = [n](const float* r, int rs) {
+    return r != nullptr && (reinterpret_cast<std::uintptr_t>(r) % 8 || rs < n || rs % 2);
+  };
+  WgmmaPlan p;
+  if (N <= 0 || N > 65535 || H < 1 || W < 1 || wgmma_plan(p, f, K, n, a_ring) ||
+      smem_bytes < p.smem || misaligned(x) || misaligned(w) || misaligned(b) || misaligned(y) ||
+      xs < K || xs % 8 || ys < n || ys % 8 || lrelu < 0 || lrelu > 1 ||
+      bad32(r0, r0s) || bad32(r1, r1s) || bad32(y32, y32s))
+    return bad;
+  SameEpi e{};
+  e.res[0] = r0;
+  e.res[1] = r1;
+  e.res_stride[0] = r0s;
+  e.res_stride[1] = r1s;
+  e.scale[0] = s0;
+  e.scale[1] = s1;
+  e.out32 = y32;
+  e.out32_stride = y32s;
+  e.lrelu = lrelu;
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (p.lanes == 64 && p.bn == 32)
+    return launch<32, 64, 4, true>(p, x, w, b, y, N, H, W, K, f, n, xs, ys, e, smem_bytes, s);
+  if (p.lanes == 64 && p.bn == 64)
+    return launch<64, 64, 2, true>(p, x, w, b, y, N, H, W, K, f, n, xs, ys, e, smem_bytes, s);
+  return bad;
 }

@@ -108,6 +108,60 @@ __device__ __forceinline__ unsigned bias_relu_bf16x2(float a, float b, float ba,
   return *reinterpret_cast<const unsigned*>(&h);
 }
 
+// bias and one rounding to bf16 (nearest even) of two sums, packed: no
+// activation (the SAME first layer, basicsr's conv_first)
+__device__ __forceinline__ unsigned bias_bf16x2(float a, float b, float ba, float bb) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a + ba, b + bb);
+  return *reinterpret_cast<const unsigned*>(&h);
+}
+
+// The epilogue of the SAME-padded middle instances (the RRDBNet schedule of
+// ops/fused/rrdb.py): v = sum + bias, LeakyReLU(0.2) of it where `lrelu`,
+// then for each residual k in turn v = res[k] + scale[k] v, all in f32 with
+// no fused multiply-add (the plain version, ops/fused/reference.py:
+// same_layer, rounds each product and sum as this does), then one rounding
+// to bf16. A residual is f32 NHWC of the
+// output's height and width, res_stride[k] channels a pixel, read at the
+// output's own position and channel; null where the launch has none.
+// out32, where not null, takes v in f32 as well (out32_stride channels a
+// pixel): the model's residual stream, which a later launch reads as its
+// residual. out32 may be one of the launch's residuals (in place): each
+// position is read before the same thread writes it.
+struct SameEpi {
+  const float* res[2];
+  long long res_stride[2];
+  float scale[2];
+  float* out32;
+  long long out32_stride;
+  int lrelu;
+  int oh, ow;  // the output's rows and columns
+};
+
+__device__ __forceinline__ float lrelu_of(int lrelu, float v) {
+  return lrelu && v < 0.f ? __fmul_rn(v, 0.2f) : v;
+}
+
+// two neighbouring channels c, c + 1 of pixel `pix` (the output's raster
+// index, image included): the epilogue above, packed; `inside` is false
+// past the output's edge, where no residual is read and nothing is written
+// (the store clips it)
+__device__ __forceinline__ unsigned same_bf16x2(const SameEpi& e, float a, float b, float ba,
+                                                float bb, long long pix, int c, bool inside) {
+  float v0 = lrelu_of(e.lrelu, __fadd_rn(a, ba)), v1 = lrelu_of(e.lrelu, __fadd_rn(b, bb));
+#pragma unroll
+  for (int k = 0; k < 2; ++k)
+    if (e.res[k] != nullptr && inside) {
+      // a plain load, not __ldg: a residual may be this launch's out32
+      const float2 r = *reinterpret_cast<const float2*>(e.res[k] + pix * e.res_stride[k] + c);
+      v0 = __fadd_rn(r.x, __fmul_rn(e.scale[k], v0));
+      v1 = __fadd_rn(r.y, __fmul_rn(e.scale[k], v1));
+    }
+  if (e.out32 != nullptr && inside)
+    *reinterpret_cast<float2*>(e.out32 + pix * e.out32_stride + c) = make_float2(v0, v1);
+  const __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);
+  return *reinterpret_cast<const unsigned*>(&h);
+}
+
 // A ring's next stage and the parity of its phase
 struct Ring {
   int stage = 0, phase = 0;

@@ -1,3 +1,4 @@
+from .rrdbnet import RRDBNet
 from .srcnn import (
     SRCNN,
     ReluBackpropGate,
@@ -12,6 +13,7 @@ from .srcnn import (
 )
 
 __all__ = [
+    "RRDBNet",
     "SRCNN",
     "ReluBackpropGate",
     "center_crop",

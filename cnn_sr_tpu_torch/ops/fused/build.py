@@ -149,6 +149,14 @@ def load_library() -> ctypes.CDLL:
     lib.conv_layer_forward_wgmma.restype = i
     lib.conv_last_forward_wgmma.argtypes = [p] * 4 + [i] * 7 + [p]
     lib.conv_last_forward_wgmma.restype = i
+    lib.conv_first_forward_wgmma_same.argtypes = [p] * 4 + [i] * 8 + [p]
+    lib.conv_first_forward_wgmma_same.restype = i
+    f = ctypes.c_float
+    lib.conv_layer_forward_wgmma_same.argtypes = ([p, i, p, p, p] + [i] * 8
+                                                  + [p, i, f, p, i, f, p, i] + [i] * 2 + [p])
+    lib.conv_layer_forward_wgmma_same.restype = i
+    lib.conv_last_forward_wgmma_same.argtypes = [p] * 4 + [i] * 7 + [p]
+    lib.conv_last_forward_wgmma_same.restype = i
     lib.winograd_f2x3_forward.argtypes = [p] * 3 + [i] * 7 + [p]
     lib.winograd_f2x3_forward.restype = i
     lib.winograd_input_transform.argtypes = [p] * 2 + [i] * 6 + [p]

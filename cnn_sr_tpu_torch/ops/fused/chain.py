@@ -31,12 +31,16 @@ import torch
 # (``LAUNCHES``) and in bf16 (``LAUNCHES_BF16``), and of the bf16 ones
 # those of the first-layer kernel (``LAUNCHES_FIRST``), of the wgmma stage
 # (``LAUNCHES_WGMMA``) and of the last-layer kernel (``LAUNCHES_LAST``); the
-# smoke run reads them to show that the main path went through the kernels
+# smoke run reads them to show that the main path went through the kernels;
+# of the bf16 ones those of a SAME model (``LAUNCHES_SAME``, ``same_forward``)
+# and of them those with a residual epilogue (``LAUNCHES_RESIDUAL``)
 LAUNCHES = 0
 LAUNCHES_BF16 = 0
 LAUNCHES_FIRST = 0
 LAUNCHES_WGMMA = 0
 LAUNCHES_LAST = 0
+LAUNCHES_SAME = 0
+LAUNCHES_RESIDUAL = 0
 
 
 def layer_forward(lib, src: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -123,3 +127,65 @@ def chain_forward(params, x: torch.Tensor, plans, bf16: bool = False) -> torch.T
             layer_forward(lib, src, wt, bt, dst, plan, i == 0, i == last, bf16, stream)
             src = dst
     return y
+
+
+def same_forward(lib, src: torch.Tensor, k: int, w: torch.Tensor, b: torch.Tensor,
+                 dst: torch.Tensor, c0: int, plan, lrelu: bool, residuals=(), out32=None,
+                 stream: int = 0) -> None:
+    """Launch one SAME-padded layer of a SAME model (``ops/fused/rrdb.py``)
+    on ``stream``: the first ``k`` channels of ``src`` (N, H, W, XS) into
+    channels ``c0`` .. ``c0 + n`` of ``dst`` (N, H, W, YS), n the plan's.
+    ``plan`` names the kernel as in ``layer_forward``, and must be one of
+    ``entry.same_instances`` (the kernels refuse others: RuntimeError): a
+    ``FirstPlan`` (``src`` f32 RGB in 0..1 taken as 0..255 levels, ``w`` from
+    ``entry.pack_bf16`` with ``levels=255``, no activation), a ``WgmmaPlan``
+    (``src`` bf16, any XS and YS) or a ``LastPlan`` (``dst`` f32 (N, H, W,
+    n), no activation). Only a ``WgmmaPlan`` takes ``lrelu``, LeakyReLU(0.2)
+    after the bias (``csrc/wgmma_conv.cuh``), ``residuals``, at most two
+    ``(tensor, scale)`` of f32 (N, H, W, RS) whose first n channels at the
+    output's position make the epilogue ``r + scale·v`` in turn, and
+    ``out32``, an f32 (N, H, W, RS) whose first n channels take the result
+    before its rounding to bf16; ``out32`` may be one of the residuals. Pointers must be 16-byte
+    aligned (ValueError); the kernels refuse channel strides that are not
+    multiples of 8 (RuntimeError)."""
+    global LAUNCHES_BF16, LAUNCHES_FIRST, LAUNCHES_WGMMA, LAUNCHES_LAST, LAUNCHES_SAME
+    global LAUNCHES_RESIDUAL
+    from .entry import FirstPlan, LastPlan, WgmmaPlan
+
+    n, h, wd, xs = src.shape
+    ys = dst.shape[3]
+    y = dst.data_ptr() + c0 * dst.element_size()
+    if (lrelu or residuals or out32 is not None) and not isinstance(plan, WgmmaPlan):
+        raise ValueError("only a middle layer takes LeakyReLU, residuals and an f32 copy")
+    if len(residuals) > 2:
+        raise ValueError(f"at most two residuals, got {len(residuals)}")
+    if any(t.data_ptr() % 16 for t in (src, w, b)) or y % 16:
+        raise ValueError("the wgmma kernels' tensor copies need 16-byte aligned tensors")
+    if isinstance(plan, LastPlan) and xs != k:
+        raise ValueError(f"the last layer reads all of its input's channels, not {k} of {xs}")
+    if isinstance(plan, FirstPlan):
+        err = lib.conv_first_forward_wgmma_same(src.data_ptr(), w.data_ptr(), b.data_ptr(), y,
+                                                ys, n, h, wd, xs, plan.f, plan.n, plan.smem,
+                                                stream)
+    elif isinstance(plan, LastPlan):
+        err = lib.conv_last_forward_wgmma_same(src.data_ptr(), w.data_ptr(), b.data_ptr(), y, n,
+                                               h, wd, k, plan.f, plan.n, plan.smem, stream)
+    elif isinstance(plan, WgmmaPlan):
+        res = [(r.data_ptr(), r.shape[3], float(s)) for r, s in residuals]
+        res += [(None, 0, 0.0)] * (2 - len(res))
+        o32 = (None, 0) if out32 is None else (out32.data_ptr(), out32.shape[3])
+        err = lib.conv_layer_forward_wgmma_same(src.data_ptr(), xs, w.data_ptr(), b.data_ptr(),
+                                                y, ys, n, h, wd, k, plan.f, plan.n, int(lrelu),
+                                                *res[0], *res[1], *o32, plan.a_ring, plan.smem,
+                                                stream)
+    else:
+        raise TypeError(f"no bf16 kernel takes a {type(plan).__name__}")
+    if err:
+        raise RuntimeError(f"{type(plan).__name__} SAME launch failed: "
+                           + lib.cnn_sr_error_string(err).decode())
+    LAUNCHES_BF16 += 1
+    LAUNCHES_SAME += 1
+    LAUNCHES_FIRST += int(isinstance(plan, FirstPlan))
+    LAUNCHES_WGMMA += int(isinstance(plan, WgmmaPlan))
+    LAUNCHES_LAST += int(isinstance(plan, LastPlan))
+    LAUNCHES_RESIDUAL += int(bool(residuals))

@@ -41,6 +41,7 @@ or raises. There is no fallback from one to another.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -631,6 +632,35 @@ def bf16_layer_plan(f: int, k: int, n: int, first: bool = False, last: bool = Fa
     return wgmma_layer_plan(f, k, n)
 
 
+def plan_instance(plan) -> tuple:
+    """The kernel instance a bf16 chain plan launches: ``("first", bn,
+    slabs)``, ``("wgmma", bn, lanes, slabs)`` or ``("last", npad, lanes,
+    slabs)``, as ``first_instances``, ``wgmma_instances`` and
+    ``last_instances`` list them."""
+    if isinstance(plan, FirstPlan):
+        return ("first", plan.bn, plan.slabs)
+    if isinstance(plan, WgmmaPlan):
+        return ("wgmma", plan.bn, plan.lanes, plan.slabs)
+    return ("last", plan.npad, plan.lanes, plan.slabs)
+
+
+@functools.lru_cache(maxsize=None)
+def same_instances() -> tuple:
+    """The instances that the three wgmma kernels also compile in their SAME
+    form (``conv_*_forward_wgmma_same``), each a ``plan_instance``: those of
+    the plans that Real-ESRGAN x4plus's layers reach (an RRDBNet of 64
+    features and 32 growth channels over RGB, ``ops/fused/rrdb.py``). The
+    kernels refuse a SAME launch on any other plan; compiling every VALID
+    instance's SAME twin would cost each checkout's first build the time of
+    instances that no SAME model launches."""
+    from ...utils.config import rrdbnet_layers
+
+    layers = rrdbnet_layers(3, 64, 32, 1)
+    return tuple(sorted({plan_instance(bf16_layer_plan(f, k, n, first=i == 0,
+                                                       last=i == len(layers) - 1))
+                         for i, (f, k, n) in enumerate(layers)}))
+
+
 # The bf16 fused kernel (csrc/fused_wgmma.cu, its plan
 # csrc/fused_wgmma_plan.cuh): three consumer warpgroups, conv2 tiles of at
 # most 32 x 32 positions in 8 x 8 patches, at most 96 conv2 sums a thread,
@@ -817,18 +847,19 @@ def _check(params, x, precision: str = "f32"):
     return (precision,) + route(x.shape[3], layers, ELEM_BYTES[precision])
 
 
-def pack_bf16(w: torch.Tensor, b: torch.Tensor, first: bool):
+def pack_bf16(w: torch.Tensor, b: torch.Tensor, first: bool, levels: int = 127):
     """The bf16 kernels' operands of one layer, ``w`` (f, f, k, n) HWIO and
     ``b`` (n,): the weights tap-major ``(taps, K_pad, N_pad)`` bf16 and the
     bias ``(N_pad,)`` f32, zero in every padding lane. The first layer
-    (``first``) is dx-expanded with the 1/127 fold: ``f`` taps (one per
-    dy) whose row ``dx·k + ci`` holds ``fold_first(w)[dy, dx, ci]``, K_pad
-    = ``kx_lanes(f, k)``; any other layer has ``f²`` taps (dy·f + dx) of
+    (``first``) is dx-expanded with the 1/127 fold (1/``levels``: 255 for a
+    SAME model's 0..255 input levels): ``f`` taps (one per dy) whose row
+    ``dx·k + ci`` holds ``fold_first(w, levels)[dy, dx, ci]``, K_pad =
+    ``kx_lanes(f, k)``; any other layer has ``f²`` taps (dy·f + dx) of
     ``w[dy, dx].to(bf16)``, K_pad = ``k_pad(k)``."""
     f, _, k, n = w.shape
     npad = n_pad(n)
     if first:
-        taps, kp, wb = f, kx_lanes(f, k), reference.fold_first(w).reshape(f, f * k, n)
+        taps, kp, wb = f, kx_lanes(f, k), reference.fold_first(w, levels).reshape(f, f * k, n)
     else:
         taps, kp, wb = f * f, k_pad(k), w.to(torch.bfloat16).reshape(f * f, k, n)
     wp = torch.zeros((taps, kp, npad), dtype=torch.bfloat16, device=w.device)
@@ -879,11 +910,12 @@ def f32_weights(params, nbs=FUSED_NB):
     return [packed_f32(layer["w"], layer["b"], nb) for layer, nb in zip(params, nbs)]
 
 
-def packed_bf16(w: torch.Tensor, b: torch.Tensor, first: bool):
-    """``pack_bf16(w, b, first)``, made once per weight tensor (and again
-    only after ``w`` or ``b`` changes in place): the result is kept on
+def packed_bf16(w: torch.Tensor, b: torch.Tensor, first: bool, levels: int = 127):
+    """``pack_bf16(w, b, first, levels)``, made once per weight tensor (and
+    again only after ``w`` or ``b`` changes in place): the result is kept on
     ``w`` itself, beside the version counters."""
-    return _packed(w, b, "_cnn_sr_bf16", first, lambda: pack_bf16(w, b, first))
+    return _packed(w, b, "_cnn_sr_bf16", (first, levels),
+                   lambda: pack_bf16(w, b, first, levels))
 
 
 def fused_image(wp: torch.Tensor) -> torch.Tensor:

@@ -35,16 +35,18 @@ from ...models.srcnn import conv_layer, forward, strict_f32
 PRECISIONS = ("f32", "bf16")
 
 
-def quantize(x: torch.Tensor) -> torch.Tensor:
+def quantize(x: torch.Tensor, levels: int = 127) -> torch.Tensor:
     """The int8 plane's values, ``round(clip(x, −1, 1) · 127)`` (ties to
-    even, as ``jnp.round``), kept as f32 integers in [−127, 127]."""
-    return torch.round(torch.clamp(x, -1.0, 1.0) * 127.0)
+    even, as ``jnp.round``), kept as f32 integers in [−127, 127]. A SAME
+    model's first layer takes ``levels`` 255: its RGB input in 0..1 as its
+    0..255 levels, each exact in bf16."""
+    return torch.round(torch.clamp(x, -1.0, 1.0) * float(levels))
 
 
-def fold_first(w: torch.Tensor) -> torch.Tensor:
-    """First-layer weights with the int8 plane's 1/127 scale folded in,
-    rounded once to bf16: ``(w1 / 127.0).astype(bf16)``."""
-    return (w / 127.0).to(torch.bfloat16)
+def fold_first(w: torch.Tensor, levels: int = 127) -> torch.Tensor:
+    """First-layer weights with the int8 plane's 1/127 scale (1/``levels``)
+    folded in, rounded once to bf16: ``(w1 / 127.0).astype(bf16)``."""
+    return (w / float(levels)).to(torch.bfloat16)
 
 
 def round_bf16(t: torch.Tensor) -> torch.Tensor:
@@ -102,3 +104,41 @@ def tap_layer(x: torch.Tensor, wp: torch.Tensor, bp: torch.Tensor, f: int, n: in
     if not last:
         y = round_bf16(torch.relu(y))
     return y.contiguous()
+
+
+LRELU_SLOPE = 0.2  # a SAME launch's LeakyReLU (csrc/wgmma_conv.cuh: SameEpi)
+
+
+def same_layer(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, lrelu: bool = False,
+               residuals=(), first: bool = False, last: bool = False,
+               precision: str = "bf16") -> tuple:
+    """Plain version of one SAME launch of a SAME model (``ops/fused/rrdb.py``
+    on ``csrc/conv_first_wgmma.cu``, ``conv_wgmma.cu`` and
+    ``conv_last_wgmma.cu``): ``x`` (N, H, W, k) f32 through ``w`` (f, f, k,
+    n) HWIO, zero-padded by (f − 1) / 2, into (N, H, W, n) f32. The sum
+    and the bias, then LeakyReLU(0.2) where ``lrelu``, then for each ``(r, s)`` of ``residuals`` in
+    turn ``r + s·v`` (``r`` (N, H, W, n)), each product and sum rounded in
+    f32 as the kernels' epilogue rounds them. In bf16 the operands are bf16
+    values (the first layer's input its 0..255 levels, ``quantize(x, 255)``,
+    with 1/255 folded into w, ``fold_first(w, 255)``), the products summed
+    in f32, and the result rounded once to bf16 unless ``last``; in f32
+    nothing is rounded. Each image is computed alone, so that its answer
+    does not depend on the batch. Returns ``(y, v)``: the stored output and
+    the f32 result before its rounding (the launch's ``out32``)."""
+    bf16 = precision == "bf16"
+    if bf16:
+        if first:
+            x, w = quantize(x, 255), fold_first(w, 255)
+        w = w.to(torch.bfloat16).to(torch.float32)
+    pad = w.shape[0] // 2
+    wt = w.permute(3, 2, 0, 1)
+    with strict_f32():
+        # an image at a time: the CPU's convolution sums in an order that
+        # depends on the batch, and each image's answer must not
+        v = torch.cat([torch.nn.functional.conv2d(im.permute(0, 3, 1, 2), wt, b, padding=pad)
+                       for im in x.split(1)]).permute(0, 2, 3, 1)
+    if lrelu:
+        v = torch.where(v < 0, v * LRELU_SLOPE, v)
+    for r, s in residuals:
+        v = r + s * v
+    return (round_bf16(v) if bf16 and not last else v).contiguous(), v

@@ -51,7 +51,8 @@ LAYERS = {"RGB L1 3->32": ((3, 3, 32), (1, 1080, 1920)),
 PARTS = {
     "raw loads": [("            cp_async16_n(dst + j, bytes ? src + j : x, bytes);\n",
                    "            (void)bytes;\n", 1),
-                  ("cp_async4(dst + j, j < in ? src + j : x, j < in);\n", "(void)in;\n", 1)],
+                  ("cp_async4(dst + j, j < in ? src + j : x, j < in);\n", "(void)in;\n", 1),
+                  ("cp_async4(dst + j, ok ? x + at + j : x, ok);\n", "(void)ok, (void)at;\n", 1)],
     "16-byte copies": [("      const bool vec = reinterpret_cast<std::uintptr_t>(src) % 16 == 0 && "
                         "W * p.k % 4 == 0;\n", "      const bool vec = false;\n", 1)],
     "expand": [("    for (int pos = threadIdx.x; pos < win_pos; pos += kFirstConsumers) {\n",

@@ -30,6 +30,13 @@ for the deeper waifu2x-style RGB variants): a config may instead provide
 * ``learning_rates`` must then have one entry per layer, and either a
   single ``parameters_distribution`` (applied to all layers) or
   per-layer ``parameters_distribution_<i>`` objects may be given.
+
+An inference-only architecture config names its ``arch`` instead: ``{"arch":
+"rrdbnet", "channels": 3, "scale": 4, "num_feat": 64, "num_grow_ch": 32,
+"num_block": 23}`` is Real-ESRGAN x4plus (basicsr's ``RRDBNet``), parsed into
+an ``RRDBNetConfig``: its layers are derived from those keys
+(``rrdbnet_layers``), its convolutions are SAME (``total_padding()`` 0) and it
+takes no training keys. The JAX package reads no such config.
 """
 
 from __future__ import annotations
@@ -107,6 +114,18 @@ class LayerSpec:
 @dataclass
 class Config:
     """Parsed + validated network/training configuration."""
+
+    # the architecture: "srcnn", a stack of VALID convolutions (every config
+    # the reference reads); ``RRDBNetConfig`` sets "rrdbnet". A class
+    # attribute, not a field, so that the JAX package's Config compares equal
+    arch = "srcnn"
+
+    @property
+    def same(self) -> bool:
+        """Whether the model's convolutions are SAME-padded (an inference-only
+        arch, ``RRDBNetConfig``): nothing shrinks, and the paths whose
+        guarantees need VALID convolutions refuse it."""
+        return self.arch != "srcnn"
 
     # per-layer filter counts; the final entry is the output channel count
     filter_counts: List[int] = field(default_factory=list)   # [n1, n2, ..., channels]
@@ -228,6 +247,72 @@ class Config:
         return "\n".join(lines)
 
 
+def rrdbnet_layers(channels: int, num_feat: int, num_grow_ch: int, num_block: int) -> list:
+    """basicsr's ``RRDBNet`` (scale 4) as ``[(f, k, n), ...]`` in its
+    ``state_dict`` order: conv_first, then ``body.{b}.rdb{1,2,3}.conv{1..5}``
+    (inputs num_feat + i num_grow_ch, outputs num_grow_ch, conv5 back to
+    num_feat), conv_body, conv_up1, conv_up2, conv_hr, conv_last; every
+    convolution 3x3 SAME."""
+    rdb = [(3, num_feat + i * num_grow_ch, num_grow_ch) for i in range(4)]
+    rdb.append((3, num_feat + 4 * num_grow_ch, num_feat))
+    trunk = rdb * 3 * num_block
+    head = [(3, num_feat, num_feat)] * 4 + [(3, num_feat, channels)]
+    return [(3, channels, num_feat)] + trunk + head
+
+
+@dataclass
+class RRDBNetConfig(Config):
+    """An inference-only RRDBNet (ESRGAN, Real-ESRGAN x4plus): ``channels``
+    in and out, ``scale`` 4, its widths and blocks. ``filter_counts`` and
+    ``spatial_sizes`` list its 3 + 15 ``num_block`` + 5 convolutions
+    (``rrdbnet_layers``); every one is SAME, so nothing shrinks."""
+
+    arch = "rrdbnet"
+    scale: int = 4
+    num_feat: int = 64
+    num_grow_ch: int = 32
+    num_block: int = 23
+
+    def layers(self) -> list:
+        return rrdbnet_layers(self.channels, self.num_feat, self.num_grow_ch, self.num_block)
+
+    def total_padding(self) -> int:
+        return 0
+
+    def layer_specs(self) -> List[LayerSpec]:
+        """Each convolution with its true input width (a dense block's read
+        its concatenated inputs); ``relu`` marks the LeakyReLU ones."""
+        layers = self.layers()
+        last_rdb = 1 + 15 * self.num_block
+        specs = []
+        for i, (f, k, n) in enumerate(layers):
+            rdb_conv = 1 <= i < last_rdb and (i - 1) % 5 < 4
+            specs.append(LayerSpec(f=f, n_in=k, n_out=n,
+                                   relu=rdb_conv or last_rdb + 1 <= i < len(layers) - 1))
+        return specs
+
+    def validate(self) -> None:
+        _require(self.scale == 4, "rrdbnet: scale must be 4 (two nearest x2 upsamples)")
+        _require(self.channels > 0, "rrdbnet: channels should be >0")
+        _require(min(self.num_feat, self.num_grow_ch, self.num_block) > 0,
+                 "rrdbnet: num_feat, num_grow_ch and num_block should be >0")
+        _require(self.num_feat % 8 == 0 and self.num_grow_ch % 8 == 0,
+                 "rrdbnet: num_feat and num_grow_ch must be multiples of 8")
+
+
+def _parse_rrdbnet(raw: dict) -> RRDBNetConfig:
+    try:
+        keys = {k: int(raw[k]) for k in ("scale", "num_feat", "num_grow_ch", "num_block")}
+    except KeyError as e:
+        raise ConfigError(f"rrdbnet: missing required config field: {e}") from e
+    channels = int(raw.get("channels", 3))
+    layers = rrdbnet_layers(channels, keys["num_feat"], keys["num_grow_ch"], keys["num_block"])
+    cfg = RRDBNetConfig(filter_counts=[n for _, _, n in layers],
+                        spatial_sizes=[f for f, _, _ in layers], channels=channels, **keys)
+    cfg.validate()
+    return cfg
+
+
 def _read_distribution(obj: dict) -> ParametersDistribution:
     return ParametersDistribution(
         mean_w=float(obj.get("mean_w", 0.0)),
@@ -251,6 +336,11 @@ def parse_config(raw: dict, base_dir: Optional[str] = None) -> Config:
 
     if not isinstance(raw, dict):
         raise ConfigError("config root must be a JSON object")
+    arch = raw.get("arch", "srcnn")
+    if arch == "rrdbnet":
+        return _parse_rrdbnet(raw)
+    if arch != "srcnn":
+        raise ConfigError(f"unknown arch {arch!r} (srcnn or rrdbnet)")
 
     channels = int(raw.get("channels", 1))
     params_file = raw.get("parameters_file") or None
